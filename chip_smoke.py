@@ -3,16 +3,29 @@
 
     python3 chip_smoke.py
 
-Builds both CUDA kernels of the seeded banded path from
-graphaligner_tpu_torch/csrc/ with nvcc (sm_90a), drives the port's main
-path through its public entry points under GA_NO_FALLBACK=1 — longsim
-tiled x10 (1,000 reads of ~10 kb, -b 35), sim at -b 35 and at -b 5 -B 20 —
-and holds every alignment byte for byte against the reference binary's
-goldens. Kernel launches are counted over that run (both must be > 0,
+Builds the three CUDA kernels from graphaligner_tpu_torch/csrc/ with nvcc
+(sm_90a, one nvcc per source, all at once) and the native host library
+with g++, then drives the port's two paths through their public entry
+points under GA_NO_FALLBACK=1:
+
+- seeded banded mode (K1 banded_cell, K2 walk_moves): longsim tiled x10
+  (1,000 reads of ~10 kb, -b 35), sim at -b 35 and at -b 5 -B 20, every
+  alignment byte for byte against the reference binary's goldens;
+- exhaustive mode, -i (K3 exhaustive), through ``align_reads``:
+  smallexample, sim (20 reads on bubbles.vg) and the longsim graph x the
+  sim reads tiled x8 (160 lanes), every read byte for byte against the
+  JAX-made goldens of tests/fixtures/torch/.
+
+Each path's kernel launches are counted over its run (each must be > 0,
 host-fallback lanes must be 0). Then each kernel is held against its plain
 torch version on the card, on arguments recorded from that run: K1's
-outputs bit for bit on its widest longsim call, and for every K2 call the
-fail flags of every lane and every decoded trace exactly.
+outputs bit for bit on its widest longsim call, for every K2 call the fail
+flags of every lane and every decoded trace exactly, and K3's six slabs
+bit for bit on its sim call and, through its cyclic fixpoint, on
+sim/cyclic.gfa (where a one-pass cap must flag every lane). Each kernel's
+bound (the larger of its bytes over the memory rate and its integer
+operations over the card's int32 issue rate) is computed from the recorded
+arguments, K2's from the walk that ran.
 
 Prints the card's name and power limit, versions, build time, per-corpus
 rates, one JSON line of kernel results, and last
@@ -27,12 +40,32 @@ import json
 import os
 import subprocess
 import sys
+import tempfile
 import time
+from concurrent.futures import ThreadPoolExecutor
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 FIX = os.path.join(ROOT, "tests", "fixtures")
 INT32_MAX = 2**31 - 1
 TILE = 10
+TILE_I = 8  # -i at the repo's scale: longsim graph x sim reads x8
+
+# bound_ms: HBM rate of the H100 SXM (NVIDIA data sheet), and Hopper's 64
+# INT32 lanes per SM (the architecture white paper), times the SM count and
+# the card's maximum SM clock read below
+HBM_BYTES_PER_S = 3.35e12
+INT32_LANES_PER_SM = 64
+# integer operations per unit of work, counted from the kernels' sources
+# (32-bit operations; a 64-bit word op counts as two)
+K1_OPS_VALID_CELL = 110  # meta decode, chain Myers advance, fused column
+K1_OPS_IDLE_CELL = 20  # decode and the INF column of a cell past the band
+K1_OPS_PRED = 590  # pred advance + differenceMasks merge (wordops.cuh)
+K2_OPS_STEP = 130  # one walk step: up to 3 candidate scores, K_in = 2
+K2_OPS_SLOT = 6  # per band slot per walked slice: offsets, slot search
+K3_OPS_CHAIN = 48  # one within-node Myers step, or a source's free start
+# a node start merging its in-neighbours costs one pred advance and merge
+# per in-neighbour, as K1 counts it (K1_OPS_PRED), whatever way the kernel
+# merges
 
 
 def fail(msg: str) -> None:
@@ -179,7 +212,33 @@ def timed(fn):
     return out, start.elapsed_time(end)
 
 
-def compare_k1(rec):
+def int32_rate() -> float:
+    """int32 operations per second the card can issue: SMs x 64 INT32
+    lanes x the maximum SM clock nvidia-smi reports."""
+    import torch
+
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.max.sm", "--format=csv,noheader,nounits"],
+        capture_output=True, text=True, timeout=60,
+    )
+    mhz = float(smi.stdout.strip().splitlines()[0])
+    return sms * INT32_LANES_PER_SM * mhz * 1e6
+
+
+def bound(nbytes, ops, rate):
+    """(bound_ms, bound_by): the larger of bytes over the memory rate and
+    integer operations over the int32 rate."""
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = ops / rate * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def nbytes(tensors):
+    return sum(t.numel() * t.element_size() for t in tensors)
+
+
+def compare_k1(rec, rate):
     import torch
 
     from graphaligner_tpu_torch.ops import banded_cell as k1
@@ -195,13 +254,70 @@ def compare_k1(rec):
             fail(f"K1 {name} differs from its plain version (max {diff})")
     ms = cuda_ms(lambda: k1.banded_cell(*args, **kw), 20)
     Cm, B = args[0].shape
+    meta1, meta2 = (a.to(torch.int64) for a in args[:2])
+    vc = ((meta1 >> 10) & 1) == 1
+    st = ((meta1 >> 8) & 1) == 1
+    preds = sum(int((((meta2 >> (6 * k + 5)) & 1) == 1).logical_and(st).sum())
+                for k in range(kw["K_in"]))
+    ops = (int(vc.sum()) * K1_OPS_VALID_CELL
+           + int((~vc).sum()) * K1_OPS_IDLE_CELL + preds * K1_OPS_PRED)
+    bms, by = bound(nbytes(list(args) + list(got)), ops, rate)
     print(f"K1 banded_cell vs plain at Cm={Cm} B={B} Nm={args[7].shape[1]}: "
-          f"bit-identical; kernel {ms:.4f} ms, plain {plain_ms:.1f} ms",
-          flush=True)
-    return err, ms, plain_ms
+          f"bit-identical; kernel {ms:.4f} ms, plain {plain_ms:.1f} ms; bound "
+          f"{bms:.5f} ms by {by} ({nbytes(list(args) + list(got))} B, {ops} "
+          f"int32 ops), share {bms / ms:.4f}", flush=True)
+    return err, ms, plain_ms, bms, by
 
 
-def compare_k2(rec):
+def k2_work(args, outs, decode, traces):
+    """(bytes, int32 operations) that one K2 call's walk needs, counted
+    from the walk that ran. Bytes, per lane with a decoded trace: the packed
+    column (20 B) of each cell (slice, position) the trace visits and of
+    each candidate it must weigh there (the node's previous position, or at
+    a node start each in-neighbour's last position); at row 0 the previous
+    slice's last-row word (4 B) at those cells; the read code (1 B) of each
+    row; the four band-table words (16 B) of each (slice, node) met. A lane
+    without a trace (its walk failed) counts one column and one code a step.
+    Every lane reads its 19 state words and writes its moves up to its last
+    step and 18 words of flags and state. Operations: K2_OPS_STEP a step,
+    K2_OPS_SLOT a band slot of each walked slice."""
+    import numpy as np
+
+    Nm = args[1].shape[1]
+    used = outs[3][0].cpu().numpy().astype(np.int64)
+    sk_in = args[10][0].cpu().numpy().astype(np.int64)
+    sk_out = outs[2][0].cpu().numpy().astype(np.int64)
+    walked = np.where(used > 0, sk_in - sk_out + 1, 0)
+    ops = int(used.sum()) * K2_OPS_STEP + int(walked.sum()) * Nm * K2_OPS_SLOT
+    moved = 4 * 19 * len(used) + 4 * int((used // 8 + 1 + 18).sum())
+    traced = np.zeros(len(used), dtype=bool)
+    if decode is not None:
+        (lanes, _, _, node_start, node_end, pos2node, in_nbrs, *_), _ = decode
+        wk, rk, nk = traces
+        BP, N = len(pos2node), len(node_start)
+        for j, b in enumerate(lanes):
+            n = int(nk[j])
+            w, r = wk[j, :n], rk[j, :n]
+            sl, node = r // 64, pos2node[w].astype(np.int64)
+            start, r0 = w == node_start[node], r % 64 == 0
+            cells = [(sl, w, node, r0),
+                     (sl[~start], w[~start] - 1, node[~start], r0[~start])]
+            for k in range(in_nbrs.shape[1]):
+                p = in_nbrs[node, k].astype(np.int64)
+                ok = start & (p >= 0)
+                cells.append((sl[ok], node_end[p[ok]] - 1, p[ok], r0[ok]))
+            c_sl, c_w, c_node, c_r0 = (np.concatenate(x) for x in zip(*cells))
+            below = c_r0 & (c_sl > 0)
+            moved += 20 * len(np.unique(c_sl * BP + c_w))
+            moved += 4 * len(np.unique((c_sl[below] - 1) * BP + c_w[below]))
+            moved += len(np.unique(r))
+            moved += 16 * len(np.unique(c_sl * N + c_node))
+            traced[b] = True
+    moved += 21 * int(used[~traced].sum())
+    return moved, ops
+
+
+def compare_k2(rec, rate):
     """Every K2 call of the main path against the plain walk on the same
     arguments: fail flags on every lane, decoded traces of every live lane.
     Times the kernel and the plain walk on the largest block."""
@@ -213,6 +329,7 @@ def compare_k2(rec):
 
     err = n_lanes = n_traces = 0
     largest = max(rec.k2, key=lambda r: r[0][0].numel())
+    largest_traces = None
     for call in rec.k2:
         args, kw, fail_main, decode = call
         moves_k, fail_k, _, used_k = k2.walk_moves(*args, **kw)
@@ -240,6 +357,8 @@ def compare_k2(rec):
             for m in (moves_k, moves_p)
         ]
         (wk, rk, nk), (wp, rp, np_) = traces
+        if call is largest:
+            largest_traces = traces[0]
         if not np.array_equal(nk, np_):
             fail("K2 decoded trace lengths differ from the plain version's")
         for j in range(len(nk)):
@@ -254,11 +373,253 @@ def compare_k2(rec):
     args, kw = largest[:2]
     ms = cuda_ms(lambda: k2.walk_moves(*args, **kw), 3)
     K1_, _, Cm, B = args[0].shape
+    outs = k2.walk_moves(*args, **kw)
+    moved, ops = k2_work(args, outs, largest[3], largest_traces)
+    bms, by = bound(moved, ops, rate)
     print(f"K2 walk_moves vs plain over {len(rec.k2)} calls: fail flags equal "
           f"on all {n_lanes} lanes, {n_traces} decoded traces identical; at "
           f"K={K1_ - 1} Cm={Cm} B={B} kernel {ms:.3f} ms, plain "
-          f"{plain_ms:.1f} ms", flush=True)
-    return err, ms, plain_ms
+          f"{plain_ms:.1f} ms; bound {bms:.5f} ms by {by} ({moved} B, {ops} "
+          f"int32 ops), share {bms / ms:.4f}", flush=True)
+    return err, ms, plain_ms, bms, by
+
+
+class K3Recorder:
+    """Records every K3 call of the -i run at its call site in core.engine:
+    the corpus it served, its arguments (the schedule and Eq words, small)
+    and its time on the card (CUDA events around the launch). Also splits
+    each corpus's wall on the host clock: the BatchAligner's set-up
+    (schedule, component order, initial slice) and compute_tables (K3, the
+    copy of the slabs to the host, the per-node minima)."""
+
+    def __init__(self):
+        import torch
+
+        from graphaligner_tpu_torch.core import engine
+
+        self.calls = []  # (corpus, args, kwargs, ms)
+        self.split = {}  # corpus -> {"setup": s, "tables": s}
+        self.corpus = None
+        self._engine = engine
+        self._orig = (engine.exhaustive, engine.BatchAligner.__init__,
+                      engine.BatchAligner.compute_tables)
+        k3, init, tables = self._orig
+
+        def rec(*args, **kw):
+            out, ms = timed(lambda: k3(*args, **kw))
+            self.calls.append((self.corpus, [a.clone() for a in args], kw, ms))
+            return out
+
+        def clocked(key, fn):
+            def run(*args, **kw):
+                torch.cuda.synchronize()
+                t0 = time.time()
+                out = fn(*args, **kw)
+                torch.cuda.synchronize()
+                split = self.split.setdefault(self.corpus, {})
+                split[key] = split.get(key, 0.0) + time.time() - t0
+                return out
+            return run
+
+        engine.exhaustive = rec
+        engine.BatchAligner.__init__ = clocked("setup", init)
+        engine.BatchAligner.compute_tables = clocked("tables", tables)
+
+    def close(self):
+        engine = self._engine
+        (engine.exhaustive, engine.BatchAligner.__init__,
+         engine.BatchAligner.compute_tables) = self._orig
+
+
+def k3_work(args, kw):
+    """(bytes, int32 operations) of one K3 call on an acyclic graph (one
+    pass per slice): inputs read once, the six [S, P, B] slabs and the
+    flags written once; per lane and slice, one Myers step at each
+    position without in-neighbours and, at each node start, one pred
+    advance and merge per in-neighbour."""
+    import torch
+
+    if kw["cyclic"]:
+        fail("k3_work counts one pass per slice: the graph must be acyclic")
+    eq, code, is_start, _, preds, _ = args
+    S, _, _, B = eq.shape
+    P = code.shape[0]
+    has_pred = (preds >= 0) & is_start.to(torch.bool)[:, None]
+    n_preds = int(has_pred.sum())
+    merged = int(has_pred.any(1).sum())
+    ops = S * B * ((P - merged) * K3_OPS_CHAIN + n_preds * K1_OPS_PRED)
+    return nbytes(args) + 6 * S * P * B * 4 + B, ops
+
+
+def write_tiled_fastq(src, dst, tile):
+    """The reads of ``src`` ``tile`` times over, read id suffixed _t<k>;
+    returns {tiled id: base id}."""
+    from graphaligner_tpu_torch.io import load_fastq
+
+    names = {}
+    with open(dst, "w") as f:
+        for t in range(tile):
+            for r in load_fastq(src):
+                rid = f"{r.seq_id}_t{t}"
+                names[rid] = r.seq_id
+                f.write(f"@{rid}\n{r.sequence}\n+\n{r.quality}\n")
+    return names
+
+
+def run_exhaustive(graph_file, fastq_file, out_dir):
+    """-i through the port's align_reads on the card: (alignments, wall)."""
+    import torch
+
+    from graphaligner_tpu_torch.core.params import AlignerParams
+    from graphaligner_tpu_torch.runtime.aligner import align_reads
+
+    params = AlignerParams(graph_file=graph_file, fastq_file=fastq_file,
+                           initial_bandwidth=35, initial_full_band=True)
+    torch.cuda.synchronize()
+    t0 = time.time()
+    alns = align_reads(params, log=lambda *a: None, output_dir=out_dir,
+                       backend="cuda")
+    torch.cuda.synchronize()
+    return alns, time.time() - t0
+
+
+def check_golden_i(name, names, alns, golden_file):
+    """Every read's -i GAM message byte-identical to the JAX-made golden's
+    under its base name; a read the golden lacks must fail here too."""
+    from graphaligner_tpu_torch.io import stream, vg
+
+    golden = {a.name: a.encode()
+              for a in stream.read_messages(golden_file, vg.Alignment)}
+    mine = {a.name: a for a in alns}
+    if len(mine) != len(alns) or set(mine) - set(names):
+        fail(f"{name}: unexpected or repeated alignment names")
+    n_ok = 0
+    for rid, base in names.items():
+        aln = mine.get(rid)
+        if aln is None:
+            if base in golden:
+                fail(f"{name}/{rid}: the golden aligned, the port failed")
+            continue
+        if base not in golden:
+            fail(f"{name}/{rid}: the port aligned, the golden failed")
+        aln.name = base
+        if aln.encode() != golden[base]:
+            fail(f"{name}/{rid}: alignment differs from the golden")
+        n_ok += 1
+    return n_ok
+
+
+def compare_k3(rec, rate):
+    """K3 against its plain version on the card, on the arguments of its
+    sim -i call: all six slabs and the flags bit for bit. Also reports the
+    bound of the longsim x8 launch beside its time in the main path."""
+    import torch
+
+    from graphaligner_tpu_torch.ops import exhaustive as k3
+
+    calls = [c for c in rec.calls if c[0] == "sim -i"]
+    if len(calls) != 1:
+        fail(f"expected one K3 call on sim -i, got {len(calls)}")
+    _, args, kw, _ = calls[0]
+    got = k3.exhaustive(*args, **kw)
+    want, plain_ms = timed(lambda: k3.exhaustive_plain(*args, **kw))
+    err = 0
+    for name, g, w in zip(("vp_lo", "vp_hi", "vn_lo", "vn_hi", "sbs", "send",
+                           "nonconv"), got, want):
+        diff = int((g.to(torch.int64) - w.to(torch.int64)).abs().max())
+        err = max(err, diff)
+        if not torch.equal(g, w):
+            fail(f"K3 {name} differs from its plain version (max {diff})")
+    ms = cuda_ms(lambda: k3.exhaustive(*args, **kw), 5)
+    moved, ops = k3_work(args, kw)
+    bms, by = bound(moved, ops, rate)
+    S, _, _, B = args[0].shape
+    P = args[1].shape[0]
+    print(f"K3 exhaustive vs plain at S={S} P={P} B={B}: six slabs "
+          f"bit-identical; kernel {ms:.4f} ms (mean of 5), plain "
+          f"{plain_ms:.1f} ms; bound {bms:.5f} ms by {by} ({moved} B, {ops} "
+          f"int32 ops), share {bms / ms:.5f}", flush=True)
+    for corpus, a, k, t in rec.calls:
+        if corpus.startswith("longsim"):
+            m, o = k3_work(a, k)
+            b_ms, b_by = bound(m, o, rate)
+            print(f"K3 in {corpus} at S={a[0].shape[0]} P={a[1].shape[0]} "
+                  f"B={a[0].shape[3]}: {t:.3f} ms per launch; bound "
+                  f"{b_ms:.4f} ms by {b_by} ({m} B, {o} int32 ops), share "
+                  f"{b_ms / t:.5f}", flush=True)
+    return err, ms, plain_ms, bms, by
+
+
+def cyclic_reads(gfa, lanes, seed):
+    """``lanes`` reads that walk the repeat cycle of sim/cyclic.gfa twice,
+    mutated at 5 % from a numpy seed (as tests/test_engine.py makes its
+    cyclic reads)."""
+    import numpy as np
+
+    seqs = {}
+    with open(gfa) as f:
+        for line in f:
+            if line.startswith("S\t"):
+                _, nid, seq = line.split()
+                seqs[int(nid)] = seq
+    truth = "".join(seqs[n] for n in (6, 7, 8, 9, 10, 11, 12, 8, 9, 10, 11,
+                                      12, 13, 14))
+    rng = np.random.default_rng(seed)
+    reads = []
+    for _ in range(lanes):
+        mut = rng.random(len(truth)) < 0.05
+        sub = rng.choice(list("ACGT"), len(truth))
+        reads.append("".join(s if m else c
+                             for c, s, m in zip(truth, sub, mut)))
+    return reads
+
+
+def compare_k3_cyclic(device):
+    """K3's cyclic fixpoint on the card: sim/cyclic.gfa x 32 reads through
+    its cycle. All six slabs and the flags bit for bit against the plain
+    version, no lane flagged; cut to one pass, every lane flagged."""
+    import numpy as np
+    import torch
+
+    from graphaligner_tpu_torch.core import engine
+    from graphaligner_tpu_torch.graph import graph_from_gfa_file
+    from graphaligner_tpu_torch.ops import exhaustive as k3
+
+    gfa = f"{FIX}/sim/cyclic.gfa"
+    ba = engine.BatchAligner(graph_from_gfa_file(gfa), device)
+    if not ba.sched.cyclic:
+        fail("sim/cyclic.gfa did not give a cyclic schedule")
+    reads = cyclic_reads(gfa, 32, 11)
+    S = max((len(r) + 63) // 64 for r in reads)
+    codes = np.full((len(reads), S * 64), engine._READ_CODE["N"], np.uint8)
+    for i, r in enumerate(reads):
+        codes[i, : len(r)] = engine.encode_read(r)
+    eq = torch.as_tensor(
+        engine._build_eq_vectors(codes, engine._MATCH_TABLE, S).view(np.int32),
+        device=device,
+    )
+    kw = dict(num_nodes=ba.sched.num_nodes, cyclic=True)
+    got = k3.exhaustive(eq, *ba._dev_sched, **kw)
+    want = k3.exhaustive_plain(eq, *ba._dev_sched, **kw)
+    err = 0
+    for name, g, w in zip(("vp_lo", "vp_hi", "vn_lo", "vn_hi", "sbs", "send",
+                           "nonconv"), got, want):
+        diff = int((g.to(torch.int64) - w.to(torch.int64)).abs().max())
+        err = max(err, diff)
+        if not torch.equal(g, w):
+            fail(f"K3 cyclic {name} differs from its plain version "
+                 f"(max {diff})")
+    if bool(got[6].any()):
+        fail("K3 flagged a lane on sim/cyclic.gfa within 128 passes")
+    one = k3.exhaustive(eq, *ba._dev_sched, **kw, max_passes=1)[6]
+    if not bool(one.all()):
+        fail(f"K3 cut to one pass flagged {int(one.sum())} of {len(reads)} "
+             f"lanes, not all")
+    print(f"K3 exhaustive cyclic fixpoint vs plain on sim/cyclic.gfa at S={S} "
+          f"P={len(ba.sched.code)} B={len(reads)}: six slabs and flags "
+          f"bit-identical, none flagged; cut to one pass, all "
+          f"{len(reads)} flagged", flush=True)
+    return err
 
 
 def main() -> int:
@@ -282,16 +643,26 @@ def main() -> int:
           flush=True)
 
     from graphaligner_tpu_torch.core import batch_align as ba
+    from graphaligner_tpu_torch.io import load_fastq, native
     from graphaligner_tpu_torch.ops import _build
     from graphaligner_tpu_torch.ops import banded_cell as k1
+    from graphaligner_tpu_torch.ops import exhaustive as k3
     from graphaligner_tpu_torch.ops import walk_moves as k2
 
     t0 = time.time()
-    for name in ("banded_cell", "walk_moves"):
-        _build.library(name)
-    print(f"built csrc/banded_cell.cu, csrc/walk_moves.cu with nvcc "
-          f"{' '.join(_build.NVCC_FLAGS)} in {time.time() - t0:.1f} s",
-          flush=True)
+    kernels_built = ("banded_cell", "walk_moves", "exhaustive")
+    with ThreadPoolExecutor(len(kernels_built) + 1) as pool:
+        jobs = [pool.submit(_build.library, n) for n in kernels_built]
+        jobs.append(pool.submit(native.build_library))
+        for job in jobs:
+            job.result()
+    native.get_lib()
+    print(f"built {', '.join(f'csrc/{n}.cu' for n in kernels_built)} with "
+          f"nvcc {' '.join(_build.NVCC_FLAGS)} (in parallel) and the native "
+          f"library with g++ in {time.time() - t0:.1f} s", flush=True)
+    rate = int32_rate()
+    print(f"int32 issue rate {rate / 1e12:.3f} Tops/s (SMs x "
+          f"{INT32_LANES_PER_SM} lanes x max SM clock) [{card}]", flush=True)
     for name, (secs, log) in _build.BUILD_LOG.items():
         for line in log.strip().splitlines():
             print(f"  [{name}] {line}", flush=True)
@@ -340,19 +711,81 @@ def main() -> int:
     if rec.k1 is None or not rec.k2:
         fail("kernel arguments were not recorded")
 
-    err1, ms1, plain1 = compare_k1(rec)
-    err2, ms2, plain2 = compare_k2(rec)
+    # exhaustive mode (-i): K3, through align_reads
+    k3.LAUNCHES = 0
+    fb0 = ba.host_fallback_count()
+    rec3 = K3Recorder()
+    build = os.path.join(ROOT, "build")
+    os.makedirs(build, exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=build) as tmp:
+        sim_reads = f"{FIX}/sim/sim.fastq"
+        tiled = os.path.join(tmp, f"sim_x{TILE_I}.fastq")
+        tiled_names = write_tiled_fastq(sim_reads, tiled, TILE_I)
+        corpora_i = [
+            ("smallexample -i", f"{FIX}/smallexample/sub_test.vg",
+             f"{FIX}/smallexample/read.fastq", "smallexample_i"),
+            ("sim -i", f"{FIX}/sim/bubbles.vg", sim_reads, "sim_i"),
+            (f"longsim x{TILE_I} -i", f"{FIX}/longsim/graph.vg", tiled,
+             "longsim_i"),
+        ]
+        try:
+            for name, graph_file, reads_file, golden in corpora_i:
+                names = tiled_names if reads_file == tiled else {
+                    r.seq_id: r.seq_id for r in load_fastq(reads_file)
+                }
+                rec3.corpus = name
+                torch.cuda.reset_peak_memory_stats(device)
+                alns, wall = run_exhaustive(graph_file, reads_file,
+                                            os.path.join(tmp, golden))
+                n_ok = check_golden_i(
+                    name, names, alns,
+                    f"{FIX}/torch/{golden}/out.gam",
+                )
+                peak = torch.cuda.max_memory_allocated(device)
+                k3_ms = [c[3] for c in rec3.calls if c[0] == name]
+                split = rec3.split[name]
+                print(f"{name}: {n_ok}/{len(names)} aligned, every read "
+                      f"byte-identical to the JAX golden; {len(names) / wall:.2f}"
+                      f" reads/s ({wall:.3f} s: set-up {split['setup']:.3f} s, "
+                      f"compute_tables {split['tables']:.3f} s, the rest "
+                      f"{wall - split['setup'] - split['tables']:.3f} s), K3 "
+                      f"{len(k3_ms)} launch(es) of "
+                      f"{', '.join(f'{t:.3f}' for t in k3_ms)} ms, peak device "
+                      f"memory {peak / 2**20:.0f} MiB [{card}]", flush=True)
+        finally:
+            rec3.close()
+    launches["exhaustive"] = k3.LAUNCHES
+    fallbacks = ba.host_fallback_count() - fb0
+    print(f"-i launches: K3 exhaustive {launches['exhaustive']}; "
+          f"host-fallback lanes {fallbacks}", flush=True)
+    if launches["exhaustive"] < 1:
+        fail("K3 never launched on the -i path")
+    if fallbacks:
+        fail(f"{fallbacks} lanes fell back to the host oracle")
+
+    err1, ms1, plain1, bound1, by1 = compare_k1(rec, rate)
+    err2, ms2, plain2, bound2, by2 = compare_k2(rec, rate)
+    err3, ms3, plain3, bound3, by3 = compare_k3(rec3, rate)
+    err3 = max(err3, compare_k3_cyclic(device))
     kernels = [
         {"name": "banded_cell", "route": "cuda",
          "source": "graphaligner_tpu_torch/csrc/banded_cell.cu",
          "replaces": "graphaligner_tpu/ops/pallas/banded_cell.py:44",
          "launches": launches["banded_cell"], "max_abs_err": err1,
-         "ms": ms1, "plain_ms": plain1},
+         "ms": ms1, "plain_ms": plain1, "bound_ms": bound1, "bound_by": by1,
+         "library_ms": None},
         {"name": "walk_moves", "route": "cuda",
          "source": "graphaligner_tpu_torch/csrc/walk_moves.cu",
          "replaces": "graphaligner_tpu/ops/pallas/walk_moves.py:135",
          "launches": launches["walk_moves"], "max_abs_err": err2,
-         "ms": ms2, "plain_ms": plain2},
+         "ms": ms2, "plain_ms": plain2, "bound_ms": bound2, "bound_by": by2,
+         "library_ms": None},
+        {"name": "exhaustive", "route": "cuda",
+         "source": "graphaligner_tpu_torch/csrc/exhaustive.cu",
+         "replaces": "graphaligner_tpu/ops/pallas/exhaustive.py:60",
+         "launches": launches["exhaustive"], "max_abs_err": err3,
+         "ms": ms3, "plain_ms": plain3, "bound_ms": bound3, "bound_by": by3,
+         "library_ms": None},
     ]
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

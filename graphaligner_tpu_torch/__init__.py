@@ -3,20 +3,26 @@
 A port of ``graphaligner_tpu`` that keeps its layout, so each module's
 counterpart is easy to find:
 
-  ops/      torch twins of the word ops, and the two hand-written CUDA
-            kernels of the seeded banded path with their plain versions:
-            banded_cell (the slice cell pass) and walk_moves (the
-            backtrace walk); ops/_build.py compiles csrc/*.cu with nvcc
+  ops/      torch twins of the word ops, and the three hand-written CUDA
+            kernels with their plain versions: banded_cell (K1, the slice
+            cell pass), walk_moves (K2, the backtrace walk) and exhaustive
+            (K3, the -i column DP); ops/_build.py compiles csrc/*.cu with
+            nvcc
   csrc/     the CUDA C++ sources (sm_90a)
-  core/     the banded slice scan (engine_banded) and the batched seeded
-            orchestration (batch_align) on torch tensors
-  runtime/  align_reads and the CLI (seeded banded mode)
+  core/     the banded slice scan (engine_banded), the batched seeded
+            orchestration (batch_align) and the exhaustive-mode engine
+            (engine) on torch tensors, plus the host modules (params,
+            result, hmm, oracle, band, backtrace, align, reach, trace_ops)
+  graph/    graph loading and the runtime graph index
+  io/       reads, vg messages, GAM streams, and the native host library
+            (native/ga_native.cpp, built by io/native.py)
+  runtime/  align_reads and the CLI (seeded banded mode and -i)
 
-The host layers that hold no jax (graph loading, I/O, the native decoder,
-the correctness HMM, trace finalisation) are imported from
-``graphaligner_tpu``; nothing here imports jax. Every entry point takes an
-explicit device: ``cuda`` runs the kernels, ``cpu`` runs their plain
-versions.
+The port is self-contained: it imports neither jax nor
+``graphaligner_tpu``. The jax-free host modules are copies of the JAX
+package's, each naming its source in its first line. Every entry point
+takes an explicit device: ``cuda`` runs the kernels, ``cpu`` runs their
+plain versions.
 """
 
 __version__ = "0.1.0"

@@ -33,23 +33,21 @@ from dataclasses import dataclass, field
 import numpy as np
 import torch
 
-from graphaligner_tpu.core import hmm as _hmm
-from graphaligner_tpu.core.align import _pad_to_word
-from graphaligner_tpu.core.hmm import CorrectnessState
-from graphaligner_tpu.core.params import (
+from ..graph.alignment_graph import AlignmentGraph
+from ..io import native
+from ..ops.walk_moves import walk_moves
+from . import hmm as _hmm
+from .align import _pad_to_word
+from .engine import _ENCODE_LUT, _READ_CODE
+from .engine_banded import banded_scan
+from .hmm import CorrectnessState
+from .params import (
     ALTERNATE_METHOD_CUTOFF,
     BACKTRACE_OVERRIDE_CUTOFF,
     WORD_SIZE,
 )
-from graphaligner_tpu.core.reach import ensure_reach
-from graphaligner_tpu.graph.alignment_graph import AlignmentGraph
-from graphaligner_tpu.io import native
-
-from ..ops.walk_moves import walk_moves
-from .engine_banded import banded_scan
+from .reach import ensure_reach
 from .tables import (
-    _ENCODE_LUT,
-    _READ_CODE,
     EMPTY,
     INF,
     build_graph_tables,
@@ -83,18 +81,6 @@ def _host_threads() -> int:
         or int(_os.environ.get("GA_THREADS", 0))
         or min(8, _os.cpu_count() or 1)
     )
-
-
-def _native_lib():
-    """The native library (decoder, tie replay, trace finalize) is required:
-    without it the port raises instead of routing around it."""
-    lib = native.get_lib()
-    if lib is None:
-        raise RuntimeError(
-            "native library unavailable: graphaligner_tpu.io.native could "
-            "not build native/ (needs g++ and zlib)"
-        )
-    return lib
 
 
 class _CorrFlags:
@@ -266,7 +252,7 @@ class BandedBatchAligner:
         _rev_pos=None,
         _tier: int = 0,
     ):
-        _native_lib()
+        native.get_lib()  # required: fail here, not mid-run
         self.graph = graph
         self.device = torch.device(device)
         self.tables = _tables if _tables is not None else build_graph_tables(graph)
@@ -299,7 +285,7 @@ class BandedBatchAligner:
         if _rev_pos is not None:
             self.rev_pos = _rev_pos
         else:
-            from graphaligner_tpu.core.trace_ops import build_reverse_pos
+            from .trace_ops import build_reverse_pos
 
             self.rev_pos = build_reverse_pos(graph)
         self._bigger = None
@@ -1255,7 +1241,7 @@ def seed_extension_problems(graph: AlignmentGraph, sequence: str, seed):
     dbg_overlap) and the forward suffix. Returns (bw, fw), each a
     (padded_sequence, start_node_index) pair or None when that side is
     empty."""
-    from graphaligner_tpu.io.sequences import reverse_complement
+    from ..io.sequences import reverse_complement
 
     node_id, pos, reverse = seed
     if reverse:
@@ -1290,13 +1276,13 @@ def align_reads_seeded_batch(
     have walked; a read with no seeds left is finalized immediately."""
     import time as _time
 
-    from graphaligner_tpu.core import trace_ops
-    from graphaligner_tpu.core.align import (
+    from . import trace_ops
+    from .align import (
         get_piecewise_traces_from_split,
         get_split_alignment,
         get_trace_info,
     )
-    from graphaligner_tpu.core.result import (
+    from .result import (
         AlignmentResult,
         LazyAlignment,
         LazyTrace,
@@ -1307,7 +1293,6 @@ def align_reads_seeded_batch(
         return np.asarray(t, dtype=np.int64).reshape(-1, 2)
 
     INT_MAX = 2**62
-    _native_lib()
     # native per-piece trace finalize (ga_trace_piece2)
     tp_ctx = native.TracePieceCtx(
         np.ascontiguousarray(aligner.rev_pos, dtype=np.int64),

@@ -27,10 +27,9 @@ from __future__ import annotations
 
 import torch
 
-from graphaligner_tpu.core.params import WORD_SIZE
-
 from ..ops.banded_cell import banded_cell
 from ..ops.wordops import M32, i32
+from .params import WORD_SIZE
 from .tables import EMPTY, INF, INF_PRI, I32MAX, DeviceTables
 
 _EMPTY = int(EMPTY)
@@ -413,7 +412,7 @@ def _finish_outputs(nm_pack, ctrl_pack, cols, read_codes, init_min,
         tie_pack = torch.where(t16 >= 32768, t16 - 65536, t16).to(torch.int16)
     else:
         tie_pack = nmin_d | (nend_d << 16)
-    # subsampled band-id hash (band_hash_np / ga_native.cpp ga_band_orders):
+    # subsampled band-id hash (band_hash_np / ga_native.cpp ga_band_orders_core):
     # uint32 arithmetic in int64, the multiply split so nothing overflows
     w = ((torch.arange(Nm, dtype=torch.int64, device=dev) + 1)
          * 2654435761) & M32

@@ -1,10 +1,10 @@
 """Graph tables and read encodings of the banded engine.
 
 The numpy pieces below are copied from modules of ``graphaligner_tpu``
-that need jax at module level (so the port cannot import them); each
-carries a note naming its source. ``device_tables`` turns either
-package's ``BandedGraphTables`` plus the reach table into the port's
-tensors on one device.
+that need jax at module level; each carries a note naming its source. The
+read alphabet and match table are those of ``core.engine``.
+``device_tables`` turns a ``BandedGraphTables`` plus the reach table into
+the port's tensors on one device.
 """
 
 from __future__ import annotations
@@ -14,33 +14,9 @@ from dataclasses import dataclass
 import numpy as np
 import torch
 
-from graphaligner_tpu.graph.alignment_graph import AlignmentGraph
-from graphaligner_tpu.graph.scc import condensation
-from graphaligner_tpu.io.sequences import IUPAC_MATCHES
-
-# copied from graphaligner_tpu/core/engine.py:45-75 ------------------------
-# read-character alphabet for device match tables
-_READ_ALPHABET = "ACGTRYSWKMBDHVN"
-_READ_CODE = {c: i for i, c in enumerate(_READ_ALPHABET)}
-# match table [read code, graph code(5)] — graph code 4 = dummy, never matches
-_MATCH_TABLE = np.zeros((len(_READ_ALPHABET), 5), dtype=bool)
-for _c, _i in _READ_CODE.items():
-    for _g, _base in enumerate("ATCG"):
-        _MATCH_TABLE[_i, _g] = _base in IUPAC_MATCHES[_c]
-
-
-_ENCODE_LUT = np.full(256, 255, dtype=np.uint8)
-for _c, _i in _READ_CODE.items():
-    _ENCODE_LUT[ord(_c)] = _i
-    _ENCODE_LUT[ord(_c.lower())] = _i
-
-
-def encode_read(sequence: str) -> np.ndarray:
-    codes = _ENCODE_LUT[np.frombuffer(sequence.encode("latin-1"), np.uint8)]
-    if codes.max(initial=0) == 255:
-        bad = sequence[int(np.argmax(codes == 255))]
-        raise ValueError(f"unsupported read character {bad!r}")
-    return codes
+from ..graph.alignment_graph import AlignmentGraph
+from ..graph.scc import condensation
+from .engine import _MATCH_TABLE, _READ_CODE
 
 
 # copied from graphaligner_tpu/core/backtrace_device.py:44-45 ---------------

@@ -21,9 +21,16 @@
 // words differ from the lockstep kernel's; the decoder skips PAD per lane
 // and the decoded traces agree.
 //
-// What bounds it: the serial dependence of each walk step on the last,
-// and dependent scattered 4-byte loads of columns (L2 latency). Keeping a
-// slice's tables in shared memory is later work.
+// What bounds it: the walk reads only the columns along each lane's path,
+// a small part of the [K+1, 7, Cm, B] table. Counted from the walk that ran
+// at K=160, Cm=288, B=256 (chip_smoke.py), its floor is the integer work,
+// 0.26 G int32 operations, 0.015 ms at the int32 issue rate, above the
+// 45 MB of columns, codes, band words and outputs it needs, 0.014 ms at
+// 3.35 TB/s — but the kernel takes about 21 ms there (NVIDIA H100 80GB
+// HBM3, 700 W), a share of 0.0007: the serial dependence of each walk step
+// on the last, and dependent scattered 4-byte loads of columns (L2
+// latency), with 8 warps in all at B=256. Keeping a slice's tables in
+// shared memory is later work.
 #include <cuda_runtime.h>
 
 #include "wordops.cuh"

@@ -1,0 +1,202 @@
+"""Exhaustive-mode column DP (kernel K3): wrapper and plain version.
+
+``exhaustive`` computes what ``graphaligner_tpu.ops.pallas.exhaustive``
+(``make_kernel`` / ``align_exhaustive_pallas``) computes and what
+``graphaligner_tpu.core.engine._align_batch_device`` computes: for each
+read lane and each 64-row slice ``s`` it sweeps the P schedule positions in
+order — the within-node Myers advance with row -1 closed at
+``R[t] = min(old_end[t], sbs + 1)``, the score-space merge over the
+in-neighbours' last columns at node starts, and the row-0 free start of
+source nodes at ``s == 0`` — and returns the packed slabs
+(vp_lo, vp_hi, vn_lo, vn_hi, sbs, send), each int32 [S, P, B] (the four
+words are uint32 bit patterns), plus a per-lane non-convergence flag.
+``old_end`` of slice ``s`` is ``send[s - 1]`` (0 at ``s = 0``).
+
+Each slice starts from a node store reset to INF. On a cyclic graph the
+slice is swept in whole passes, back-edge predecessors reading the previous
+pass's store, until no output of the lane changes, for at most
+``max_passes`` passes (``_align_batch_device``'s fixpoint, per lane); a
+lane still changing after the last pass is flagged.
+
+A CUDA tensor launches ``csrc/exhaustive.cu``; a CPU tensor runs
+``exhaustive_plain``, the same computation in plain torch ops.
+"""
+
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from . import _build
+from .wordops import M32, i32, myers_advance, u32
+
+INF = 1 << 30
+WORD = 64
+
+# kernel launches since the last reset (a plain count, read by the smoke run)
+LAUNCHES = 0
+
+
+def exhaustive(eq, code, is_start, is_source_start, pred_nodes, node_slot, *,
+               num_nodes: int, cyclic: bool, max_passes: int = 128):
+    """eq [S, 5, 2, B] (uint32 Eq words: graph code x (lo, hi) x lane);
+    code, is_start, is_source_start, node_slot [P]; pred_nodes [P, K]
+    (-1 pad). All int32. Returns (vp_lo, vp_hi, vn_lo, vn_hi, sbs, send)
+    int32 [S, P, B] and nonconv bool [B]."""
+    S, _, _, B = eq.shape
+    P, K = pred_nodes.shape
+    args = (eq, code, is_start, is_source_start, pred_nodes, node_slot)
+    shapes = ((S, 5, 2, B), (P,), (P,), (P,), (P, K), (P,))
+    for name, a, shape in zip(
+        ("eq", "code", "is_start", "is_source_start", "pred_nodes",
+         "node_slot"), args, shapes,
+    ):
+        if a.dtype != torch.int32 or tuple(a.shape) != shape:
+            raise ValueError(f"exhaustive: {name} must be int32 {shape}, "
+                             f"got {a.dtype} {tuple(a.shape)}")
+        if a.device != eq.device:
+            raise ValueError("exhaustive: inputs on different devices")
+    if S < 1 or P < 1 or K < 1 or num_nodes < 1 or max_passes < 1:
+        raise ValueError("exhaustive: empty schedule, batch or pass cap")
+    if eq.device.type == "cpu":
+        return exhaustive_plain(*args, num_nodes=num_nodes, cyclic=cyclic,
+                                max_passes=max_passes)
+    if eq.device.type != "cuda":
+        raise ValueError(f"exhaustive: unsupported device {eq.device}")
+    return _launch(*[a.contiguous() for a in args], num_nodes=num_nodes,
+                   cyclic=cyclic, max_passes=max_passes)
+
+
+def _launch(eq, code, is_start, is_source_start, pred_nodes, node_slot, *,
+            num_nodes, cyclic, max_passes):
+    global LAUNCHES
+    S, _, _, B = eq.shape
+    P, K = pred_nodes.shape
+    dev = eq.device
+    out = torch.empty((6, S, P, B), dtype=torch.int32, device=dev)
+    store = torch.empty((num_nodes, 6, B), dtype=torch.int32, device=dev)
+    nonconv = torch.empty((B,), dtype=torch.int32, device=dev)
+    lib = _build.library("exhaustive")
+    fn = lib.ga_exhaustive
+    fn.restype = ctypes.c_int
+    fn.argtypes = [ctypes.c_void_p] * 9 + [ctypes.c_int] * 7 + [
+        ctypes.c_void_p
+    ]
+    err = fn(
+        *[a.data_ptr() for a in (eq, code, is_start, is_source_start,
+                                 pred_nodes, node_slot, out, store, nonconv)],
+        S, P, K, num_nodes, B, int(bool(cyclic)), max_passes,
+        _build.stream_handle(dev),
+    )
+    _build.check(err, "exhaustive")
+    LAUNCHES += 1
+    return (*out.unbind(0), nonconv != 0)
+
+
+def _bits(lo, hi, rows):
+    """(lo, hi) uint32 words [..., B] as int64 -> their 64 bits [..., 64, B]."""
+    return torch.cat([(lo.unsqueeze(-2) >> rows) & 1,
+                      (hi.unsqueeze(-2) >> rows) & 1], dim=-2)
+
+
+def _pack(mask, rows):
+    """[64, B] bool -> (lo, hi) uint32 words as int64."""
+    w = mask.to(torch.int64) << torch.cat([rows, rows])
+    return w[:32].sum(0), w[32:].sum(0)
+
+
+def exhaustive_plain(eq, code, is_start, is_source_start, pred_nodes,
+                     node_slot, *, num_nodes: int, cyclic: bool,
+                     max_passes: int = 128):
+    """Plain torch version of K3 (any device): a loop over slices, passes
+    and positions, vectorised over the lanes. Node starts merge in score
+    space on [64, B] rows; the other positions take the Myers advance on
+    (lo, hi) halves held in int64."""
+    S, _, _, B = eq.shape
+    P, K = pred_nodes.shape
+    dev = eq.device
+    rows = torch.arange(32, dtype=torch.int64, device=dev)[:, None]
+    ar64 = torch.arange(WORD, dtype=torch.int64, device=dev)[:, None]
+    code_l = code.tolist()
+    start_l = is_start.tolist()
+    source_l = is_source_start.tolist()
+    preds_l = pred_nodes.tolist()
+    slot_l = node_slot.tolist()
+    out = torch.empty((6, S, P, B), dtype=torch.int64, device=dev)
+    nonconv = torch.zeros(B, dtype=torch.bool, device=dev)
+    zero = torch.zeros(B, dtype=torch.int64, device=dev)
+    store_init = torch.zeros((6, num_nodes, B), dtype=torch.int64, device=dev)
+    store_init[4] = INF
+    for s in range(S):
+        eq_w = u32(eq[s])  # [5, 2, B]
+        eq_rows = _bits(eq_w[:, 0], eq_w[:, 1], rows)  # [5, 64, B]
+        old_end = out[5, s - 1] if s else torch.zeros((P, B), dtype=torch.int64, device=dev)
+        store = store_init.clone()
+        passes = 0
+        while True:
+            passes += 1
+            new = torch.empty((P, 6, B), dtype=torch.int64, device=dev)
+            vp_lo = vp_hi = vn_lo = vn_hi = zero
+            sbs = send = zero + INF
+            e_prev = zero
+            for t in range(P):
+                oe = old_end[t]
+                c = code_l[t]
+                if start_l[t]:
+                    m = eq_rows[c]  # [64, B]
+                    merged = torch.full((WORD, B), INF, dtype=torch.int64, device=dev)
+                    r_in = zero + INF
+                    for pred in preds_l[t]:
+                        if pred < 0:
+                            continue
+                        p = store[:, pred]
+                        p_sbs, p_e = p[4], p[5]
+                        deltas = _bits(p[0], p[1], rows) - _bits(p[2], p[3], rows)
+                        p_scores = p_sbs + deltas.cumsum(0)
+                        diag = torch.cat([p_sbs[None], p_scores[:-1]])
+                        cost = 1 - m
+                        cost[0] = torch.where((m[0] == 1) & (p_e == 1), 0, 1)
+                        merged = torch.minimum(
+                            merged, torch.minimum(p_scores + 1, diag + cost)
+                        )
+                        r_in = torch.minimum(r_in, p_sbs + 1)
+                    r_t = torch.minimum(oe, r_in)
+                    row0 = torch.minimum(merged[0], r_t + 1)
+                    if source_l[t] and s == 0:
+                        row0 = torch.minimum(row0, r_t + 1 - m[0])
+                    merged[0] = row0
+                    cur = (merged - ar64).cummin(0).values + ar64
+                    d = cur - torch.cat([r_t[None], cur[:-1]])
+                    vp_lo, vp_hi = _pack(d > 0, rows)
+                    vn_lo, vn_hi = _pack(d < 0, rows)
+                    send = cur[WORD - 1]
+                else:
+                    r_t = torch.minimum(oe, sbs + 1)
+                    eq_lo = eq_w[c, 0]
+                    eq_g = torch.where(e_prev == 1, eq_lo, eq_lo & (M32 ^ 1))
+                    vp_lo, vp_hi, vn_lo, vn_hi, send = myers_advance(
+                        eq_g, eq_w[c, 1], vp_lo, vp_hi, vn_lo, vn_hi, send,
+                        r_t - sbs,
+                    )
+                sbs = r_t
+                e_prev = (r_t == oe).to(torch.int64)
+                col = torch.stack([vp_lo, vp_hi, vn_lo, vn_hi, sbs, send])
+                new[t] = col
+                col[5] = e_prev
+                store[:, slot_l[t]] = col
+            new = new.permute(1, 0, 2)
+            if not cyclic:
+                out[:, s] = new
+                break
+            changed = (
+                (new != out[:, s]).any(0).any(0) if passes > 1
+                else torch.ones(B, dtype=torch.bool, device=dev)
+            )
+            out[:, s] = new
+            if passes >= max_passes or not bool(changed.any()):
+                nonconv |= changed
+                break
+    slabs = [i32(out[k]) for k in range(4)] + [out[4].to(torch.int32),
+                                              out[5].to(torch.int32)]
+    return (*slabs, nonconv)

@@ -1,33 +1,86 @@
 """Aligning a read file end to end (reference Aligner.cpp), torch port.
 
-Seeded banded mode through the batched engine (``core.batch_align``) on
-one device: reads are aligned in chunks, per-read GAM and trace files and
-the final concatenated GAM are written exactly as ``graphaligner_tpu``'s
-``runtime.aligner`` writes them (whose jax-free output helpers this
-module reuses).
-Exhaustive mode (no seed file), the device mesh and multi-host runs are
-not yet ported and raise.
+Port of ``graphaligner_tpu/runtime/aligner.py`` on one device: seeded
+banded mode through the batched engine (``core.batch_align``), and
+exhaustive mode (-i, no seed file) through the batched exhaustive engine
+(``core.engine``). Reads are aligned in chunks; per-read GAM and trace
+files and the final concatenated GAM are written exactly as the JAX
+package writes them. The device mesh and multi-host runs are not yet
+ported and raise.
 """
 
 from __future__ import annotations
 
 import os
 
-from graphaligner_tpu.core.params import AlignerParams
-from graphaligner_tpu.core.result import INT32_MAX
-from graphaligner_tpu.graph.bigraph import load_alignment_graph
-from graphaligner_tpu.io import load_fastq, stream, vg
-from graphaligner_tpu.runtime.aligner import (
-    _finalize_output_alignment,
-    _safe_filename,
-    augment_graph_with_alignments,
-    load_seed_hits,
-    write_trace,
-)
-
 from .._device import get_device
+from ..core.params import AlignerParams
+from ..core.result import INT32_MAX
+from ..graph.bigraph import load_alignment_graph
+from ..io import load_fastq, stream, vg
+
+# copied from graphaligner_tpu/runtime/aligner.py:28-85 --------------------
+def replace_digraph_node_ids(alignment: vg.Alignment) -> None:
+    for m in alignment.path.mapping:
+        m.position.node_id //= 2
 
 
+def write_trace(trace, path: str) -> None:
+    """Trace file format of the reference's writeTrace (Aligner.cpp:93-100):
+    nodeID offset reverse readpos type graphChar readChar."""
+    with open(path, "w") as f:
+        for t in trace:
+            f.write(
+                f"{t.node_id} {t.offset} {1 if t.reverse else 0} {t.readpos} "
+                f"{int(t.type)} {t.graph_char} {t.read_char}\n"
+            )
+
+
+def _finalize_output_alignment(alignment):
+    """Digraph->bigraph id mapping + wire encoding of one result.
+
+    LazyAlignment results (the batched pipeline) encode through the
+    native C++ serializer with the id division fused (~100x the Python
+    object+encode path); everything else takes the object path
+    (replace ids in place, byte-identical either way)."""
+    from ..core.result import LazyAlignment, PayloadAlignment
+    from ..io import native
+
+    if isinstance(alignment, LazyAlignment) and alignment._obj is None:
+        payloads = native.encode_alignments(
+            [alignment.name],
+            [alignment.sequence],
+            [alignment.score],
+            [alignment.query_position],
+            [alignment._runs],
+            div2=True,
+        )
+        if payloads is not None:
+            return PayloadAlignment(payloads[0], name=alignment.name)
+    replace_digraph_node_ids(alignment)
+    return alignment
+
+
+def _safe_filename(name: str) -> str:
+    return name.replace("/", "_").replace(":", "_")
+
+
+def load_seed_hits(seed_file: str, read_names) -> dict:
+    """read name → [(node id, query position, is_reverse)]
+    (reference Aligner.cpp:245-273)."""
+    seeds: dict = {}
+    for a in stream.read_messages(seed_file, vg.Alignment):
+        seeds.setdefault(a.name, []).append(
+            (
+                a.path.mapping[0].position.node_id,
+                a.query_position,
+                a.path.mapping[0].position.is_reverse,
+            )
+        )
+    return {name: seeds.get(name, []) for name in read_names}
+
+
+# --------------------------------------------------------------------------
 def align_reads(
     params: AlignerParams,
     log=print,
@@ -43,24 +96,46 @@ def align_reads(
         raise NotImplementedError("multi-host alignment is not yet ported")
     if mesh_axis and mesh_axis != "none":
         raise NotImplementedError("the device mesh (--mesh) is not yet ported")
-    if not params.seed_file:
-        raise NotImplementedError(
-            "exhaustive mode (-i, no seed file) is not yet ported"
-        )
     device = get_device(backend)
     os.makedirs(output_dir, exist_ok=True)
     fastqs = load_fastq(params.fastq_file)
     log(f"{len(fastqs)} reads")
-    seed_hits = load_seed_hits(params.seed_file, [f.seq_id for f in fastqs])
+    seed_hits = None
+    if params.seed_file:
+        seed_hits = load_seed_hits(params.seed_file, [f.seq_id for f in fastqs])
     log(f"load graph from {params.graph_file}")
     graph = load_alignment_graph(params.graph_file)
     s = graph.stats
     log(f"{s.nodes} nodes\n{s.bp}bp\n{s.edges} edges\n"
         f"{s.high_in_degree_nodes} nodes with in-degree >= 2")
-    return _align_reads_seeded_batched(
-        params, graph, fastqs, seed_hits, log, output_dir, device_batch,
-        device,
+    if seed_hits is None:
+        alignments = _align_reads_batched(
+            graph, fastqs, log, output_dir, device_batch, device
+        )
+    else:
+        alignments = _align_reads_seeded_batched(
+            params, graph, fastqs, seed_hits, log, output_dir, device_batch,
+            device,
+        )
+    log(f"final result has {len(alignments)} alignments")
+    if params.alignment_file:
+        stream.write_messages(params.alignment_file, alignments)
+    if params.auggraph_file:
+        graphs = stream.read_messages(params.graph_file, vg.Graph)
+        # reference quirk: with -a also given, the augmented graph is built
+        # from an EMPTY list (Aligner.cpp:310-321)
+        aug_input = [] if params.alignment_file else alignments
+        aug = augment_graph_with_alignments(graphs, aug_input)
+        stream.write_messages(params.auggraph_file, [aug])
+    return alignments
+
+
+def _write_read(fastq, aln, trace, output_dir) -> None:
+    name = _safe_filename(fastq.seq_id)
+    stream.write_messages(
+        os.path.join(output_dir, f"alignment_0_{name}.gam"), [aln]
     )
+    write_trace(trace, os.path.join(output_dir, f"trace_0_{name}.trace"))
 
 
 def _align_reads_seeded_batched(params, graph, fastqs, seed_hits, log,
@@ -101,21 +176,61 @@ def _align_reads_seeded_batched(params, graph, fastqs, seed_hits, log,
             )
             aln = _finalize_output_alignment(result.alignment)
             alignments.append(aln)
-            name = _safe_filename(fastq.seq_id)
-            stream.write_messages(
-                os.path.join(output_dir, f"alignment_0_{name}.gam"), [aln]
-            )
-            write_trace(
-                result.trace, os.path.join(output_dir, f"trace_0_{name}.trace")
-            )
-    log(f"final result has {len(alignments)} alignments")
-    if params.alignment_file:
-        stream.write_messages(params.alignment_file, alignments)
-    if params.auggraph_file:
-        graphs = stream.read_messages(params.graph_file, vg.Graph)
-        # reference quirk: with -a also given, the augmented graph is built
-        # from an EMPTY list (Aligner.cpp:310-321)
-        aug_input = [] if params.alignment_file else alignments
-        aug = augment_graph_with_alignments(graphs, aug_input)
-        stream.write_messages(params.auggraph_file, [aug])
+            _write_read(fastq, aln, result.trace, output_dir)
     return alignments
+
+
+def _align_reads_batched(graph, fastqs, log, output_dir, device_batch,
+                         device) -> list:
+    """Full-band (-i) alignment through the batched exhaustive engine,
+    processed in chunks of at most ``device_batch`` reads, as many as the
+    free memory holds at the longest read's slice count (JAX
+    runtime/aligner.py:410-447)."""
+    from ..core.engine import BatchAligner, align_batch_full_band
+    from ..core.params import WORD_SIZE
+
+    ba = BatchAligner(graph, device)
+    alignments: list = []
+    order = list(reversed(fastqs))  # the reference's back-first order
+    if not order:
+        return alignments
+    slices = max((len(r.sequence) + WORD_SIZE - 1) // WORD_SIZE for r in order)
+    lanes = ba.lanes_that_fit(slices, device_batch)
+    for start in range(0, len(order), lanes):
+        chunk = order[start : start + lanes]
+        results = align_batch_full_band(graph, chunk, batch_aligner=ba)
+        for fastq, result in zip(chunk, results):
+            log(f"read {fastq.seq_id} size {len(fastq.sequence)}bp")
+            if result.alignment_failed or result.alignment.score == INT32_MAX:
+                log(f"read {fastq.seq_id} alignment failed")
+                continue
+            log(f"read {fastq.seq_id} score {result.alignment.score}")
+            replace_digraph_node_ids(result.alignment)
+            alignments.append(result.alignment)
+            _write_read(fastq, result.alignment, result.trace, output_dir)
+    return alignments
+
+
+# copied from graphaligner_tpu/runtime/aligner.py:450-471 ------------------
+def augment_graph_with_alignments(graphs: list, alignments: list) -> vg.Graph:
+    """Embed alignment-path edges into the graph
+    (reference augmentGraphwithAlignment, Aligner.cpp:24-74)."""
+    aug = vg.Graph()
+    for g in graphs:
+        for node in g.node:
+            aug.node.append(
+                vg.Node(id=node.id, sequence=node.sequence, name=node.name)
+            )
+    for aln in alignments:
+        maps = aln.path.mapping
+        for i in range(len(maps) - 1):
+            aug.edge.append(
+                vg.Edge(
+                    from_=maps[i].position.node_id,
+                    to=maps[i + 1].position.node_id,
+                    from_start=maps[i].position.is_reverse,
+                    to_end=maps[i + 1].position.is_reverse,
+                    overlap=0,
+                )
+            )
+    return aug

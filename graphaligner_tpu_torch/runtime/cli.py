@@ -1,11 +1,12 @@
 """CLI with the reference Aligner's flags (AlignerMain.cpp:31-96).
 
     python -m graphaligner_tpu_torch.runtime.cli -g graph.vg -f reads.fastq
-        -a out.gam -t N -b band [-B rampband] -s seeds.gam
+        -a out.gam -t N -b band [-B rampband] (-s seeds.gam | -i)
         [-A auggraph.vg] [--backend cuda|cpu]
 
-Seeded banded mode only: -i (exhaustive mode), --mesh and the multi-host
-flags are accepted for compatibility and raise "not yet ported".
+Seeded banded mode (-s) and exhaustive mode (-i, which ignores -s, as
+graphaligner_tpu's CLI does); --mesh and the multi-host flags are accepted for
+compatibility and raise "not yet ported".
 """
 
 from __future__ import annotations
@@ -13,8 +14,7 @@ from __future__ import annotations
 import argparse
 import sys
 
-from graphaligner_tpu.core.params import AlignerParams
-
+from ..core.params import AlignerParams
 from .aligner import align_reads
 
 
@@ -65,8 +65,6 @@ def main(argv=None) -> int:
     if not args.initial_full_band and not args.seed_file:
         print("either initial full band or seed file must be set", file=sys.stderr)
         return 1
-    if args.initial_full_band:
-        raise NotImplementedError("exhaustive mode (-i) is not yet ported")
     if args.coordinator or args.num_processes > 1:
         raise NotImplementedError("multi-host alignment is not yet ported")
     params = AlignerParams(
@@ -74,7 +72,7 @@ def main(argv=None) -> int:
         fastq_file=args.fastq_file,
         alignment_file=args.alignment_file,
         auggraph_file=args.auggraph_file,
-        seed_file=args.seed_file,
+        seed_file="" if args.initial_full_band else args.seed_file,
         num_threads=args.num_threads,
         initial_bandwidth=args.initial_bandwidth,
         ramp_bandwidth=args.ramp_bandwidth,

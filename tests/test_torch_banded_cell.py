@@ -79,8 +79,9 @@ def test_banded_cell_plain_matches_jax_on_recorded_sim_slices(monkeypatch):
     from graphaligner_tpu.graph import load_alignment_graph
     from graphaligner_tpu.io import load_fastq
     from graphaligner_tpu.runtime.aligner import load_seed_hits
+    from graphaligner_tpu_torch.core.engine import encode_read
     from graphaligner_tpu_torch.core.tables import (
-        build_graph_tables, device_tables, encode_read, make_seed_carry,
+        build_graph_tables, device_tables, make_seed_carry,
     )
 
     calls = []

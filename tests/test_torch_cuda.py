@@ -48,10 +48,10 @@ def test_sim_on_gpu_matches_goldens_and_walk_plain(cuda, bw, ramp, golden,
                                                    monkeypatch):
     """sim on the card: goldens byte for byte, and every K2 call's fail
     flags and decoded traces equal to the plain walk's on the same args."""
-    from graphaligner_tpu.graph import load_alignment_graph
-    from graphaligner_tpu.io import load_fastq, native, stream, vg
-    from graphaligner_tpu.runtime.aligner import load_seed_hits
     from graphaligner_tpu_torch.core import batch_align as ba
+    from graphaligner_tpu_torch.graph import load_alignment_graph
+    from graphaligner_tpu_torch.io import load_fastq, native, stream, vg
+    from graphaligner_tpu_torch.runtime.aligner import load_seed_hits
     from graphaligner_tpu_torch.ops import walk_moves as k2
 
     monkeypatch.setenv("GA_NO_FALLBACK", "1")
@@ -111,3 +111,75 @@ def test_sim_on_gpu_matches_goldens_and_walk_plain(cuda, bw, ramp, golden,
         for j, n in enumerate(nk):
             np.testing.assert_array_equal(wk[j, :n], wp[j, :n])
             np.testing.assert_array_equal(rk[j, :n], rp[j, :n])
+
+
+@pytest.mark.cuda
+def test_exhaustive_kernel_matches_plain(cuda):
+    """K3 on bubbles x the 20 sim reads: all six slabs bit-identical to its
+    plain version on the card, and the -i GAM equal to the JAX golden."""
+    from graphaligner_tpu_torch.core import engine
+    from graphaligner_tpu_torch.graph import load_alignment_graph
+    from graphaligner_tpu_torch.io import load_fastq, stream, vg
+    from graphaligner_tpu_torch.ops import exhaustive as k3
+
+    graph = load_alignment_graph(str(SIM / "bubbles.vg"))
+    reads = load_fastq(str(SIM / "sim.fastq"))
+    ba = engine.BatchAligner(graph, cuda)
+    S = max((len(r.sequence) + 63) // 64 for r in reads)
+    codes = np.full((len(reads), S * 64), engine._READ_CODE["N"], np.uint8)
+    for i, r in enumerate(reads):
+        codes[i, : len(r.sequence)] = engine.encode_read(r.sequence)
+    eq = torch.as_tensor(
+        engine._build_eq_vectors(codes, engine._MATCH_TABLE, S).view(np.int32),
+        device=cuda,
+    )
+    kw = dict(num_nodes=ba.sched.num_nodes, cyclic=ba.sched.cyclic)
+    n0 = k3.LAUNCHES
+    got = k3.exhaustive(eq, *ba._dev_sched, **kw)
+    torch.cuda.synchronize()
+    assert k3.LAUNCHES == n0 + 1
+    want = k3.exhaustive_plain(eq, *ba._dev_sched, **kw)
+    for g, w in zip(got, want):
+        assert torch.equal(g, w)
+
+    res = engine.align_batch_full_band(graph, reads, batch_aligner=ba)
+    gold = {a.name: a.encode() for a in stream.read_messages(
+        str(SIM.parent / "torch" / "sim_i" / "out.gam"), vg.Alignment)}
+    for r, x in zip(reads, res):
+        aln = x.alignment
+        for m in aln.path.mapping:
+            m.position.node_id //= 2
+        assert aln.encode() == gold[r.seq_id]
+
+
+@pytest.mark.cuda
+def test_exhaustive_kernel_cyclic_fixpoint_matches_plain(cuda):
+    """K3's cyclic branch on the card: sim/cyclic.gfa x 16 random reads of
+    3 slices (numpy seed 7). The six slabs and the flags equal the plain
+    version's with no lane flagged; cut to one pass, every lane is flagged."""
+    from graphaligner_tpu_torch.core import engine
+    from graphaligner_tpu_torch.graph import graph_from_gfa_file
+    from graphaligner_tpu_torch.ops import exhaustive as k3
+
+    ba = engine.BatchAligner(graph_from_gfa_file(str(SIM / "cyclic.gfa")), cuda)
+    assert ba.sched.cyclic
+    B, S = 16, 3
+    rng = np.random.default_rng(7)
+    codes = np.full((B, S * 64), engine._READ_CODE["N"], np.uint8)
+    for i in range(B):
+        n = int(rng.integers(10, S * 64))
+        codes[i, :n] = rng.integers(0, 4, n)
+    eq = torch.as_tensor(
+        engine._build_eq_vectors(codes, engine._MATCH_TABLE, S).view(np.int32),
+        device=cuda,
+    )
+    kw = dict(num_nodes=ba.sched.num_nodes, cyclic=True)
+    n0 = k3.LAUNCHES
+    got = k3.exhaustive(eq, *ba._dev_sched, **kw)
+    torch.cuda.synchronize()
+    assert k3.LAUNCHES == n0 + 1
+    want = k3.exhaustive_plain(eq, *ba._dev_sched, **kw)
+    for g, w in zip(got, want):
+        assert torch.equal(g, w)
+    assert not bool(got[6].any())
+    assert bool(k3.exhaustive(eq, *ba._dev_sched, **kw, max_passes=1)[6].all())

@@ -2,9 +2,11 @@
 port.
 
 - The CLI (``--backend cpu``) writes the same GAM and trace files as the
-  reference binary's goldens.
-- In a subprocess where ``import jax`` fails, the port still aligns
-  smallexample through its CLI: it needs no jax.
+  reference binary's goldens in seeded mode, and the JAX-made goldens in
+  exhaustive mode (-i).
+- In a subprocess where ``import jax`` and ``import graphaligner_tpu`` both
+  fail, the port still aligns smallexample through its CLI, seeded and -i:
+  it needs neither.
 - Asking for ``cuda`` with no GPU raises; so does every unported route.
 """
 
@@ -45,34 +47,70 @@ def test_cli_writes_golden_gam(tmp_path, monkeypatch):
         assert (tmp_path / f"trace_0_{name}.trace").exists()
 
 
+def test_cli_i_writes_jax_golden_gam(tmp_path, monkeypatch):
+    from graphaligner_tpu_torch.runtime import cli
+
+    monkeypatch.chdir(tmp_path)
+    sim = FIX / "sim"
+    rc = cli.main([
+        "-g", str(sim / "bubbles.vg"), "-f", str(sim / "sim.fastq"),
+        "-s", str(sim / "seeds.gam"), "-b", "35", "-i", "-a", "out.gam",
+        "--backend", "cpu",
+    ])
+    assert rc == 0
+    got = stream.read_messages(str(tmp_path / "out.gam"), vg.Alignment)
+    want = stream.read_messages(str(FIX / "torch" / "sim_i" / "out.gam"),
+                                vg.Alignment)
+    assert [a.encode() for a in got] == [a.encode() for a in want]
+    assert len(got) == 20
+    for a in got:
+        assert (tmp_path / f"alignment_0_{a.name}.gam").exists()
+        assert (tmp_path / f"trace_0_{a.name}.trace").exists()
+
+
 _NO_JAX = r"""
 import sys
 sys.modules["jax"] = None
+sys.modules["graphaligner_tpu"] = None
 sys.path.insert(0, sys.argv[1])
 from graphaligner_tpu_torch.runtime import cli
 rc = cli.main(sys.argv[2:])
-assert not any(m == "jax" or m.startswith("jax.") for m in sys.modules
-               if sys.modules[m] is not None), "jax was imported"
+loaded = [m for m in sys.modules if sys.modules[m] is not None and (
+    m.split(".")[0] in ("jax", "graphaligner_tpu"))]
+assert not loaded, f"imported {loaded}"
 sys.exit(rc)
 """
 
 
-def test_port_runs_where_jax_is_absent(tmp_path):
+def _run_without_jax(tmp_path, *args):
     small = FIX / "smallexample"
     proc = subprocess.run(
         [sys.executable, "-c", _NO_JAX, str(ROOT),
          "-g", str(small / "sub_test.vg"), "-f", str(small / "read.fastq"),
-         "-s", str(small / "seedalignment.gam"), "-b", "35",
-         "-a", "out.gam", "--backend", "cpu"],
+         "-b", "35", "-a", "out.gam", "--backend", "cpu", *args],
         cwd=tmp_path, capture_output=True, text=True, timeout=300,
     )
     assert proc.returncode == 0, proc.stderr[-2000:]
-    got = stream.read_messages(str(tmp_path / "out.gam"), vg.Alignment)
+    return stream.read_messages(str(tmp_path / "out.gam"), vg.Alignment)
+
+
+def test_port_runs_where_jax_is_absent(tmp_path):
+    small = FIX / "smallexample"
+    got = _run_without_jax(tmp_path, "-s", str(small / "seedalignment.gam"))
     want = stream.read_messages(str(FIX / "golden" / "seeded.gam"),
                                 vg.Alignment)
-    assert got == want
+    assert [a.encode() for a in got] == [a.encode() for a in want]
     trace = (tmp_path / "trace_0_read1.trace").read_text()
     assert trace == (FIX / "golden" / "trace_0_read1.trace").read_text()
+
+
+def test_port_runs_i_where_jax_is_absent(tmp_path):
+    got = _run_without_jax(tmp_path, "-i")
+    want = stream.read_messages(
+        str(FIX / "torch" / "smallexample_i" / "out.gam"), vg.Alignment
+    )
+    assert len(got) == 1
+    assert [a.encode() for a in got] == [a.encode() for a in want]
 
 
 def test_cuda_request_without_gpu_raises(monkeypatch):
@@ -105,15 +143,13 @@ def test_cuda_tensor_without_gpu_raises_in_kernel_wrapper(monkeypatch):
 
 
 def test_unported_routes_raise(tmp_path):
-    from graphaligner_tpu.core.params import AlignerParams
+    from graphaligner_tpu_torch.core.params import AlignerParams
     from graphaligner_tpu_torch.runtime import cli
     from graphaligner_tpu_torch.runtime.aligner import align_reads
 
     sim = FIX / "sim"
     base = ["-g", str(sim / "bubbles.vg"), "-f", str(sim / "sim.fastq"),
             "-b", "35", "--backend", "cpu"]
-    with pytest.raises(NotImplementedError, match="not yet ported"):
-        cli.main(base + ["-i"])
     with pytest.raises(NotImplementedError, match="not yet ported"):
         cli.main(base + ["-s", str(sim / "seeds.gam"), "--mesh", "dp"])
     params = AlignerParams(graph_file=str(sim / "bubbles.vg"),
@@ -125,8 +161,8 @@ def test_unported_routes_raise(tmp_path):
 
 
 def test_long_reads_raise_not_yet_ported():
-    from graphaligner_tpu.graph import load_alignment_graph
     from graphaligner_tpu_torch.core.batch_align import BandedBatchAligner
+    from graphaligner_tpu_torch.graph import load_alignment_graph
 
     graph = load_alignment_graph(str(FIX / "sim" / "bubbles.vg"))
     aligner = BandedBatchAligner(graph, 35, 0, "cpu")
