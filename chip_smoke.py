@@ -3,29 +3,33 @@
 
     python3 chip_smoke.py
 
-Builds the three CUDA kernels from graphaligner_tpu_torch/csrc/ with nvcc
-(sm_90a, one nvcc per source, all at once) and the native host library
-with g++, then drives the port's two paths through their public entry
-points under GA_NO_FALLBACK=1:
+Builds the CUDA kernels of graphaligner_tpu_torch/csrc/ with nvcc (sm_90a,
+one nvcc per source, all at once) and the native host library with g++,
+then drives the port's two paths through their public entry points under
+GA_NO_FALLBACK=1:
 
-- seeded banded mode (K1 banded_cell, K2 walk_moves): longsim tiled x10
-  (1,000 reads of ~10 kb, -b 35), sim at -b 35 and at -b 5 -B 20, every
-  alignment byte for byte against the reference binary's goldens;
-- exhaustive mode, -i (K3 exhaustive), through ``align_reads``:
-  smallexample, sim (20 reads on bubbles.vg) and the longsim graph x the
-  sim reads tiled x8 (160 lanes), every read byte for byte against the
-  JAX-made goldens of tests/fixtures/torch/.
+- seeded banded mode (K1 slice_cells, the slice's metadata pass fused with
+  its cell passes; K2 walk_moves): longsim tiled x10 (1,000 reads of
+  ~10 kb, -b 35), sim at -b 35 and at -b 5 -B 20, every alignment byte for
+  byte against the reference binary's goldens;
+- exhaustive mode, -i, through ``align_reads``: K3's slice wavefront on
+  the acyclic graphs — smallexample, sim (20 reads on bubbles.vg) and the
+  longsim graph x the sim reads tiled x8 (160 lanes) — and K3's serial
+  fixpoint kernel on sim/cyclic.gfa x 32 reads through its repeat, every
+  read byte for byte against the JAX-made goldens of tests/fixtures/torch/.
 
 Each path's kernel launches are counted over its run (each must be > 0,
 host-fallback lanes must be 0). Then each kernel is held against its plain
-torch version on the card, on arguments recorded from that run: K1's
+torch version on the card, on arguments recorded from that run: K1's eight
 outputs bit for bit on its widest longsim call, for every K2 call the fail
-flags of every lane and every decoded trace exactly, and K3's six slabs
-bit for bit on its sim call and, through its cyclic fixpoint, on
-sim/cyclic.gfa (where a one-pass cap must flag every lane). Each kernel's
-bound (the larger of its bytes over the memory rate and its integer
-operations over the card's int32 issue rate) is computed from the recorded
-arguments, K2's from the walk that ran.
+flags of every lane and every decoded trace exactly, K3's wavefront six
+slabs bit for bit on its sim call, and K3's serial kernel, through its
+cyclic fixpoint, on sim/cyclic.gfa (where a one-pass cap must flag every
+lane). Each kernel's bound (the larger of its bytes over the memory rate
+and its integer operations over the card's int32 issue rate) is computed
+from the recorded arguments, K2's from the walk that ran. One more longsim
+x10 run under torch.profiler gives the device-kernel count, busy time and
+idle share of the seeded path.
 
 Prints the card's name and power limit, versions, build time, per-corpus
 rates, one JSON line of kernel results, and last
@@ -60,6 +64,8 @@ INT32_LANES_PER_SM = 64
 K1_OPS_VALID_CELL = 110  # meta decode, chain Myers advance, fused column
 K1_OPS_IDLE_CELL = 20  # decode and the INF column of a cell past the band
 K1_OPS_PRED = 590  # pred advance + differenceMasks merge (wordops.cuh)
+K1_OPS_CELL_META = 30  # a cell's slot, flags, code and old_end
+K1_OPS_PAIR = 2  # a compare and a select per (slot, slot) pair matched
 K2_OPS_STEP = 130  # one walk step: up to 3 candidate scores, K_in = 2
 K2_OPS_SLOT = 6  # per band slot per walked slice: offsets, slot search
 K3_OPS_CHAIN = 48  # one within-node Myers step, or a source's free start
@@ -144,8 +150,9 @@ def run_corpus(device, graph, reads, seeds, bw, ramp):
 
 class Recorder:
     """Records the kernels' arguments at their call sites during the main
-    path: the K1 call with the most lanes, and every K2 call together with
-    the decode call of its block (if any of its lanes survived the walk)."""
+    path: the K1 (slice_cells) call with the most lanes, and every K2 call
+    together with the decode call of its block (if any of its lanes
+    survived the walk)."""
 
     def __init__(self):
         import graphaligner_tpu_torch.core.batch_align as ba
@@ -156,7 +163,7 @@ class Recorder:
         self.k1 = None
         self.k2 = []  # [args, kwargs, fail flags of the run, decode args]
         self._mods = (eb, ba, native)
-        self._orig = (eb.banded_cell, ba.walk_moves, native.decode_moves_batch)
+        self._orig = (eb.slice_cells, ba.walk_moves, native.decode_moves_batch)
 
         def rec_k1(*args, **kw):
             if self.k1 is None or args[0].shape[1] > self.k1[0][0].shape[1]:
@@ -174,13 +181,13 @@ class Recorder:
                 self.k2[-1][3] = (args[1:], kw)
             return self._orig[2](*args, **kw)
 
-        eb.banded_cell = rec_k1
+        eb.slice_cells = rec_k1
         ba.walk_moves = rec_k2
         native.decode_moves_batch = rec_decode
 
     def close(self):
         eb, ba, native = self._mods
-        eb.banded_cell, ba.walk_moves, native.decode_moves_batch = self._orig
+        eb.slice_cells, ba.walk_moves, native.decode_moves_batch = self._orig
 
 
 def cuda_ms(fn, reps):
@@ -238,34 +245,72 @@ def nbytes(tensors):
     return sum(t.numel() * t.element_size() for t in tensors)
 
 
+def k1_work(args, outs):
+    """(bytes, int32 operations) of one slice_cells call, counted from its
+    data for one cell pass a lane (the longsim graph is acyclic). Bytes:
+    every input read once — the band and the carries, the per-lane flags
+    and scalars, the lane's 64-code window, the graph-table entries the
+    bands name (node_len and node_start of each band node, its in-neighbour
+    row, node_len of each previous-band node), the seq_codes word of each
+    valid cell, bits_lut — and every output written once. Operations: per
+    slot, the matches against the previous band and of its in-neighbours
+    against both bands (K1_OPS_PAIR each); per cell its metadata and its
+    DP (valid or idle); per in-band predecessor of a node start inside the
+    cell array, one advance and merge."""
+    import torch
+
+    (ids, _, p_ids, _, _, p_cell_send, _, _, _, _, _, _, node_len, node_start,
+     in_nbrs, _, bits_lut) = args
+    Nm, B = ids.shape
+    Cm = p_cell_send.shape[0]
+    K_in = in_nbrs.shape[1]
+    valid = ids < INT32_MAX
+    safe = ids.clamp(0, node_len.shape[0] - 1).long()
+    lens = torch.where(valid, node_len[safe], 0)
+    cum = lens.cumsum(0)
+    cells = cum[-1].clamp(max=Cm)  # valid cells a lane
+    inside = valid & (cum - lens < Cm)  # node starts inside the array
+    nb = torch.where(valid[..., None], in_nbrs[safe], -1)  # [Nm, B, K]
+    in_band = (nb[:, None] == ids[None, :, :, None]).any(1) & (nb >= 0)
+    preds = int((in_band & inside[..., None]).sum())
+    n_valid, n_prev = int(valid.sum()), int((p_ids < INT32_MAX).sum())
+    moved = (
+        nbytes([a for i, a in enumerate(args) if i in (0, 1, 2, 3, 4, 5, 6, 7,
+                                                       8, 9, 11)])
+        + 64 * B + n_valid * (8 + 4 * K_in) + 4 * n_prev
+        + 4 * int(cells.sum()) + nbytes([bits_lut]) + nbytes(outs)
+    )
+    ops = (n_valid * Nm * (1 + 2 * K_in) * K1_OPS_PAIR
+           + Cm * B * K1_OPS_CELL_META
+           + int(cells.sum()) * K1_OPS_VALID_CELL
+           + int((Cm - cells).sum()) * K1_OPS_IDLE_CELL + preds * K1_OPS_PRED)
+    return moved, ops
+
+
 def compare_k1(rec, rate):
     import torch
 
     from graphaligner_tpu_torch.ops import banded_cell as k1
 
     args, kw = rec.k1
-    got = k1.banded_cell(*args, **kw)
-    want, plain_ms = timed(lambda: k1.banded_cell_plain(*args, **kw))
+    got = k1.slice_cells(*args, **kw)
+    want, plain_ms = timed(lambda: k1.slice_cells_plain(*args, **kw))
     err = 0
-    for name, g, w in zip(("cols", "buf", "nmin"), got, want):
+    for name, g, w in zip(("cols", "nm", "ctrl", "p_ids", "p_cell_send",
+                           "p_node_min", "p_node_end", "p_min"), got, want):
         diff = int((g.to(torch.int64) - w.to(torch.int64)).abs().max())
         err = max(err, diff)
         if not torch.equal(g, w):
             fail(f"K1 {name} differs from its plain version (max {diff})")
-    ms = cuda_ms(lambda: k1.banded_cell(*args, **kw), 20)
-    Cm, B = args[0].shape
-    meta1, meta2 = (a.to(torch.int64) for a in args[:2])
-    vc = ((meta1 >> 10) & 1) == 1
-    st = ((meta1 >> 8) & 1) == 1
-    preds = sum(int((((meta2 >> (6 * k + 5)) & 1) == 1).logical_and(st).sum())
-                for k in range(kw["K_in"]))
-    ops = (int(vc.sum()) * K1_OPS_VALID_CELL
-           + int((~vc).sum()) * K1_OPS_IDLE_CELL + preds * K1_OPS_PRED)
-    bms, by = bound(nbytes(list(args) + list(got)), ops, rate)
-    print(f"K1 banded_cell vs plain at Cm={Cm} B={B} Nm={args[7].shape[1]}: "
-          f"bit-identical; kernel {ms:.4f} ms, plain {plain_ms:.1f} ms; bound "
-          f"{bms:.5f} ms by {by} ({nbytes(list(args) + list(got))} B, {ops} "
-          f"int32 ops), share {bms / ms:.4f}", flush=True)
+    ms = cuda_ms(lambda: k1.slice_cells(*args, **kw), 20)
+    Nm, B = args[0].shape
+    Cm = args[5].shape[0]
+    moved, ops = k1_work(args, got)
+    bms, by = bound(moved, ops, rate)
+    print(f"K1 slice_cells (fused) vs plain at Cm={Cm} Nm={Nm} B={B}: eight "
+          f"outputs bit-identical; kernel {ms:.4f} ms, plain {plain_ms:.1f} "
+          f"ms; bound {bms:.5f} ms by {by} ({moved} B, {ops} int32 ops), "
+          f"share {bms / ms:.4f}", flush=True)
     return err, ms, plain_ms, bms, by
 
 
@@ -431,23 +476,25 @@ class K3Recorder:
          engine.BatchAligner.compute_tables) = self._orig
 
 
-def k3_work(args, kw):
-    """(bytes, int32 operations) of one K3 call on an acyclic graph (one
-    pass per slice): inputs read once, the six [S, P, B] slabs and the
-    flags written once; per lane and slice, one Myers step at each
-    position without in-neighbours and, at each node start, one pred
-    advance and merge per in-neighbour."""
+def k3_work(args, kw, passes=1):
+    """(bytes, int32 operations) of one K3 call with ``passes`` whole-slice
+    passes (1 on an acyclic graph; on a cyclic one the least a slice takes
+    is 2, one and one that finds nothing changed): inputs read once, the six
+    [S, P, B] slabs and the flags written once; per lane, slice and pass,
+    one Myers step at each position without in-neighbours and, at each node
+    start, one pred advance and merge per in-neighbour."""
     import torch
 
-    if kw["cyclic"]:
-        fail("k3_work counts one pass per slice: the graph must be acyclic")
+    if kw["cyclic"] != (passes > 1):
+        fail("k3_work: an acyclic graph takes one pass, a cyclic one more")
     eq, code, is_start, _, preds, _ = args
     S, _, _, B = eq.shape
     P = code.shape[0]
     has_pred = (preds >= 0) & is_start.to(torch.bool)[:, None]
     n_preds = int(has_pred.sum())
     merged = int(has_pred.any(1).sum())
-    ops = S * B * ((P - merged) * K3_OPS_CHAIN + n_preds * K1_OPS_PRED)
+    ops = passes * S * B * ((P - merged) * K3_OPS_CHAIN
+                            + n_preds * K1_OPS_PRED)
     return nbytes(args) + 6 * S * P * B * 4 + B, ops
 
 
@@ -510,9 +557,10 @@ def check_golden_i(name, names, alns, golden_file):
 
 
 def compare_k3(rec, rate):
-    """K3 against its plain version on the card, on the arguments of its
-    sim -i call: all six slabs and the flags bit for bit. Also reports the
-    bound of the longsim x8 launch beside its time in the main path."""
+    """K3's wavefront against its plain version on the card, on the
+    arguments of its sim -i call: all six slabs and the flags bit for bit.
+    Also reports the bound of the longsim x8 launch beside its time in the
+    main path."""
     import torch
 
     from graphaligner_tpu_torch.ops import exhaustive as k3
@@ -521,6 +569,8 @@ def compare_k3(rec, rate):
     if len(calls) != 1:
         fail(f"expected one K3 call on sim -i, got {len(calls)}")
     _, args, kw, _ = calls[0]
+    if kw["cyclic"]:
+        fail("sim -i took K3's cyclic route")
     got = k3.exhaustive(*args, **kw)
     want, plain_ms = timed(lambda: k3.exhaustive_plain(*args, **kw))
     err = 0
@@ -529,13 +579,14 @@ def compare_k3(rec, rate):
         diff = int((g.to(torch.int64) - w.to(torch.int64)).abs().max())
         err = max(err, diff)
         if not torch.equal(g, w):
-            fail(f"K3 {name} differs from its plain version (max {diff})")
+            fail(f"K3 wavefront {name} differs from its plain version "
+                 f"(max {diff})")
     ms = cuda_ms(lambda: k3.exhaustive(*args, **kw), 5)
     moved, ops = k3_work(args, kw)
     bms, by = bound(moved, ops, rate)
     S, _, _, B = args[0].shape
     P = args[1].shape[0]
-    print(f"K3 exhaustive vs plain at S={S} P={P} B={B}: six slabs "
+    print(f"K3 exhaustive wavefront vs plain at S={S} P={P} B={B}: six slabs "
           f"bit-identical; kernel {ms:.4f} ms (mean of 5), plain "
           f"{plain_ms:.1f} ms; bound {bms:.5f} ms by {by} ({moved} B, {ops} "
           f"int32 ops), share {bms / ms:.5f}", flush=True)
@@ -543,10 +594,10 @@ def compare_k3(rec, rate):
         if corpus.startswith("longsim"):
             m, o = k3_work(a, k)
             b_ms, b_by = bound(m, o, rate)
-            print(f"K3 in {corpus} at S={a[0].shape[0]} P={a[1].shape[0]} "
-                  f"B={a[0].shape[3]}: {t:.3f} ms per launch; bound "
-                  f"{b_ms:.4f} ms by {b_by} ({m} B, {o} int32 ops), share "
-                  f"{b_ms / t:.5f}", flush=True)
+            print(f"K3 wavefront in {corpus} at S={a[0].shape[0]} "
+                  f"P={a[1].shape[0]} B={a[0].shape[3]}: {t:.3f} ms per "
+                  f"launch; bound {b_ms:.4f} ms by {b_by} ({m} B, {o} int32 "
+                  f"ops), share {b_ms / t:.5f}", flush=True)
     return err, ms, plain_ms, bms, by
 
 
@@ -574,52 +625,92 @@ def cyclic_reads(gfa, lanes, seed):
     return reads
 
 
-def compare_k3_cyclic(device):
-    """K3's cyclic fixpoint on the card: sim/cyclic.gfa x 32 reads through
-    its cycle. All six slabs and the flags bit for bit against the plain
-    version, no lane flagged; cut to one pass, every lane flagged."""
-    import numpy as np
+def compare_k3_cyclic(rec, rate):
+    """K3's serial fixpoint kernel on the card, on the arguments of its
+    cyclic -i call (sim/cyclic.gfa x 32 reads through its cycle): all six
+    slabs and the flags bit for bit against the plain version, no lane
+    flagged; cut to one pass, every lane flagged."""
     import torch
 
-    from graphaligner_tpu_torch.core import engine
-    from graphaligner_tpu_torch.graph import graph_from_gfa_file
     from graphaligner_tpu_torch.ops import exhaustive as k3
 
-    gfa = f"{FIX}/sim/cyclic.gfa"
-    ba = engine.BatchAligner(graph_from_gfa_file(gfa), device)
-    if not ba.sched.cyclic:
-        fail("sim/cyclic.gfa did not give a cyclic schedule")
-    reads = cyclic_reads(gfa, 32, 11)
-    S = max((len(r) + 63) // 64 for r in reads)
-    codes = np.full((len(reads), S * 64), engine._READ_CODE["N"], np.uint8)
-    for i, r in enumerate(reads):
-        codes[i, : len(r)] = engine.encode_read(r)
-    eq = torch.as_tensor(
-        engine._build_eq_vectors(codes, engine._MATCH_TABLE, S).view(np.int32),
-        device=device,
-    )
-    kw = dict(num_nodes=ba.sched.num_nodes, cyclic=True)
-    got = k3.exhaustive(eq, *ba._dev_sched, **kw)
-    want = k3.exhaustive_plain(eq, *ba._dev_sched, **kw)
+    calls = [c for c in rec.calls if c[0] == "cyclic -i"]
+    if len(calls) != 1 or not calls[0][2]["cyclic"]:
+        fail("expected one K3 call on cyclic -i, on the cyclic route")
+    _, args, kw, _ = calls[0]
+    got = k3.exhaustive(*args, **kw)
+    want, plain_ms = timed(lambda: k3.exhaustive_plain(*args, **kw))
     err = 0
     for name, g, w in zip(("vp_lo", "vp_hi", "vn_lo", "vn_hi", "sbs", "send",
                            "nonconv"), got, want):
         diff = int((g.to(torch.int64) - w.to(torch.int64)).abs().max())
         err = max(err, diff)
         if not torch.equal(g, w):
-            fail(f"K3 cyclic {name} differs from its plain version "
+            fail(f"K3 serial {name} differs from its plain version "
                  f"(max {diff})")
     if bool(got[6].any()):
         fail("K3 flagged a lane on sim/cyclic.gfa within 128 passes")
-    one = k3.exhaustive(eq, *ba._dev_sched, **kw, max_passes=1)[6]
+    one = k3.exhaustive(*args, **dict(kw, max_passes=1))[6]
     if not bool(one.all()):
-        fail(f"K3 cut to one pass flagged {int(one.sum())} of {len(reads)} "
-             f"lanes, not all")
-    print(f"K3 exhaustive cyclic fixpoint vs plain on sim/cyclic.gfa at S={S} "
-          f"P={len(ba.sched.code)} B={len(reads)}: six slabs and flags "
-          f"bit-identical, none flagged; cut to one pass, all "
-          f"{len(reads)} flagged", flush=True)
-    return err
+        fail(f"K3 cut to one pass flagged {int(one.sum())} of "
+             f"{one.shape[0]} lanes, not all")
+    ms = cuda_ms(lambda: k3.exhaustive(*args, **kw), 5)
+    moved, ops = k3_work(args, kw, passes=2)
+    bms, by = bound(moved, ops, rate)
+    S, _, _, B = args[0].shape
+    print(f"K3 exhaustive serial (cyclic fixpoint) vs plain on "
+          f"sim/cyclic.gfa at S={S} P={args[1].shape[0]} B={B}: six slabs "
+          f"and flags bit-identical, none flagged; cut to one pass, all "
+          f"{B} flagged; kernel {ms:.4f} ms (mean of 5), plain "
+          f"{plain_ms:.1f} ms; bound {bms:.5f} ms by {by} ({moved} B, {ops} "
+          f"int32 ops, two passes a slice), share {bms / ms:.5f}", flush=True)
+    return err, ms, plain_ms, bms, by
+
+
+def dev_us(event):
+    """A device event's duration in us (torch renamed cuda_time_total)."""
+    t = getattr(event, "device_time_total", None)
+    return event.cuda_time_total if t is None else t
+
+
+def profile_seeded(device, corpus, card):
+    """longsim x10 once more unprofiled (its wall) and once under
+    torch.profiler: device kernels (and copies) counted, their summed
+    device time (one stream, so the busy time), the idle share of the
+    unprofiled wall, and the fused K1's launches."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from graphaligner_tpu_torch.ops import banded_cell as k1
+
+    graph, reads, seeds, _ = corpus
+    _, wall, _ = run_corpus(device, graph, reads, seeds, 35, 0)
+    n1 = k1.LAUNCHES
+    t0 = time.time()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        run_corpus(device, graph, reads, seeds, 35, 0)
+    wall_prof = time.time() - t0
+    events = [e for e in prof.events()
+              if e.device_type == torch.autograd.DeviceType.CUDA]
+    if not events:
+        print("profiled longsim x10: torch.profiler recorded no device "
+              "events (device time not measured)", flush=True)
+        return
+    busy = sum(dev_us(e) for e in events) / 1e6
+    k1_events = sum(1 for e in events if "slice_cells" in e.name)
+    slices = k1.LAUNCHES - n1
+    print(f"profiled longsim x10 -b 35: {len(events)} device kernels and "
+          f"copies ({len(events) / max(slices, 1):.1f} a slice over {slices} "
+          f"fused K1 launches, {k1_events} seen by the profiler), device busy "
+          f"{busy:.3f} s; unprofiled wall {wall:.3f} s, idle share "
+          f"{1 - busy / wall:.3f} (profiled wall {wall_prof:.3f} s) [{card}]",
+          flush=True)
+    by_name = {}
+    for e in events:
+        n, t = by_name.get(e.name, (0, 0.0))
+        by_name[e.name] = (n + 1, t + dev_us(e) / 1e3)
+    for name, (n, t) in sorted(by_name.items(), key=lambda x: -x[1][1])[:8]:
+        print(f"  {t:9.3f} ms over {n:6d} x {name[:90]}", flush=True)
 
 
 def main() -> int:
@@ -699,9 +790,9 @@ def main() -> int:
                   f"[{card}]", flush=True)
     finally:
         rec.close()
-    launches = {"banded_cell": k1.LAUNCHES, "walk_moves": k2.LAUNCHES}
+    launches = {"slice_cells": k1.LAUNCHES, "walk_moves": k2.LAUNCHES}
     fallbacks = ba.host_fallback_count() - fb0
-    print(f"main-path launches: K1 banded_cell {launches['banded_cell']}, "
+    print(f"main-path launches: K1 slice_cells {launches['slice_cells']}, "
           f"K2 walk_moves {launches['walk_moves']}; host-fallback lanes "
           f"{fallbacks}", flush=True)
     if min(launches.values()) < 1:
@@ -711,8 +802,9 @@ def main() -> int:
     if rec.k1 is None or not rec.k2:
         fail("kernel arguments were not recorded")
 
-    # exhaustive mode (-i): K3, through align_reads
-    k3.LAUNCHES = 0
+    # exhaustive mode (-i): K3's two routes, through align_reads
+    k3.LAUNCHES_WAVEFRONT = 0
+    k3.LAUNCHES_SERIAL = 0
     fb0 = ba.host_fallback_count()
     rec3 = K3Recorder()
     build = os.path.join(ROOT, "build")
@@ -727,6 +819,8 @@ def main() -> int:
             ("sim -i", f"{FIX}/sim/bubbles.vg", sim_reads, "sim_i"),
             (f"longsim x{TILE_I} -i", f"{FIX}/longsim/graph.vg", tiled,
              "longsim_i"),
+            ("cyclic -i", f"{FIX}/sim/cyclic.gfa",
+             f"{FIX}/torch/cyclic_i/reads.fastq", "cyclic_i"),
         ]
         try:
             for name, graph_file, reads_file, golden in corpora_i:
@@ -754,39 +848,41 @@ def main() -> int:
                       f"memory {peak / 2**20:.0f} MiB [{card}]", flush=True)
         finally:
             rec3.close()
-    launches["exhaustive"] = k3.LAUNCHES
+    launches["exhaustive_wavefront"] = k3.LAUNCHES_WAVEFRONT
+    launches["exhaustive_serial"] = k3.LAUNCHES_SERIAL
     fallbacks = ba.host_fallback_count() - fb0
-    print(f"-i launches: K3 exhaustive {launches['exhaustive']}; "
-          f"host-fallback lanes {fallbacks}", flush=True)
-    if launches["exhaustive"] < 1:
-        fail("K3 never launched on the -i path")
+    print(f"-i launches: K3 wavefront {launches['exhaustive_wavefront']}, "
+          f"K3 serial {launches['exhaustive_serial']}; host-fallback lanes "
+          f"{fallbacks}", flush=True)
+    if min(launches["exhaustive_wavefront"], launches["exhaustive_serial"]) < 1:
+        fail("a K3 route never launched on the -i path")
     if fallbacks:
         fail(f"{fallbacks} lanes fell back to the host oracle")
 
-    err1, ms1, plain1, bound1, by1 = compare_k1(rec, rate)
-    err2, ms2, plain2, bound2, by2 = compare_k2(rec, rate)
-    err3, ms3, plain3, bound3, by3 = compare_k3(rec3, rate)
-    err3 = max(err3, compare_k3_cyclic(device))
-    kernels = [
-        {"name": "banded_cell", "route": "cuda",
-         "source": "graphaligner_tpu_torch/csrc/banded_cell.cu",
-         "replaces": "graphaligner_tpu/ops/pallas/banded_cell.py:44",
-         "launches": launches["banded_cell"], "max_abs_err": err1,
-         "ms": ms1, "plain_ms": plain1, "bound_ms": bound1, "bound_by": by1,
-         "library_ms": None},
-        {"name": "walk_moves", "route": "cuda",
-         "source": "graphaligner_tpu_torch/csrc/walk_moves.cu",
-         "replaces": "graphaligner_tpu/ops/pallas/walk_moves.py:135",
-         "launches": launches["walk_moves"], "max_abs_err": err2,
-         "ms": ms2, "plain_ms": plain2, "bound_ms": bound2, "bound_by": by2,
-         "library_ms": None},
-        {"name": "exhaustive", "route": "cuda",
-         "source": "graphaligner_tpu_torch/csrc/exhaustive.cu",
-         "replaces": "graphaligner_tpu/ops/pallas/exhaustive.py:60",
-         "launches": launches["exhaustive"], "max_abs_err": err3,
-         "ms": ms3, "plain_ms": plain3, "bound_ms": bound3, "bound_by": by3,
-         "library_ms": None},
-    ]
+    results = {
+        "slice_cells": compare_k1(rec, rate),
+        "walk_moves": compare_k2(rec, rate),
+        "exhaustive_wavefront": compare_k3(rec3, rate),
+        "exhaustive_serial": compare_k3_cyclic(rec3, rate),
+    }
+    profile_seeded(device, longsim, card)
+    sources = {
+        "slice_cells": ("banded_cell.cu", "banded_cell.py:44"),
+        "walk_moves": ("walk_moves.cu", "walk_moves.py:135"),
+        "exhaustive_wavefront": ("exhaustive.cu", "exhaustive.py:60"),
+        "exhaustive_serial": ("exhaustive.cu", "exhaustive.py:60"),
+    }
+    kernels = []
+    for name, (err, ms, plain_ms, bound_ms, by) in results.items():
+        src, tpu = sources[name]
+        kernels.append({
+            "name": name, "route": "cuda",
+            "source": f"graphaligner_tpu_torch/csrc/{src}",
+            "replaces": f"graphaligner_tpu/ops/pallas/{tpu}",
+            "launches": launches[name], "max_abs_err": err, "ms": ms,
+            "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": by,
+            "library_ms": None,
+        })
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -3,11 +3,12 @@
 A port of ``graphaligner_tpu`` that keeps its layout, so each module's
 counterpart is easy to find:
 
-  ops/      torch twins of the word ops, and the three hand-written CUDA
-            kernels with their plain versions: banded_cell (K1, the slice
-            cell pass), walk_moves (K2, the backtrace walk) and exhaustive
-            (K3, the -i column DP); ops/_build.py compiles csrc/*.cu with
-            nvcc
+  ops/      torch twins of the word ops, and the hand-written CUDA
+            kernels with their plain versions: banded_cell.slice_cells (K1,
+            a banded slice's metadata pass fused with its cell passes),
+            walk_moves (K2, the backtrace walk) and exhaustive (K3, the -i
+            column DP: a slice wavefront, and a serial kernel for cyclic
+            graphs); ops/_build.py compiles csrc/*.cu with nvcc
   csrc/     the CUDA C++ sources (sm_90a)
   core/     the banded slice scan (engine_banded), the batched seeded
             orchestration (batch_align) and the exhaustive-mode engine

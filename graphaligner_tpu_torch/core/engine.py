@@ -4,9 +4,10 @@ Port of ``graphaligner_tpu/core/engine.py``: every graph position is active
 in every slice (banded semantics with unbounded bandwidth), so the
 alignments are optimal. The positions are swept in the topological order
 of the SCC condensation (``build_schedule``); the DP of every slice runs as
-kernel K3 (``ops.exhaustive``), which also iterates cyclic graphs to their
-fixpoint. The packed slabs come back to the host, where ``DeviceSliceView``
-unpacks node columns lazily for the unchanged host backtrace.
+kernel K3 (``ops.exhaustive``): a slice wavefront on acyclic graphs, and
+a serial kernel that iterates cyclic graphs to their fixpoint. The packed
+slabs come back to the host, where ``DeviceSliceView`` unpacks node
+columns lazily for the unchanged host backtrace.
 
 The JAX package picks between an XLA wavefront and an XLA column scan
 here; both give the same slabs as K3, so the port runs K3 alone.
@@ -23,7 +24,7 @@ import torch
 from .._device import get_device
 from ..graph.alignment_graph import AlignmentGraph
 from ..io.sequences import IUPAC_MATCHES
-from ..ops.exhaustive import exhaustive
+from ..ops.exhaustive import WAVE_WARPS, exhaustive
 from ..ops.packing import unpack_deltas_np
 from .hmm import CorrectnessState
 from .oracle import _banded_tarjan, make_initial_slice_full_band
@@ -242,14 +243,17 @@ class BatchAligner:
     def lanes_that_fit(self, num_slices: int, cap: int) -> int:
         """Most lanes (at least 1, at most ``cap``) of ``num_slices`` slices
         whose ``compute_tables`` fits in half the free memory. A lane takes
-        the six int32 slabs (24 * S * P bytes) on the device, with the node
-        store and its Eq words, and again on the host, with the per-node
-        minima, its read codes and Eq words. On the CPU both live in host
-        memory, beside the plain version's int64 slabs and store."""
+        the six int32 slabs (24 * S * P bytes) on the device, with its Eq
+        words and the node store (24 * N bytes for each slice-warp of the
+        wavefront, at most ``WAVE_WARPS``; once for the serial kernel on a
+        cyclic graph), and again on the host, with the per-node minima, its
+        read codes and Eq words. On the CPU both live in host memory, beside
+        the plain version's int64 slabs and store."""
         S, P, N = num_slices, len(self.sched.code), self.sched.num_nodes
         slabs = 24 * S * P
+        stores = 1 if self.sched.cyclic else min(S, WAVE_WARPS)
         on_host = slabs + 8 * S * N + 104 * S
-        on_device = slabs + 24 * N + 40 * S
+        on_device = slabs + 24 * stores * N + 40 * S
         if self.device.type == "cuda":
             free = torch.cuda.mem_get_info(self.device)[0]
             fit = min(free // (2 * on_device), host_free_bytes() // (2 * on_host))

@@ -7,18 +7,20 @@ segmented lanes), advanced slice by slice with static capacities — an
 
 - projects the band from the previous slice through the precomputed reach
   table (one gather, one stable sort, a first-of-run dedup);
-- matches the new band against the previous one and packs the per-slot
-  predecessor tables (``pred_tab``, ``pred_prev``);
-- builds the slice's Eq words and the per-cell metadata (the
-  ``layout_parallel`` pass, with direct gathers instead of one-hot sums);
-- runs the cell pass through kernel K1 (``ops.banded_cell``) and repeats it
-  to a bounded fixpoint for lanes whose band has a back edge;
-- records the per-slice outputs and the packed control word.
+- hands the band and the carries to kernel K1 (``ops.banded_cell.
+  slice_cells``), which matches the new band against the previous one,
+  packs the per-slot predecessor tables (``pred_tab``, ``pred_prev``),
+  builds the slice's Eq words and per-cell metadata (the
+  ``layout_parallel`` pass), runs the cell pass, repeats it to a bounded
+  fixpoint for lanes whose band has a back edge, and returns the per-slice
+  outputs, the packed control word and the next carries.
 
 The JAX scan is a ``lax.scan``; here it is a Python loop over slices. As
 there, every slice of the compiled capacity ``S_max`` runs for every lane
 and inactive lanes are masked, so every output equals the JAX one. All
 arrays keep the batch as the last axis ([Nm, B], [Cm, B], [7, Cm, B]).
+Nothing in the loop reads back to the host, so the host queues the slices
+ahead of the card.
 Not ported: the XLA cell pass (the port always takes layout_parallel + K1)
 and the pairwise projection (a graph needs a reach table).
 """
@@ -27,7 +29,7 @@ from __future__ import annotations
 
 import torch
 
-from ..ops.banded_cell import banded_cell
+from ..ops.banded_cell import slice_cells
 from ..ops.wordops import M32, i32
 from .params import WORD_SIZE
 from .tables import EMPTY, INF, INF_PRI, I32MAX, DeviceTables
@@ -96,33 +98,30 @@ def banded_scan(
     slot0 = (iota_nm == 0)[:, None]
     # a fresh seed's slot scores: 0 on slot 0, INF elsewhere
     seed_score = torch.where(slot0, 0, iota_nm[:, None] * 0 + _INF)
-    w32 = torch.ones(32, dtype=torch.int64, device=dev) << torch.arange(
-        32, device=dev
-    )
-    g5 = torch.arange(5, dtype=torch.int32, device=dev)
-    rc_all = read_codes.to(torch.int64)
-    L_codes = rc_all.shape[1]
-    vb = 0
-    for k in range(K_in):
-        vb |= 1 << (5 + 6 * k)
-    inf_buf = torch.stack([
-        torch.full((Nm, B), -1, dtype=torch.int32, device=dev),
-        torch.full((Nm, B), -1, dtype=torch.int32, device=dev),
-        torch.zeros((Nm, B), dtype=torch.int32, device=dev),
-        torch.zeros((Nm, B), dtype=torch.int32, device=dev),
-        torch.full((Nm, B), _INF, dtype=torch.int32, device=dev),
-        torch.full((Nm, B), _INF + WORD_SIZE, dtype=torch.int32, device=dev),
-        torch.zeros((Nm, B), dtype=torch.int32, device=dev),
-    ])
+    rc_all = read_codes.to(torch.uint8).contiguous()
+    # each step's per-lane inputs, for all steps at once ([S, B])
+    steps = torch.arange(S_max, dtype=torch.int32, device=dev)[:, None]
+    if segmented:
+        active_all = seg_active == 1
+        first_all = seg_first == 1
+        slen_all = seg_slen
+        win_all = steps.expand(S_max, B).contiguous()
+        resetting_all = seg_rnode >= 0
+        rnode_all = torch.where(resetting_all, seg_rnode, 0)
+    else:
+        active_all = steps < num_steps[None, :]
+        win_all = start_slice[None, :] + steps
+        first_all = win_all == 0
+    tables = (dt.node_len, dt.node_start, dt.in_nbrs, dt.seq_codes,
+              dt.bits_lut)
 
-    def gather_node(table, ids, fill):
-        out = table[ids.clamp(0, N_nodes - 1).long()]
-        return torch.where(ids < _EMPTY, out, fill)
+    ew_all = bandwidth + WORD_SIZE
+    first_col = torch.ones((B, 1), dtype=torch.bool, device=dev)
 
-    def project_band_reach(p_ids_bn, p_nmin_bn, p_nend_bn, p_min, bw):
+    def project_band_reach(p_ids_bn, p_nmin_bn, p_nend_bn, p_min, bw, ew):
         """Precomputed-reach projection (core/reach.py): band membership is
-        m s.t. some qualified seed s has outp0(s) + d*(s, m) <= ew."""
-        ew = bw + WORD_SIZE
+        m s.t. some qualified seed s has outp0(s) + d*(s, m) <= ew
+        (ew = bw + 64)."""
         valid_slot = p_ids_bn < _EMPTY
         qualified = valid_slot & (p_nmin_bn <= (p_min + bw)[:, None])
         outp0 = torch.where(
@@ -130,7 +129,7 @@ def banded_scan(
             p_nend_bn - p_min[:, None] + 1,
             _INF_PRI,
         )
-        g = dt.reach[:, p_ids_bn.clamp(0, N_nodes - 1).long()]  # [2,B,Nm,K]
+        g = dt.reach[:, p_ids_bn.clamp(0, N_nodes - 1)]  # [2, B, Nm, K]
         rid, w1 = g[0], g[1]
         rd = w1 & 1023
         is_self = rd == 1023
@@ -144,10 +143,9 @@ def banded_scan(
         key_s, perm = torch.sort(key, dim=1, stable=True)
         id_s = ids_f.gather(1, perm)
         first = torch.cat(
-            [torch.ones((B, 1), dtype=torch.bool, device=dev),
-             id_s[:, 1:] != id_s[:, :-1]], dim=1,
+            [first_col, id_s[:, 1:] != id_s[:, :-1]], dim=1,
         ) & (key_s < _I32MAX)
-        cnt = first.to(torch.int32).cumsum(1, dtype=torch.int32)
+        cnt = first.cumsum(1, dtype=torch.int32)
         over = cnt[:, -1] > Nm
         pos = torch.where(first, cnt - 1, Nm).clamp(max=Nm).long()
         out = torch.full((B, Nm + 1), _EMPTY, dtype=torch.int32, device=dev)
@@ -155,27 +153,19 @@ def banded_scan(
         return out[:, :Nm], over
 
     S = S_max
-    nm_pack = torch.empty((S, 6, Nm, B), dtype=torch.int32, device=dev)
-    ctrl_pack = torch.empty((S, B), dtype=torch.int32, device=dev)
-    cols_out = torch.empty((S, 7, Cm, B), dtype=torch.int32, device=dev)
-
+    nm_steps, ctrl_steps, cols_steps = [], [], []
     p_ids = _i32t(init_ids, dev).T.contiguous()
     p_cell_send = _i32t(init_cell_send, dev).T.contiguous()
     p_node_min = _i32t(init_node_min, dev).T.contiguous()
     p_node_end = _i32t(init_node_end, dev).T.contiguous()
     p_min = init_min
     for t in range(S):
-        bw = bandwidth[t]
         if segmented:
-            active = seg_active[t] == 1
-            first_slice = seg_first[t] == 1
-            seq_len_v = seg_slen[t]
             # segment start: restart the carry from the seed node
-            resetting = seg_rnode[t] >= 0
-            rnode = torch.where(resetting, seg_rnode[t], 0)
+            resetting = resetting_all[t]
             rm = resetting[None, :]
             p_ids = torch.where(
-                rm, torch.where(slot0, rnode[None, :], _EMPTY), p_ids
+                rm, torch.where(slot0, rnode_all[t][None, :], _EMPTY), p_ids
             )
             p_cell_send = torch.where(
                 rm & (iota_cm[:, None] < seg_rlen[t][None, :]), 0,
@@ -184,187 +174,30 @@ def banded_scan(
             p_node_min = torch.where(rm, seed_score, p_node_min)
             p_node_end = torch.where(rm, seed_score, p_node_end)
             p_min = torch.where(resetting, 0, p_min)
+            seq_len_v = slen_all[t]
         else:
-            active = t < num_steps
-            g_slice = start_slice + t
-            first_slice = g_slice == 0
             seq_len_v = seq_len
 
         ids_bn, proj_over = project_band_reach(
-            p_ids.T, p_node_min.T, p_node_end.T, p_min, bw
+            p_ids.T, p_node_min.T, p_node_end.T, p_min, bandwidth[t],
+            ew_all[t],
         )
-        ids = ids_bn.T.contiguous()  # [Nm, B]
-        valid_slot = ids < _EMPTY
-
-        # ---- per-slot tables ([Nm, B])
-        safe = ids.clamp(0, N_nodes - 1).long()
-        lens = torch.where(valid_slot, dt.node_len[safe], 0)
-        starts_tab = torch.where(valid_slot, dt.node_start[safe], 0)
-        nbs = dt.in_nbrs[safe]  # [Nm, B, K_in]
-        c_used = lens.sum(0, dtype=torch.int32)
-        cell_over = c_used > Cm
-
-        # ---- previous-band matching
-        p_valid = p_ids < _EMPTY
-        same = (
-            (ids[:, None, :] == p_ids[None, :, :])
-            & valid_slot[:, None, :]
-            & p_valid[None, :, :]
-        )  # [Nm, Nm_prev, B]
-        node_in_prev = same.any(1)
-        prev_slot = same.to(torch.int8).argmax(1)
-        p_lens = gather_node(dt.node_len, p_ids, 0)
-        p_offsets = p_lens.cumsum(0, dtype=torch.int32) - p_lens
-        prev_base = p_offsets.gather(0, prev_slot)
-
-        # ---- in-neighbor classification per slot
-        any_banded = torch.zeros((Nm, B), dtype=torch.bool, device=dev)
-        slot_pseudo = torch.full((Nm, B), _INF, dtype=torch.int32, device=dev)
-        pred_tab = torch.zeros((Nm, B), dtype=torch.int32, device=dev)
-        pred_prev = torch.zeros((Nm, B), dtype=torch.int32, device=dev)
-        for k in range(K_in):
-            nb_k = torch.where(valid_slot, nbs[:, :, k], -1)
-            nbv = (nb_k >= 0) & valid_slot
-            eq_cur = (nb_k[:, None, :] == ids[None, :, :]) & nbv[:, None, :]
-            in_cur_k = eq_cur.any(1)
-            cur_slot_k = eq_cur.to(torch.int8).argmax(1).to(torch.int32)
-            eq_prev = (
-                (nb_k[:, None, :] == p_ids[None, :, :])
-                & nbv[:, None, :]
-                & p_valid[None, :, :]
+        cols, nm, ctrl, p_ids, p_cell_send, p_node_min, p_node_end, p_min = (
+            slice_cells(
+                ids_bn.T.contiguous(), proj_over, p_ids, p_node_min,
+                p_node_end, p_cell_send, p_min, active_all[t], first_all[t],
+                seq_len_v, rc_all, win_all[t], *tables, P_fix=P_fix,
             )
-            in_prev_k = eq_prev.any(1)
-            prev_slot_k = eq_prev.to(torch.int8).argmax(1)
-            pe_k = torch.where(
-                in_prev_k, p_node_end.gather(0, prev_slot_k), _INF
-            )
-            slot_pseudo = torch.minimum(
-                slot_pseudo, torch.where(in_prev_k & ~in_cur_k, pe_k, _INF)
-            )
-            any_banded = any_banded | in_cur_k | in_prev_k
-            pred_tab = pred_tab | (
-                (cur_slot_k | (in_cur_k.to(torch.int32) << 5)) << (6 * k)
-            )
-            # PREVIOUS-band slot per pred: the walk's boundary diagonal
-            # reads preds that fell out of the current band
-            pred_prev = pred_prev | (
-                (prev_slot_k.to(torch.int32) | (in_prev_k.to(torch.int32) << 5))
-                << (6 * k)
-            )
-        band_source = ~any_banded & valid_slot
-        src_noprev_slot = band_source & ~node_in_prev
-        src_sm_slot = band_source & node_in_prev & first_slice[None, :]
-
-        # ---- per-slice Eq words for the 5 graph codes ([5, B])
-        if segmented:
-            rc = rc_all[:, t * WORD_SIZE:(t + 1) * WORD_SIZE]
-        else:
-            rc_base = (g_slice * WORD_SIZE).clamp(0, L_codes - WORD_SIZE)
-            rc = rc_all.gather(
-                1,
-                rc_base.long()[:, None]
-                + torch.arange(WORD_SIZE, device=dev)[None, :],
-            )
-        bits = (dt.bits_lut[rc][:, :, None] >> g5) & 1  # [B, 64, 5]
-        eq_lo_tab = i32((bits[:, :32].to(torch.int64) * w32[:, None]).sum(1).T)
-        eq_hi_tab = i32((bits[:, 32:].to(torch.int64) * w32[:, None]).sum(1).T)
-
-        # ---- per-cell metadata (layout_parallel; no sequential dependency)
-        cum_end = lens.cumsum(0, dtype=torch.int32)
-        slot = (
-            (iota_cm[:, None, None] >= cum_end[None]) & (lens > 0)[None]
-        ).sum(1).clamp(max=Nm - 1)  # [Cm, B] int64
-
-        def rd(tab):
-            return tab.gather(0, slot)
-
-        base = rd(cum_end - lens)
-        off = iota_cm[:, None] - base
-        len_s = rd(lens)
-        vc = (iota_cm[:, None] < c_used[None, :]) & (len_s > 0)
-        st = (off == 0) & vc
-        en = (off == len_s - 1) & vc
-        inprev = rd(node_in_prev.to(torch.int32)) == 1
-        pos = (rd(starts_tab) + off).clamp(0, dt.seq_codes.shape[0] - 1)
-        code = torch.where(vc, dt.seq_codes[pos.long()], 4)
-        old_idx = (rd(prev_base) + off).clamp(0, Cm - 1)
-        oe = torch.where(
-            inprev & vc, p_cell_send.gather(0, old_idx.long()), _INF
         )
-        ps = torch.where(st, rd(slot_pseudo), _INF)
-        srcnp = st & (rd(src_noprev_slot.to(torch.int32)) == 1)
-        srcsm = st & (rd(src_sm_slot.to(torch.int32)) == 1)
-        m1 = (
-            slot.to(torch.int32)
-            | (st.to(torch.int32) << 8)
-            | (en.to(torch.int32) << 9)
-            | (vc.to(torch.int32) << 10)
-            | (inprev.to(torch.int32) << 11)
-            | (code << 12)
-            | (srcnp.to(torch.int32) << 15)
-            | (srcsm.to(torch.int32) << 16)
-        )
-        rp = rd(pred_tab)
-        m2 = torch.where(st, rp, rp & ~vb)
-        back_edge = torch.zeros(B, dtype=torch.bool, device=dev)
-        for k in range(K_in):
-            pslot_k = (rp >> (6 * k)) & 31
-            pvalid_k = st & (((rp >> (5 + 6 * k)) & 1) == 1)
-            back_edge = back_edge | (pvalid_k & (pslot_k >= slot)).any(0)
+        nm_steps.append(nm)
+        ctrl_steps.append(ctrl)
+        cols_steps.append(cols)
 
-        def cell_pass(buf_init):
-            return banded_cell(
-                m1, m2.contiguous(), oe.contiguous(), ps.contiguous(),
-                eq_lo_tab.contiguous(), eq_hi_tab.contiguous(),
-                seq_len_v[None, :].contiguous(), buf_init, K_in=K_in,
-            )
-
-        cols, buf, nmin = cell_pass(inf_buf)
-        # bounded fixpoint for cyclic bands (back edge = an in-band
-        # predecessor at a topo slot >= the node's own)
-        fix_fail = torch.zeros(B, dtype=torch.bool, device=dev)
-        if bool(back_edge.any()):
-            lane_ch = back_edge
-            still = True
-            it = 0
-            while still and it < P_fix:
-                cols1, buf1, nmin1 = cell_pass(buf)
-                diff = (cols1 != cols).flatten(0, 1).any(0)
-                lane_ch = diff & back_edge
-                cols, buf, nmin = cols1, buf1, nmin1
-                still = bool(lane_ch.any())
-                it += 1
-            if still:
-                fix_fail = lane_ch
-
-        node_end = buf[5]
-        min_score = torch.where(valid_slot, nmin, _INF).min(0).values
-        overflow = proj_over | cell_over | fix_fail
-        am2 = active[None, :]
-        nm_pack[t] = torch.stack([
-            torch.where(am2, ids, _EMPTY),
-            torch.where(am2, nmin, _INF),
-            torch.where(am2, node_end, _INF),
-            torch.where(am2, lens, 0),
-            torch.where(am2, pred_tab, 0),
-            torch.where(am2, pred_prev, 0),
-        ])
-        # packed control word: min-score delta (bits 0-6), band cells
-        # (bits 7-29), overflow (bit 30)
-        ctrl_pack[t] = (
-            torch.where(active, (min_score - p_min).clamp(0, 127), 0)
-            | (torch.where(active, c_used.clamp(max=Cm), 0) << 7)
-            | ((overflow & active).to(torch.int32) << 30)
-        )
-        cols_out[t] = cols
-        p_ids = torch.where(am2, ids, p_ids)
-        p_cell_send = torch.where(am2, cols[5], p_cell_send)
-        p_node_min = torch.where(am2, nmin, p_node_min)
-        p_node_end = torch.where(am2, node_end, p_node_end)
-        p_min = torch.where(active, min_score, p_min)
-
+    nm_pack = torch.stack(nm_steps)  # [S, 6, Nm, B]
+    ctrl_pack = torch.stack(ctrl_steps)  # [S, B]
+    cols_out = torch.stack(cols_steps)  # [S, 7, Cm, B]
     return _finish_outputs(
-        nm_pack, ctrl_pack, cols_out, rc_all, init_min, num_steps,
+        nm_pack, ctrl_pack, cols_out, read_codes, init_min, num_steps,
         (seg_active, seg_rnode) if segmented else None, tie8, Nm,
     )
 

@@ -1,168 +1,433 @@
-// Banded slice cell pass (kernel K1) for Hopper, sm_90a.
+// One banded slice, its metadata pass fused with its cell passes (kernel
+// K1) for Hopper, sm_90a.
 //
-// Replaces graphaligner_tpu/ops/pallas/banded_cell.py::banded_cell_kernel:
-// one 64-row slice, all Cm band cells in order for every lane — the
-// within-node Myers advance, the fused boundary / pseudo / band-source
-// column, the differenceMasks merge over the in-band predecessors read
-// from the node-end buffer, the node-end buffer writes and the per-slot
-// minimum of the last-row scores.
+// Replaces graphaligner_tpu/ops/pallas/banded_cell.py::banded_cell_kernel
+// together with the per-slice torch code around it in graphaligner_tpu/
+// core/engine_banded.py::banded_scan (between the band projection and the
+// packed outputs): from the projected band and the previous slice's
+// carries, the per-slot tables, the lane's Eq words and the per-cell
+// metadata; then all Cm band cells in order — the within-node Myers
+// advance, the fused boundary / pseudo / band-source column, the
+// differenceMasks merge over the in-band predecessors read from the
+// node-end buffer, the node-end buffer writes and the per-slot minima —
+// repeated to a bounded fixpoint on lanes whose band has a back edge; then
+// the slice's outputs (cols, the nm_pack fields, the control word) and the
+// next carries, each masked by the lane's active flag.
 //
-// Design: one thread per lane, looping serially over the cells with the
-// column state in registers (uint64_t vp/vn, sbs, send, e). The TPU kernel
-// read buf and nmin through one-hot masked sums because Mosaic has no
-// dynamic gather; here they are indexed directly in global memory as
-// [f, slot, lane], which neighbouring threads read and write coalesced
-// since the batch is the last axis (and each lane only touches its own
-// column, so L1 keeps it). Small blocks of 64 threads spread a chunk of a
-// few thousand lanes over many SMs.
+// Design: a block carries LB lanes, all of its state in shared memory,
+// lane-minor ([x][LB], so the lanes of a warp hit distinct banks):
+// - phase A, one thread per (lane, slot), a warp per lane: the slot
+//   tables — lengths and starts, the previous-band match (node_in_prev,
+//   prev_slot, prev_base by a warp scan), the in-neighbour classification
+//   (slot_pseudo, pred_tab, pred_prev, the band-source flags), cum_end by a
+//   warp scan — and the lane's five Eq words, from its 64 read codes by
+//   warp ballots;
+// - phase A2, one thread per (lane, cell): each cell's packed metadata word
+//   and old_end, the global loads (seq_codes, p_cell_send) off the serial
+//   chain;
+// - phase B, one thread per lane: the cells in order with the column in
+//   registers (uint64_t vp/vn), the node-end buffer and slot minima in
+//   shared memory, cols written once per pass, coalesced (batch last);
+// - phase C, one thread per (lane, slot) again: minima, outputs, carries.
+// No metadata array goes to device memory; the host launches one kernel a
+// slice where the torch code launched about two hundred.
 //
-// What bounds it: the card's floor is the bytes — each input read once and
-// each output written once is 7.49 MB at Cm=288, Nm=32, B=512, 2.2 us at
-// 3.35 TB/s, against about 9.3 M int32 operations, 0.6 us at the int32
-// issue rate — but the kernel takes about 0.26 ms there (NVIDIA H100 80GB
-// HBM3, 700 W; chip_smoke.py), a share below 0.01: the serial dependence
-// along the cells (each cell needs the previous cell's column), with 16
-// warps on 132 SMs at B=512, leaves it latency-bound. More lanes per SM,
-// shared-memory staging of buf and fusing the per-slice metadata pass in
-// are later work.
+// The cyclic fixpoint runs per lane: a lane with a back edge (an in-band
+// predecessor at a slot >= the node's own) repeats the pass from the
+// previous pass's node-end buffer until its cols stop changing, at most
+// P_fix more passes, and is flagged if its last pass still changed them.
+// This is exactly the torch loop's result, which repeats passes for every
+// lane while any back-edge lane changes: buf and nmin are functions of cols
+// and buf_init (buf_out = buf_init overwritten at the node ends, from cols),
+// so a lane whose cols did not change between two passes has the same buf
+// and nmin too, and every later pass reproduces it; a lane still changing
+// at the last pass is flagged there as here. A lane without a back edge
+// reads at each node start only ends written earlier in the same pass, so
+// its first pass is already its fixpoint.
+//
+// What bounds it: the card's floor is the bytes of the slice's inputs and
+// outputs (the carries, the band, the read-code window, the graph-table
+// entries the band names; cols, nm_pack, ctrl and the next carries), 6.4 MB
+// at Cm=288, Nm=32, B=512 on longsim, 1.9 us at 3.35 TB/s, above its 14.9 M
+// int32 operations; the kernel takes 0.14 ms there (NVIDIA H100 80GB HBM3,
+// 700 W; chip_smoke.py), a share of 0.014. One thread per lane walks the
+// cells serially, so the pass is latency-bound; the design keeps the
+// serial part to the DP itself (its metadata in shared memory, written
+// beforehand by all threads), and blocks of 8 lanes spread a round's lanes
+// over many SMs and keep the divergence between start and chain cells to 8
+// lanes a warp.
 #include <cuda_runtime.h>
 
 #include "wordops.cuh"
 
-__global__ void banded_cell_kernel(
-    const int32_t *__restrict__ meta1,   // [Cm, B]
-    const int32_t *__restrict__ meta2,   // [Cm, B]
-    const int32_t *__restrict__ old_end, // [Cm, B]
-    const int32_t *__restrict__ pseudo,  // [Cm, B]
-    const int32_t *__restrict__ eq_lo,   // [5, B]
-    const int32_t *__restrict__ eq_hi,   // [5, B]
-    const int32_t *__restrict__ seq_len, // [1, B]
-    const int32_t *__restrict__ buf_init, // [7, Nm, B]
-    int32_t *__restrict__ cols,          // [7, Cm, B]
-    int32_t *__restrict__ buf,           // [7, Nm, B]
-    int32_t *__restrict__ nmin,          // [Nm, B]
-    int Cm, int Nm, int B, int K_in) {
-  const int b = blockIdx.x * blockDim.x + threadIdx.x;
-  if (b >= B) return;
+#define SC_EMPTY 0x7FFFFFFF
+#define SC_FULL 0xFFFFFFFFu
+
+// shared tables, each [n][LB] int32 (t = table index, x = row)
+#define SLOT(t, x) sm[((t) * Nm + (x)) * LB + l]
+enum {
+  T_IDS, T_PIDS, T_PEND, T_LEN, T_CUM, T_START, T_INPREV, T_PBASE, T_PSEUDO,
+  T_PTAB, T_PPREV, T_SRC, T_POFF, T_NMIN, T_BUF,  // T_BUF: 7 tables
+  T_SLOTS = T_BUF + 7
+};
+
+__global__ void slice_cells_kernel(
+    const int32_t *__restrict__ ids,         // [Nm, B]
+    const uint8_t *__restrict__ proj_over,   // [B]
+    const int32_t *__restrict__ p_ids,       // [Nm, B]
+    const int32_t *__restrict__ p_node_min,  // [Nm, B]
+    const int32_t *__restrict__ p_node_end,  // [Nm, B]
+    const int32_t *__restrict__ p_cell_send, // [Cm, B]
+    const int32_t *__restrict__ p_min,       // [B]
+    const uint8_t *__restrict__ active,      // [B]
+    const uint8_t *__restrict__ first_slice, // [B]
+    const int32_t *__restrict__ seq_len,     // [B]
+    const uint8_t *__restrict__ read_codes,  // [B, Lc]
+    const int32_t *__restrict__ win,         // [B]
+    const int32_t *__restrict__ node_len,    // [N]
+    const int32_t *__restrict__ node_start,  // [N]
+    const int32_t *__restrict__ in_nbrs,     // [N, K_in]
+    const int32_t *__restrict__ seq_codes,   // [BP]
+    const int32_t *__restrict__ bits_lut,    // [R]
+    int32_t *__restrict__ cols,              // [7, Cm, B]
+    int32_t *__restrict__ nm,                // [6, Nm, B]
+    int32_t *__restrict__ ctrl,              // [B]
+    int32_t *__restrict__ o_ids,             // [Nm, B]
+    int32_t *__restrict__ o_cell_send,       // [Cm, B]
+    int32_t *__restrict__ o_node_min,        // [Nm, B]
+    int32_t *__restrict__ o_node_end,        // [Nm, B]
+    int32_t *__restrict__ o_min,             // [B]
+    int Nm, int Cm, int B, int N, int K_in, int BP, int Lc, int P_fix,
+    int LB) {
+  extern __shared__ int32_t sm[];
+  int32_t *sm_m1 = sm + T_SLOTS * Nm * LB;  // [Cm][LB]
+  int32_t *sm_oe = sm_m1 + Cm * LB;         // [Cm][LB]
+  int32_t *sm_lane = sm_oe + Cm * LB;       // [12][LB]: eq lo/hi x 5, c_used, fail
   const size_t sB = (size_t)B;
-  const size_t fN = (size_t)Nm * sB;  // field stride of buf
-  const size_t fC = (size_t)Cm * sB;  // field stride of cols
-  for (int f = 0; f < 7; ++f)
-    for (int j = 0; j < Nm; ++j)
-      buf[f * fN + j * sB + b] = buf_init[f * fN + j * sB + b];
-  for (int j = 0; j < Nm; ++j) nmin[j * sB + b] = GA_INF;
-  uint64_t eqw[5];
-  for (int g = 0; g < 5; ++g) eqw[g] = ga_u64(eq_lo[g * sB + b], eq_hi[g * sB + b]);
-  const int32_t slen = seq_len[b];
 
-  Col col = {~0ull, 0ull, GA_INF, GA_INF + 64, 0};
-  for (int c = 0; c < Cm; ++c) {
-    const size_t at = (size_t)c * sB + b;
-    const int32_t meta = meta1[at];
-    const int slot = meta & 0xFF;
-    const bool st = (meta >> 8) & 1;
-    const bool en = (meta >> 9) & 1;
-    const bool vc = (meta >> 10) & 1;
-    const bool inprev = (meta >> 11) & 1;
-    const int code = (meta >> 12) & 7;
-    const bool srcnp = (meta >> 15) & 1;
-    const bool srcsm = (meta >> 16) & 1;
-    const int32_t oe = old_end[at];
-    const int32_t ps = pseudo[at];
-    const uint64_t eq = code < 5 ? eqw[code] : 0ull;
-
-    // within-node chain advance
-    const int32_t r_chain = min(oe, col.sbs + 1);
-    uint64_t c_vp, c_vn;
-    int32_t c_send;
-    myers_advance((col.e & 1) ? eq : (eq & ~1ull), col.vp, col.vn, col.send,
-                  r_chain - col.sbs, c_vp, c_vn, c_send);
-
-    // fused uniform column (boundary / pseudo / band source)
-    const int32_t match0 = (int32_t)(eq & 1ull);
-    const int32_t sm0 = srcsm ? 1 - match0 : 1;
-    const int32_t sbs_b = inprev ? oe : GA_INF;
-    const int32_t a_b = inprev ? oe + sm0 : GA_INF + 1;
-    const bool has_ps = ps < GA_INF;
-    const int32_t sbs_p = has_ps ? ps + 1 : GA_INF;
-    const int32_t a_p = has_ps ? ps + 1 - match0 : GA_INF + 1;
-    const int32_t sbs_s = srcnp ? slen + 1 : GA_INF;
-    const int32_t a_s = srcnp ? slen + 2 : GA_INF + 1;
-    const int32_t sbs_f = min(min(sbs_b, sbs_p), sbs_s);
-    const int32_t a_f = min(min(a_b, a_p), a_s);
-    const int32_t delta = a_f - sbs_f;
-    Col merged;
-    merged.vp = 0xFFFFFFFFFFFFFFFEull | (delta == 1 ? 1ull : 0ull);
-    merged.vn = delta == -1 ? 1ull : 0ull;
-    merged.sbs = sbs_f;
-    merged.send = a_f + 63;
-    merged.e = 0;
-
-    // in-band predecessor columns (getNodeStartSlice)
-    const int32_t m2 = meta2[at];
-    for (int k = 0; k < K_in; ++k) {
-      const int pslot = (m2 >> (6 * k)) & 31;
-      const bool pvalid = ((m2 >> (6 * k + 5)) & 1) && st;
-      if (!pvalid) continue;
-      int32_t g[7] = {0, 0, 0, 0, 0, 0, 0};
-      if (pslot < Nm)
-        for (int f = 0; f < 7; ++f) g[f] = buf[f * fN + pslot * sB + b];
-      Col adv;
-      int32_t a_send;
-      myers_advance((g[6] & 1) ? eq : (eq & ~1ull), ga_u64(g[0], g[1]),
-                    ga_u64(g[2], g[3]), g[5], 1, adv.vp, adv.vn, a_send);
-      adv.sbs = g[4] + 1;
-      adv.send = a_send;
-      adv.e = g[6];
-      merged = merge_slices(merged, adv);
+  // ---- phase A: one warp per lane, one thread per slot
+  {
+    const int l = threadIdx.x >> 5, j = threadIdx.x & 31;
+    const int b = blockIdx.x * LB + l;
+    if (b < B) {
+      const bool sj = j < Nm;
+      const int32_t id = sj ? ids[j * sB + b] : SC_EMPTY;
+      const int32_t pid = sj ? p_ids[j * sB + b] : SC_EMPTY;
+      const bool valid = id < SC_EMPTY, pvalid = pid < SC_EMPTY;
+      const int safe = min(max(id, 0), N - 1);
+      const int32_t len = valid ? node_len[safe] : 0;
+      const int32_t plen = pvalid ? node_len[min(max(pid, 0), N - 1)] : 0;
+      int32_t cum = len, pcum = plen;  // inclusive warp scans
+#pragma unroll
+      for (int d = 1; d < 32; d <<= 1) {
+        const int32_t a = __shfl_up_sync(SC_FULL, cum, d);
+        const int32_t pa = __shfl_up_sync(SC_FULL, pcum, d);
+        if (j >= d) {
+          cum += a;
+          pcum += pa;
+        }
+      }
+      const int32_t c_used = __shfl_sync(SC_FULL, cum, 31);
+      if (sj) {
+        SLOT(T_IDS, j) = id;
+        SLOT(T_PIDS, j) = pid;
+        SLOT(T_PEND, j) = p_node_end[j * sB + b];
+        SLOT(T_LEN, j) = len;
+        SLOT(T_CUM, j) = cum;
+        SLOT(T_START, j) = valid ? node_start[safe] : 0;
+        SLOT(T_POFF, j) = pcum - plen;
+      }
+      // Eq words: rows j and j + 32 of the lane's window
+      const int base = min(max(win[b] * 64, 0), Lc - 64);
+      const uint8_t *rc = read_codes + (size_t)b * Lc + base;
+      const int32_t bl = bits_lut[rc[j]], bh = bits_lut[rc[j + 32]];
+#pragma unroll
+      for (int g = 0; g < 5; ++g) {
+        const uint32_t lo = __ballot_sync(SC_FULL, (bl >> g) & 1);
+        const uint32_t hi = __ballot_sync(SC_FULL, (bh >> g) & 1);
+        if (j == 0) {
+          sm_lane[(2 * g) * LB + l] = (int32_t)lo;
+          sm_lane[(2 * g + 1) * LB + l] = (int32_t)hi;
+        }
+      }
+      if (j == 0) {
+        sm_lane[10 * LB + l] = c_used;
+        sm_lane[11 * LB + l] = 0;
+      }
+      __syncwarp();
+      if (sj) {
+        // previous-band match: the first previous slot holding this node
+        bool inprev = false;
+        int prev_slot = 0;
+        for (int i = 0; i < Nm; ++i) {
+          const int32_t q = SLOT(T_PIDS, i);
+          if (valid && q < SC_EMPTY && q == id) {
+            inprev = true;
+            prev_slot = i;
+            break;
+          }
+        }
+        SLOT(T_INPREV, j) = inprev;
+        SLOT(T_PBASE, j) = SLOT(T_POFF, prev_slot);
+        // in-neighbour classification
+        bool any_banded = false;
+        int32_t pseudo = GA_INF, ptab = 0, pprev = 0;
+        for (int k = 0; k < K_in; ++k) {
+          const int32_t nb = valid ? in_nbrs[(size_t)safe * K_in + k] : -1;
+          const bool nbv = nb >= 0 && valid;
+          bool in_cur = false, in_prev = false;
+          int cur_slot = 0, pslot = 0;
+          if (nbv) {
+            for (int i = 0; i < Nm; ++i)
+              if (SLOT(T_IDS, i) == nb) {
+                in_cur = true;
+                cur_slot = i;
+                break;
+              }
+            for (int i = 0; i < Nm; ++i) {
+              const int32_t q = SLOT(T_PIDS, i);
+              if (q < SC_EMPTY && q == nb) {
+                in_prev = true;
+                pslot = i;
+                break;
+              }
+            }
+          }
+          const int32_t pe = in_prev ? SLOT(T_PEND, pslot) : GA_INF;
+          if (in_prev && !in_cur) pseudo = min(pseudo, pe);
+          any_banded |= in_cur || in_prev;
+          ptab |= (cur_slot | ((int32_t)in_cur << 5)) << (6 * k);
+          pprev |= (pslot | ((int32_t)in_prev << 5)) << (6 * k);
+        }
+        const bool band_source = !any_banded && valid;
+        SLOT(T_PSEUDO, j) = pseudo;
+        SLOT(T_PTAB, j) = ptab;
+        SLOT(T_PPREV, j) = pprev;
+        SLOT(T_SRC, j) = (int32_t)(band_source && !inprev) |
+                         ((int32_t)(band_source && inprev && first_slice[b])
+                          << 1);
+        // node-end buffer at INF
+        SLOT(T_BUF + 0, j) = -1;
+        SLOT(T_BUF + 1, j) = -1;
+        SLOT(T_BUF + 2, j) = 0;
+        SLOT(T_BUF + 3, j) = 0;
+        SLOT(T_BUF + 4, j) = GA_INF;
+        SLOT(T_BUF + 5, j) = GA_INF + 64;
+        SLOT(T_BUF + 6, j) = 0;
+        // outputs that do not depend on the cell pass
+        const bool act = active[b];
+        nm[(0 * Nm + j) * sB + b] = act ? id : SC_EMPTY;
+        nm[(3 * Nm + j) * sB + b] = act ? len : 0;
+        nm[(4 * Nm + j) * sB + b] = act ? ptab : 0;
+        nm[(5 * Nm + j) * sB + b] = act ? pprev : 0;
+        o_ids[j * sB + b] = act ? id : pid;
+      }
     }
+  }
+  __syncthreads();
 
-    Col n;
-    if (!vc) {
-      n.vp = ~0ull;
-      n.vn = 0ull;
-      n.sbs = GA_INF;
-      n.send = GA_INF + 64;
-    } else if (st) {
-      n.vp = merged.vp;
-      n.vn = merged.vn;
-      n.sbs = merged.sbs;
-      n.send = merged.send;
-    } else {
-      n.vp = c_vp;
-      n.vn = c_vn;
-      n.sbs = r_chain;
-      n.send = c_send;
-    }
-    // field 6: bit0 = scoreBeforeExists, bits 1-3 = the cell's graph code
-    n.e = ((inprev && n.sbs == oe && vc) ? 1 : 0) | (code << 1);
+  // ---- phase A2: one thread per (lane, cell): metadata word and old_end
+  for (int i = threadIdx.x; i < Cm * LB; i += blockDim.x) {
+    const int l = i % LB, c = i / LB;
+    const int b = blockIdx.x * LB + l;
+    if (b >= B) continue;
+    const int32_t c_used = sm_lane[10 * LB + l];
+    int cnt = 0;
+    for (int jj = 0; jj < Nm; ++jj)
+      cnt += SLOT(T_CUM, jj) <= c && SLOT(T_LEN, jj) > 0;
+    const int slot = min(cnt, Nm - 1);
+    const int32_t len_s = SLOT(T_LEN, slot);
+    const int32_t off = c - (SLOT(T_CUM, slot) - len_s);
+    const bool vc = c < c_used && len_s > 0;
+    const bool st = off == 0 && vc;
+    const bool en = off == len_s - 1 && vc;
+    const bool inprev = SLOT(T_INPREV, slot) != 0;
+    const int pos = min(max(SLOT(T_START, slot) + off, 0), BP - 1);
+    const int32_t code = vc ? seq_codes[pos] : 4;
+    const int old_idx = min(max(SLOT(T_PBASE, slot) + off, 0), Cm - 1);
+    const int32_t src = st ? SLOT(T_SRC, slot) : 0;
+    sm_m1[c * LB + l] = slot | ((int32_t)st << 8) | ((int32_t)en << 9) |
+                        ((int32_t)vc << 10) | ((int32_t)inprev << 11) |
+                        (code << 12) | ((src & 1) << 15) | ((src >> 1) << 16);
+    sm_oe[c * LB + l] =
+        inprev && vc ? p_cell_send[(size_t)old_idx * sB + b] : GA_INF;
+    if (!active[b]) o_cell_send[c * sB + b] = p_cell_send[c * sB + b];
+  }
+  __syncthreads();
 
-    const int32_t fields[7] = {
-        (int32_t)(uint32_t)n.vp, (int32_t)(uint32_t)(n.vp >> 32),
-        (int32_t)(uint32_t)n.vn, (int32_t)(uint32_t)(n.vn >> 32),
-        n.sbs, n.send, n.e};
-    for (int f = 0; f < 7; ++f) cols[f * fC + at] = fields[f];
-    if (vc && slot < Nm) {
-      if (en)
-        for (int f = 0; f < 7; ++f) buf[f * fN + slot * sB + b] = fields[f];
-      int32_t *nm = nmin + slot * sB + b;
-      *nm = min(*nm, n.send);
+  // ---- phase B: one thread per lane, the cell passes
+  if (threadIdx.x < LB && blockIdx.x * LB + threadIdx.x < B) {
+    const int l = threadIdx.x;
+    const int b = blockIdx.x * LB + l;
+    const bool act = active[b];
+    uint64_t eqw[5];
+#pragma unroll
+    for (int g = 0; g < 5; ++g)
+      eqw[g] = ga_u64(sm_lane[(2 * g) * LB + l], sm_lane[(2 * g + 1) * LB + l]);
+    const int32_t slen = seq_len[b];
+    const size_t fC = (size_t)Cm * sB;  // field stride of cols
+    bool back_edge = false;
+    int pass = 0;
+    while (true) {
+      ++pass;
+      bool diff = false;
+      for (int j = 0; j < Nm; ++j) SLOT(T_NMIN, j) = GA_INF;
+      Col col = {~0ull, 0ull, GA_INF, GA_INF + 64, 0};
+      for (int c = 0; c < Cm; ++c) {
+        const int32_t meta = sm_m1[c * LB + l];
+        const int slot = meta & 0xFF;
+        const bool st = (meta >> 8) & 1;
+        const bool en = (meta >> 9) & 1;
+        const bool vc = (meta >> 10) & 1;
+        const bool inprev = (meta >> 11) & 1;
+        const int code = (meta >> 12) & 7;
+        Col n;
+        if (!vc) {
+          n.vp = ~0ull;
+          n.vn = 0ull;
+          n.sbs = GA_INF;
+          n.send = GA_INF + 64;
+        } else {
+          const int32_t oe = sm_oe[c * LB + l];
+          const uint64_t eq = ga_pick5(eqw, code);
+          if (st) {
+            // fused uniform column (boundary / pseudo / band source)
+            const bool srcnp = (meta >> 15) & 1;
+            const bool srcsm = (meta >> 16) & 1;
+            const int32_t ps = SLOT(T_PSEUDO, slot);
+            const int32_t match0 = (int32_t)(eq & 1ull);
+            const int32_t sm0 = srcsm ? 1 - match0 : 1;
+            const int32_t sbs_b = inprev ? oe : GA_INF;
+            const int32_t a_b = inprev ? oe + sm0 : GA_INF + 1;
+            const bool has_ps = ps < GA_INF;
+            const int32_t sbs_p = has_ps ? ps + 1 : GA_INF;
+            const int32_t a_p = has_ps ? ps + 1 - match0 : GA_INF + 1;
+            const int32_t sbs_s = srcnp ? slen + 1 : GA_INF;
+            const int32_t a_s = srcnp ? slen + 2 : GA_INF + 1;
+            const int32_t sbs_f = min(min(sbs_b, sbs_p), sbs_s);
+            const int32_t a_f = min(min(a_b, a_p), a_s);
+            const int32_t delta = a_f - sbs_f;
+            Col merged;
+            merged.vp = 0xFFFFFFFFFFFFFFFEull | (delta == 1 ? 1ull : 0ull);
+            merged.vn = delta == -1 ? 1ull : 0ull;
+            merged.sbs = sbs_f;
+            merged.send = a_f + 63;
+            merged.e = 0;
+            // in-band predecessor columns (getNodeStartSlice)
+            const int32_t rp = SLOT(T_PTAB, slot);
+            for (int k = 0; k < K_in; ++k) {
+              if (!((rp >> (6 * k + 5)) & 1)) continue;
+              const int pslot = (rp >> (6 * k)) & 31;
+              if (pslot >= slot) back_edge = true;
+              int32_t g[7] = {0, 0, 0, 0, 0, 0, 0};
+              if (pslot < Nm)
+                for (int f = 0; f < 7; ++f) g[f] = SLOT(T_BUF + f, pslot);
+              Col adv;
+              int32_t a_send;
+              myers_advance((g[6] & 1) ? eq : (eq & ~1ull), ga_u64(g[0], g[1]),
+                            ga_u64(g[2], g[3]), g[5], 1, adv.vp, adv.vn,
+                            a_send);
+              adv.sbs = g[4] + 1;
+              adv.send = a_send;
+              adv.e = g[6];
+              merged = merge_slices(merged, adv);
+            }
+            n.vp = merged.vp;
+            n.vn = merged.vn;
+            n.sbs = merged.sbs;
+            n.send = merged.send;
+          } else {
+            // within-node chain advance
+            const int32_t r_chain = min(oe, col.sbs + 1);
+            myers_advance((col.e & 1) ? eq : (eq & ~1ull), col.vp, col.vn,
+                          col.send, r_chain - col.sbs, n.vp, n.vn, n.send);
+            n.sbs = r_chain;
+          }
+          n.e = (inprev && n.sbs == oe) ? 1 : 0;
+        }
+        // field 6: bit0 = scoreBeforeExists, bits 1-3 = the cell's code
+        if (!vc) n.e = 0;
+        n.e |= code << 1;
+        const int32_t fields[7] = {
+            (int32_t)(uint32_t)n.vp, (int32_t)(uint32_t)(n.vp >> 32),
+            (int32_t)(uint32_t)n.vn, (int32_t)(uint32_t)(n.vn >> 32),
+            n.sbs, n.send, n.e};
+        int32_t *o = cols + (size_t)c * sB + b;
+        if (pass > 1)
+          for (int f = 0; f < 7; ++f) diff |= o[f * fC] != fields[f];
+        for (int f = 0; f < 7; ++f) o[f * fC] = fields[f];
+        if (act) o_cell_send[c * sB + b] = n.send;
+        if (vc && slot < Nm) {
+          if (en)
+            for (int f = 0; f < 7; ++f) SLOT(T_BUF + f, slot) = fields[f];
+          SLOT(T_NMIN, slot) = min(SLOT(T_NMIN, slot), n.send);
+        }
+        col = n;
+      }
+      if (pass == 1 ? !back_edge : !diff) break;
+      if (pass == P_fix + 1) {
+        sm_lane[11 * LB + l] = 1;  // still changing at the last pass
+        break;
+      }
     }
-    col = n;
+  }
+  __syncthreads();
+
+  // ---- phase C: one warp per lane, one thread per slot
+  {
+    const int l = threadIdx.x >> 5, j = threadIdx.x & 31;
+    const int b = blockIdx.x * LB + l;
+    if (b < B) {
+      const bool sj = j < Nm;
+      const int32_t nmin = sj ? SLOT(T_NMIN, j) : GA_INF;
+      const int32_t nend = sj ? SLOT(T_BUF + 5, j) : GA_INF;
+      int32_t m = sj && SLOT(T_IDS, j) < SC_EMPTY ? nmin : GA_INF;
+#pragma unroll
+      for (int d = 16; d; d >>= 1) m = min(m, __shfl_xor_sync(SC_FULL, m, d));
+      const bool act = active[b];
+      if (sj) {
+        nm[(1 * Nm + j) * sB + b] = act ? nmin : GA_INF;
+        nm[(2 * Nm + j) * sB + b] = act ? nend : GA_INF;
+        o_node_min[j * sB + b] = act ? nmin : p_node_min[j * sB + b];
+        o_node_end[j * sB + b] = act ? nend : SLOT(T_PEND, j);
+      }
+      if (j == 0) {
+        const int32_t c_used = sm_lane[10 * LB + l];
+        const bool over =
+            proj_over[b] || c_used > Cm || sm_lane[11 * LB + l] != 0;
+        const int32_t pm = p_min[b];
+        ctrl[b] = act ? (min(max(m - pm, 0), 127) | (min(c_used, Cm) << 7) |
+                         ((int32_t)over << 30))
+                      : 0;
+        o_min[b] = act ? m : pm;
+      }
+    }
   }
 }
 
-extern "C" int ga_banded_cell(const int32_t *meta1, const int32_t *meta2,
-                              const int32_t *old_end, const int32_t *pseudo,
-                              const int32_t *eq_lo, const int32_t *eq_hi,
-                              const int32_t *seq_len, const int32_t *buf_init,
-                              int32_t *cols, int32_t *buf, int32_t *nmin,
-                              int Cm, int Nm, int B, int K_in,
-                              void *stream) {
-  const int threads = 64;
-  const int blocks = (B + threads - 1) / threads;
-  banded_cell_kernel<<<blocks, threads, 0, (cudaStream_t)stream>>>(
-      meta1, meta2, old_end, pseudo, eq_lo, eq_hi, seq_len, buf_init, cols,
-      buf, nmin, Cm, Nm, B, K_in);
+extern "C" int ga_slice_cells(
+    const int32_t *ids, const uint8_t *proj_over, const int32_t *p_ids,
+    const int32_t *p_node_min, const int32_t *p_node_end,
+    const int32_t *p_cell_send, const int32_t *p_min, const uint8_t *active,
+    const uint8_t *first_slice, const int32_t *seq_len,
+    const uint8_t *read_codes, const int32_t *win, const int32_t *node_len,
+    const int32_t *node_start, const int32_t *in_nbrs,
+    const int32_t *seq_codes, const int32_t *bits_lut, int32_t *cols,
+    int32_t *nm, int32_t *ctrl, int32_t *o_ids, int32_t *o_cell_send,
+    int32_t *o_node_min, int32_t *o_node_end, int32_t *o_min, int Nm, int Cm,
+    int B, int N, int K_in, int BP, int Lc, int P_fix, int LB, int smem,
+    void *stream) {
+  if (Nm < 1 || Nm > 32 || K_in < 1 || K_in > 5 || LB < 1 || LB > 32 ||
+      Lc < 64)
+    return (int)cudaErrorInvalidValue;
+  cudaError_t err = cudaFuncSetAttribute(
+      slice_cells_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return (int)err;
+  const int blocks = (B + LB - 1) / LB;
+  slice_cells_kernel<<<blocks, LB * 32, smem, (cudaStream_t)stream>>>(
+      ids, proj_over, p_ids, p_node_min, p_node_end, p_cell_send, p_min,
+      active, first_slice, seq_len, read_codes, win, node_len, node_start,
+      in_nbrs, seq_codes, bits_lut, cols, nm, ctrl, o_ids, o_cell_send,
+      o_node_min, o_node_end, o_min, Nm, Cm, B, N, K_in, BP, Lc, P_fix, LB);
   return (int)cudaGetLastError();
 }

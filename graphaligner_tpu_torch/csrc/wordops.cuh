@@ -22,6 +22,16 @@ __device__ __forceinline__ uint64_t ga_u64(int32_t lo, int32_t hi) {
   return (uint64_t)(uint32_t)lo | ((uint64_t)(uint32_t)hi << 32);
 }
 
+// w[code] for a code in [0, 5), 0 for any other, by selects: a dynamic
+// index would put w in local memory, a load on every cell's chain.
+__device__ __forceinline__ uint64_t ga_pick5(const uint64_t (&w)[5],
+                                             int code) {
+  uint64_t r = 0;
+#pragma unroll
+  for (int g = 0; g < 5; ++g) r = code == g ? w[g] : r;
+  return r;
+}
+
 // One column advance (reference getNextSlice); hin = new sbs - pred sbs.
 __device__ __forceinline__ void myers_advance(uint64_t eq, uint64_t vp,
                                               uint64_t vn, int32_t send,

@@ -1,12 +1,20 @@
-"""Banded slice cell pass (kernel K1): wrapper and plain version.
+"""Banded slice cell pass (kernel K1), fused with its slice's metadata
+pass: wrapper and plain versions.
 
-``banded_cell`` has the signature and outputs of
-``graphaligner_tpu.ops.pallas.banded_cell.banded_cell_kernel``: for one
-64-row slice it advances every band cell of every lane, in cell order,
-and returns (cols [7, Cm, B], buf [7, Nm, B], nmin [Nm, B]), all int32.
+``slice_cells`` computes one slice of ``graphaligner_tpu``'s banded scan
+(``core/engine_banded.py::banded_scan``) after the band projection: from
+the projected band ``ids`` and the previous slice's carries it builds the
+per-slot tables (lengths, previous-band matching, in-neighbour
+classification, the packed predecessor tables), the lane's Eq words from
+its 64 read codes and the per-cell metadata, runs the cell pass (the
+work of ``graphaligner_tpu.ops.pallas.banded_cell.banded_cell_kernel``),
+repeats it to a bounded fixpoint on lanes whose band has a back edge, and
+returns the slice's outputs and the next carries.
 
-A CUDA tensor launches ``csrc/banded_cell.cu``; a CPU tensor runs
-``banded_cell_plain``, the same computation in plain torch ops.
+A CUDA tensor launches ``csrc/banded_cell.cu`` (one launch a slice, the
+metadata and every cell pass on chip); a CPU tensor runs
+``slice_cells_plain``, the same computation in plain torch ops, whose cell
+pass is ``banded_cell_plain``, the twin of the Pallas kernel.
 """
 
 from __future__ import annotations
@@ -19,17 +27,329 @@ from . import _build
 from .wordops import M32, i32, merge_slices, myers_advance, u32
 
 INF = 1 << 20
+EMPTY = 2**31 - 1  # empty band slot
+WORD = 64
 
 # kernel launches since the last reset (a plain count, read by the smoke run)
 LAUNCHES = 0
 
+# read lanes a block carries (one warp of slot threads each); fewer when a
+# block's tables would not fit in shared memory
+SLICE_LANES = 8
+SMEM_LIMIT = 232448  # dynamic shared memory a Hopper block can opt into
 
-def banded_cell(meta1, meta2, old_end, pseudo, eq_lo, eq_hi, seq_len,
-                buf_init, *, K_in: int):
-    """meta1 [Cm, B]: slot|st<<8|en<<9|vc<<10|inprev<<11|code<<12|
-    srcnp<<15|srcsm<<16; meta2 [Cm, B]: per-pred (slot|valid<<5)<<6k;
-    old_end, pseudo [Cm, B]; eq_lo, eq_hi [5, B] (uint32 bit patterns);
-    seq_len [1, B]; buf_init [7, Nm, B]. All int32."""
+_INPUTS = ("ids", "proj_over", "p_ids", "p_node_min", "p_node_end",
+           "p_cell_send", "p_min", "active", "first_slice", "seq_len",
+           "read_codes", "win", "node_len", "node_start", "in_nbrs",
+           "seq_codes", "bits_lut")
+
+
+def slice_cells(ids, proj_over, p_ids, p_node_min, p_node_end, p_cell_send,
+                p_min, active, first_slice, seq_len, read_codes, win,
+                node_len, node_start, in_nbrs, seq_codes, bits_lut, *,
+                P_fix: int = 16):
+    """One banded slice after its projection.
+
+    ids [Nm, B] (the projected band, topo-sorted, EMPTY pad), proj_over
+    [B] bool; the carries p_ids, p_node_min, p_node_end [Nm, B],
+    p_cell_send [Cm, B], p_min [B]; this step's active and first_slice [B]
+    bool, seq_len [B], read_codes [B, L] uint8 and win [B] (the slice whose
+    64 codes give the Eq words, read at clamp(win * 64, 0, L - 64)); the
+    graph tables node_len, node_start [N], in_nbrs [N, K_in], seq_codes
+    [BP] and bits_lut [R]. int32 unless noted.
+
+    Returns new tensors: cols [7, Cm, B], nm [6, Nm, B] (ids, nmin,
+    node_end, lens, pred_tab, pred_prev, each masked by active), ctrl [B]
+    (min-score delta | cells << 7 | overflow << 30), and the next carries
+    p_ids, p_cell_send, p_node_min, p_node_end, p_min."""
+    args = (ids, proj_over, p_ids, p_node_min, p_node_end, p_cell_send,
+            p_min, active, first_slice, seq_len, read_codes, win, node_len,
+            node_start, in_nbrs, seq_codes, bits_lut)
+    Nm, B = ids.shape
+    Cm = p_cell_send.shape[0]
+    N, K_in = in_nbrs.shape
+    i, b = torch.int32, torch.bool
+    want = (
+        (i, (Nm, B)), (b, (B,)), (i, (Nm, B)), (i, (Nm, B)), (i, (Nm, B)),
+        (i, (Cm, B)), (i, (B,)), (b, (B,)), (b, (B,)), (i, (B,)),
+        (torch.uint8, (B, read_codes.shape[-1])), (i, (B,)), (i, (N,)),
+        (i, (N,)), (i, (N, K_in)), (i, seq_codes.shape[-1:]),
+        (i, bits_lut.shape[-1:]),
+    )
+    for name, a, (dtype, shape) in zip(_INPUTS, args, want):
+        if a.dtype != dtype or tuple(a.shape) != tuple(shape):
+            raise ValueError(f"slice_cells: {name} must be {dtype} {shape}, "
+                             f"got {a.dtype} {tuple(a.shape)}")
+        if a.device != ids.device:
+            raise ValueError("slice_cells: inputs on different devices")
+    if not 1 <= K_in <= 5 or Nm > 32 or read_codes.shape[1] < WORD:
+        raise NotImplementedError(
+            "slice_cells packs Nm <= 32 slots and K_in <= 5 predecessors, "
+            "over at least one slice of read codes"
+        )
+    if ids.device.type == "cpu":
+        return slice_cells_plain(*args, P_fix=P_fix)
+    if ids.device.type != "cuda":
+        raise ValueError(f"slice_cells: unsupported device {ids.device}")
+    return _launch(*[a.contiguous() for a in args], P_fix=P_fix)
+
+
+def slice_smem(Nm: int, Cm: int, lanes: int) -> int:
+    """Shared bytes of a ``slice_cells`` block of ``lanes`` lanes: 21
+    [Nm] slot tables (the node-end buffer's 7 among them), 2 [Cm] cell
+    tables and 12 words a lane (csrc/banded_cell.cu)."""
+    return 4 * lanes * (21 * Nm + 2 * Cm + 12)
+
+
+def _launch(ids, proj_over, p_ids, p_node_min, p_node_end, p_cell_send,
+            p_min, active, first_slice, seq_len, read_codes, win, node_len,
+            node_start, in_nbrs, seq_codes, bits_lut, *, P_fix):
+    global LAUNCHES
+    Nm, B = ids.shape
+    Cm = p_cell_send.shape[0]
+    N, K_in = in_nbrs.shape
+    LB = SLICE_LANES
+    while LB > 1 and slice_smem(Nm, Cm, LB) > SMEM_LIMIT:
+        LB //= 2
+    if slice_smem(Nm, Cm, LB) > SMEM_LIMIT:
+        raise NotImplementedError(
+            f"slice_cells at Cm={Cm} does not fit in shared memory")
+    dev = ids.device
+    i32_ = torch.int32
+    cols = torch.empty((7, Cm, B), dtype=i32_, device=dev)
+    nm = torch.empty((6, Nm, B), dtype=i32_, device=dev)
+    ctrl = torch.empty((B,), dtype=i32_, device=dev)
+    o_ids = torch.empty((Nm, B), dtype=i32_, device=dev)
+    o_cell_send = torch.empty((Cm, B), dtype=i32_, device=dev)
+    o_node_min = torch.empty((Nm, B), dtype=i32_, device=dev)
+    o_node_end = torch.empty((Nm, B), dtype=i32_, device=dev)
+    o_min = torch.empty((B,), dtype=i32_, device=dev)
+    ptrs = (ids, proj_over, p_ids, p_node_min, p_node_end, p_cell_send, p_min,
+            active, first_slice, seq_len, read_codes, win, node_len,
+            node_start, in_nbrs, seq_codes, bits_lut, cols, nm, ctrl, o_ids,
+            o_cell_send, o_node_min, o_node_end, o_min)
+    lib = _build.library("banded_cell")
+    fn = lib.ga_slice_cells
+    fn.restype = ctypes.c_int
+    fn.argtypes = [ctypes.c_void_p] * len(ptrs) + [ctypes.c_int] * 10 + [
+        ctypes.c_void_p
+    ]
+    err = fn(
+        *[a.data_ptr() for a in ptrs],
+        Nm, Cm, B, N, K_in, seq_codes.shape[0], read_codes.shape[1], P_fix,
+        LB, slice_smem(Nm, Cm, LB), _build.stream_handle(dev),
+    )
+    _build.check(err, "slice_cells")
+    LAUNCHES += 1
+    return cols, nm, ctrl, o_ids, o_cell_send, o_node_min, o_node_end, o_min
+
+
+def slice_cells_plain(ids, proj_over, p_ids, p_node_min, p_node_end,
+                      p_cell_send, p_min, active, first_slice, seq_len,
+                      read_codes, win, node_len, node_start, in_nbrs,
+                      seq_codes, bits_lut, *, P_fix: int = 16):
+    """Plain torch version of ``slice_cells`` (any device): the banded
+    scan's per-slice torch code as it was, with ``banded_cell_plain`` for
+    each cell pass and the bounded fixpoint as a loop over whole passes
+    while any back-edge lane still changes."""
+    Nm, B = ids.shape
+    Cm = p_cell_send.shape[0]
+    N_nodes, K_in = in_nbrs.shape
+    dev = ids.device
+    iota_cm = torch.arange(Cm, dtype=torch.int32, device=dev)
+    valid_slot = ids < EMPTY
+
+    def gather_node(table, x, fill):
+        out = table[x.clamp(0, N_nodes - 1).long()]
+        return torch.where(x < EMPTY, out, fill)
+
+    # ---- per-slot tables ([Nm, B])
+    safe = ids.clamp(0, N_nodes - 1).long()
+    lens = torch.where(valid_slot, node_len[safe], 0)
+    starts_tab = torch.where(valid_slot, node_start[safe], 0)
+    nbs = in_nbrs[safe]  # [Nm, B, K_in]
+    c_used = lens.sum(0, dtype=torch.int32)
+    cell_over = c_used > Cm
+
+    # ---- previous-band matching
+    p_valid = p_ids < EMPTY
+    same = (
+        (ids[:, None, :] == p_ids[None, :, :])
+        & valid_slot[:, None, :]
+        & p_valid[None, :, :]
+    )  # [Nm, Nm_prev, B]
+    node_in_prev = same.any(1)
+    prev_slot = same.to(torch.int8).argmax(1)
+    p_lens = gather_node(node_len, p_ids, 0)
+    p_offsets = p_lens.cumsum(0, dtype=torch.int32) - p_lens
+    prev_base = p_offsets.gather(0, prev_slot)
+
+    # ---- in-neighbor classification per slot
+    any_banded = torch.zeros((Nm, B), dtype=torch.bool, device=dev)
+    slot_pseudo = torch.full((Nm, B), INF, dtype=torch.int32, device=dev)
+    pred_tab = torch.zeros((Nm, B), dtype=torch.int32, device=dev)
+    pred_prev = torch.zeros((Nm, B), dtype=torch.int32, device=dev)
+    for k in range(K_in):
+        nb_k = torch.where(valid_slot, nbs[:, :, k], -1)
+        nbv = (nb_k >= 0) & valid_slot
+        eq_cur = (nb_k[:, None, :] == ids[None, :, :]) & nbv[:, None, :]
+        in_cur_k = eq_cur.any(1)
+        cur_slot_k = eq_cur.to(torch.int8).argmax(1).to(torch.int32)
+        eq_prev = (
+            (nb_k[:, None, :] == p_ids[None, :, :])
+            & nbv[:, None, :]
+            & p_valid[None, :, :]
+        )
+        in_prev_k = eq_prev.any(1)
+        prev_slot_k = eq_prev.to(torch.int8).argmax(1)
+        pe_k = torch.where(in_prev_k, p_node_end.gather(0, prev_slot_k), INF)
+        slot_pseudo = torch.minimum(
+            slot_pseudo, torch.where(in_prev_k & ~in_cur_k, pe_k, INF)
+        )
+        any_banded = any_banded | in_cur_k | in_prev_k
+        pred_tab = pred_tab | (
+            (cur_slot_k | (in_cur_k.to(torch.int32) << 5)) << (6 * k)
+        )
+        # PREVIOUS-band slot per pred: the walk's boundary diagonal reads
+        # preds that fell out of the current band
+        pred_prev = pred_prev | (
+            (prev_slot_k.to(torch.int32) | (in_prev_k.to(torch.int32) << 5))
+            << (6 * k)
+        )
+    band_source = ~any_banded & valid_slot
+    src_noprev_slot = band_source & ~node_in_prev
+    src_sm_slot = band_source & node_in_prev & first_slice[None, :]
+
+    # ---- the slice's Eq words for the 5 graph codes ([5, B])
+    L_codes = read_codes.shape[1]
+    rc_base = (win * WORD).clamp(0, L_codes - WORD)
+    rc = read_codes.to(torch.int64).gather(
+        1, rc_base.long()[:, None] + torch.arange(WORD, device=dev)[None, :]
+    )
+    g5 = torch.arange(5, dtype=torch.int32, device=dev)
+    w32 = torch.ones(32, dtype=torch.int64, device=dev) << torch.arange(
+        32, device=dev
+    )
+    bits = (bits_lut[rc][:, :, None] >> g5) & 1  # [B, 64, 5]
+    eq_lo_tab = i32((bits[:, :32].to(torch.int64) * w32[:, None]).sum(1).T)
+    eq_hi_tab = i32((bits[:, 32:].to(torch.int64) * w32[:, None]).sum(1).T)
+
+    # ---- per-cell metadata (layout_parallel; no sequential dependency)
+    cum_end = lens.cumsum(0, dtype=torch.int32)
+    slot = (
+        (iota_cm[:, None, None] >= cum_end[None]) & (lens > 0)[None]
+    ).sum(1).clamp(max=Nm - 1)  # [Cm, B] int64
+
+    def rd(tab):
+        return tab.gather(0, slot)
+
+    base = rd(cum_end - lens)
+    off = iota_cm[:, None] - base
+    len_s = rd(lens)
+    vc = (iota_cm[:, None] < c_used[None, :]) & (len_s > 0)
+    st = (off == 0) & vc
+    en = (off == len_s - 1) & vc
+    inprev = rd(node_in_prev.to(torch.int32)) == 1
+    pos = (rd(starts_tab) + off).clamp(0, seq_codes.shape[0] - 1)
+    code = torch.where(vc, seq_codes[pos.long()], 4)
+    old_idx = (rd(prev_base) + off).clamp(0, Cm - 1)
+    oe = torch.where(inprev & vc, p_cell_send.gather(0, old_idx.long()), INF)
+    ps = torch.where(st, rd(slot_pseudo), INF)
+    srcnp = st & (rd(src_noprev_slot.to(torch.int32)) == 1)
+    srcsm = st & (rd(src_sm_slot.to(torch.int32)) == 1)
+    m1 = (
+        slot.to(torch.int32)
+        | (st.to(torch.int32) << 8)
+        | (en.to(torch.int32) << 9)
+        | (vc.to(torch.int32) << 10)
+        | (inprev.to(torch.int32) << 11)
+        | (code << 12)
+        | (srcnp.to(torch.int32) << 15)
+        | (srcsm.to(torch.int32) << 16)
+    )
+    vb = 0
+    for k in range(K_in):
+        vb |= 1 << (5 + 6 * k)
+    rp = rd(pred_tab)
+    m2 = torch.where(st, rp, rp & ~vb)
+    back_edge = torch.zeros(B, dtype=torch.bool, device=dev)
+    for k in range(K_in):
+        pslot_k = (rp >> (6 * k)) & 31
+        pvalid_k = st & (((rp >> (5 + 6 * k)) & 1) == 1)
+        back_edge = back_edge | (pvalid_k & (pslot_k >= slot)).any(0)
+
+    def cell_pass(buf_init):
+        return banded_cell_plain(
+            m1, m2.contiguous(), oe.contiguous(), ps.contiguous(),
+            eq_lo_tab.contiguous(), eq_hi_tab.contiguous(),
+            seq_len[None, :].contiguous(), buf_init, K_in=K_in,
+        )
+
+    inf_buf = torch.tensor(
+        [-1, -1, 0, 0, INF, INF + WORD, 0], dtype=torch.int32, device=dev
+    )[:, None, None].expand(7, Nm, B).contiguous()
+    cols, buf, nmin = cell_pass(inf_buf)
+    # bounded fixpoint for cyclic bands (back edge = an in-band predecessor
+    # at a topo slot >= the node's own)
+    fix_fail = torch.zeros(B, dtype=torch.bool, device=dev)
+    if bool(back_edge.any()):
+        lane_ch = back_edge
+        still = True
+        it = 0
+        while still and it < P_fix:
+            cols1, buf1, nmin1 = cell_pass(buf)
+            diff = (cols1 != cols).flatten(0, 1).any(0)
+            lane_ch = diff & back_edge
+            cols, buf, nmin = cols1, buf1, nmin1
+            still = bool(lane_ch.any())
+            it += 1
+        if still:
+            fix_fail = lane_ch
+
+    node_end = buf[5]
+    min_score = torch.where(valid_slot, nmin, INF).min(0).values
+    overflow = proj_over | cell_over | fix_fail
+    am2 = active[None, :]
+    nm = torch.stack([
+        torch.where(am2, ids, EMPTY),
+        torch.where(am2, nmin, INF),
+        torch.where(am2, node_end, INF),
+        torch.where(am2, lens, 0),
+        torch.where(am2, pred_tab, 0),
+        torch.where(am2, pred_prev, 0),
+    ])
+    # packed control word: min-score delta (bits 0-6), band cells (bits
+    # 7-29), overflow (bit 30)
+    ctrl = (
+        torch.where(active, (min_score - p_min).clamp(0, 127), 0)
+        | (torch.where(active, c_used.clamp(max=Cm), 0) << 7)
+        | ((overflow & active).to(torch.int32) << 30)
+    )
+    return (
+        cols, nm, ctrl,
+        torch.where(am2, ids, p_ids),
+        torch.where(am2, cols[5], p_cell_send),
+        torch.where(am2, nmin, p_node_min),
+        torch.where(am2, node_end, p_node_end),
+        torch.where(active, min_score, p_min),
+    )
+
+
+def banded_cell_plain(meta1, meta2, old_end, pseudo, eq_lo, eq_hi, seq_len,
+                      buf_init, *, K_in: int):
+    """One cell pass in plain torch ops (any device), with the signature
+    and outputs of ``graphaligner_tpu``'s ``banded_cell_kernel``: meta1
+    [Cm, B]: slot|st<<8|en<<9|vc<<10|inprev<<11|code<<12|srcnp<<15|
+    srcsm<<16; meta2 [Cm, B]: per-pred (slot|valid<<5)<<6k; old_end,
+    pseudo [Cm, B]; eq_lo, eq_hi [5, B] (uint32 bit patterns); seq_len
+    [1, B]; buf_init [7, Nm, B]. All int32. Returns (cols [7, Cm, B], buf
+    [7, Nm, B], nmin [Nm, B]).
+
+    Everything that does not depend on the previous cell is computed for
+    all cells at once; the loop carries the column, the node-end buffer
+    and the slot minima. Cells past the last valid cell of every lane only
+    emit the invalid column, and a predecessor merge no lane needs at a
+    cell is skipped: both are exact."""
     Cm, B = meta1.shape
     Nm = buf_init.shape[1]
     args = (meta1, meta2, old_end, pseudo, eq_lo, eq_hi, seq_len, buf_init)
@@ -47,47 +367,6 @@ def banded_cell(meta1, meta2, old_end, pseudo, eq_lo, eq_hi, seq_len,
         raise NotImplementedError(
             "banded_cell packs Nm <= 32 slots and K_in <= 5 predecessors"
         )
-    if meta1.device.type == "cpu":
-        return banded_cell_plain(*args, K_in=K_in)
-    if meta1.device.type != "cuda":
-        raise ValueError(f"banded_cell: unsupported device {meta1.device}")
-    return _launch(*[a.contiguous() for a in args], K_in=K_in)
-
-
-def _launch(meta1, meta2, old_end, pseudo, eq_lo, eq_hi, seq_len, buf_init,
-            *, K_in):
-    global LAUNCHES
-    Cm, B = meta1.shape
-    Nm = buf_init.shape[1]
-    dev = meta1.device
-    cols = torch.empty((7, Cm, B), dtype=torch.int32, device=dev)
-    buf = torch.empty((7, Nm, B), dtype=torch.int32, device=dev)
-    nmin = torch.empty((Nm, B), dtype=torch.int32, device=dev)
-    lib = _build.library("banded_cell")
-    fn = lib.ga_banded_cell
-    fn.restype = ctypes.c_int
-    fn.argtypes = [ctypes.c_void_p] * 11 + [ctypes.c_int] * 4 + [
-        ctypes.c_void_p
-    ]
-    err = fn(
-        *[a.data_ptr() for a in (meta1, meta2, old_end, pseudo, eq_lo, eq_hi,
-                                 seq_len, buf_init, cols, buf, nmin)],
-        Cm, Nm, B, K_in, _build.stream_handle(dev),
-    )
-    _build.check(err, "banded_cell")
-    LAUNCHES += 1
-    return cols, buf, nmin
-
-
-def banded_cell_plain(meta1, meta2, old_end, pseudo, eq_lo, eq_hi, seq_len,
-                      buf_init, *, K_in: int):
-    """Plain torch version of K1 (any device). Everything that does not
-    depend on the previous cell is computed for all cells at once; the loop
-    carries the column, the node-end buffer and the slot minima. Cells past
-    the last valid cell of every lane only emit the invalid column, and a
-    predecessor merge no lane needs at a cell is skipped: both are exact."""
-    Cm, B = meta1.shape
-    Nm = buf_init.shape[1]
     dev = meta1.device
     lanes = torch.arange(B, device=dev)
     m1 = meta1.to(torch.int64)

@@ -18,8 +18,11 @@ pass's store, until no output of the lane changes, for at most
 ``max_passes`` passes (``_align_batch_device``'s fixpoint, per lane); a
 lane still changing after the last pass is flagged.
 
-A CUDA tensor launches ``csrc/exhaustive.cu``; a CPU tensor runs
-``exhaustive_plain``, the same computation in plain torch ops.
+On the card the acyclic and the cyclic graph take two kernels of
+``csrc/exhaustive.cu``: a slice wavefront (one warp per slice, lanes across
+its threads) and the serial per-lane kernel that carries the fixpoint;
+each has its launch count. A CPU tensor runs ``exhaustive_plain``, the
+same computation in plain torch ops.
 """
 
 from __future__ import annotations
@@ -34,8 +37,17 @@ from .wordops import M32, i32, myers_advance, u32
 INF = 1 << 30
 WORD = 64
 
-# kernel launches since the last reset (a plain count, read by the smoke run)
-LAUNCHES = 0
+# kernel launches since the last reset (plain counts, read by the smoke run)
+LAUNCHES_WAVEFRONT = 0
+LAUNCHES_SERIAL = 0
+
+# the wavefront's shape: read lanes a warp carries (each on 32 / lanes
+# threads; csrc/exhaustive.cu EX_WAVE_G), schedule positions a chunk,
+# slice-warps a block at most (csrc/exhaustive.cu EX_MAX_WARPS)
+WAVE_LANES = 8
+WAVE_CHUNK = 64
+WAVE_WARPS = 16
+SMEM_LIMIT = 232448  # dynamic shared memory a Hopper block can opt into
 
 
 def exhaustive(eq, code, is_start, is_source_start, pred_nodes, node_slot, *,
@@ -43,7 +55,8 @@ def exhaustive(eq, code, is_start, is_source_start, pred_nodes, node_slot, *,
     """eq [S, 5, 2, B] (uint32 Eq words: graph code x (lo, hi) x lane);
     code, is_start, is_source_start, node_slot [P]; pred_nodes [P, K]
     (-1 pad). All int32. Returns (vp_lo, vp_hi, vn_lo, vn_hi, sbs, send)
-    int32 [S, P, B] and nonconv bool [B]."""
+    int32 [S, P, B] and nonconv bool [B]. ``cyclic`` False promises that
+    every in-neighbour of a node start is scheduled before it."""
     S, _, _, B = eq.shape
     P, K = pred_nodes.shape
     args = (eq, code, is_start, is_source_start, pred_nodes, node_slot)
@@ -68,9 +81,58 @@ def exhaustive(eq, code, is_start, is_source_start, pred_nodes, node_slot, *,
                    cyclic=cyclic, max_passes=max_passes)
 
 
-def _launch(eq, code, is_start, is_source_start, pred_nodes, node_slot, *,
-            num_nodes, cyclic, max_passes):
-    global LAUNCHES
+def _launch(*args, num_nodes, cyclic, max_passes):
+    """The route: the serial fixpoint kernel on a cyclic graph, the slice
+    wavefront otherwise."""
+    if cyclic:
+        return _launch_serial(*args, num_nodes=num_nodes,
+                              max_passes=max_passes)
+    return _launch_wavefront(*args, num_nodes=num_nodes)
+
+
+def wave_shape(S: int, K: int):
+    """(T, W, shared bytes) of a wavefront launch: T positions a chunk, W
+    slice-warps a block, the most (up to ``WAVE_WARPS``) whose rings fit in
+    a block's shared memory."""
+    L, T = WAVE_LANES, WAVE_CHUNK
+    for W in range(min(S, WAVE_WARPS), 0, -1):
+        smem = 4 * (W * 2 * T * L + (W + 1) * (4 * T + 1 + T * K))
+        if smem <= SMEM_LIMIT:
+            return T, W, smem
+    raise NotImplementedError(
+        f"the K3 wavefront for in-degree {K} at {T} positions a chunk does "
+        "not fit in shared memory"
+    )
+
+
+def _launch_wavefront(eq, code, is_start, is_source_start, pred_nodes,
+                      node_slot, *, num_nodes):
+    global LAUNCHES_WAVEFRONT
+    S, _, _, B = eq.shape
+    P, K = pred_nodes.shape
+    T, W, smem = wave_shape(S, K)
+    dev = eq.device
+    out = torch.empty((6, S, P, B), dtype=torch.int32, device=dev)
+    store = torch.empty((W, num_nodes, 6, B), dtype=torch.int32, device=dev)
+    lib = _build.library("exhaustive")
+    fn = lib.ga_exhaustive_wavefront
+    fn.restype = ctypes.c_int
+    fn.argtypes = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 8 + [
+        ctypes.c_void_p
+    ]
+    err = fn(
+        *[a.data_ptr() for a in (eq, code, is_start, is_source_start,
+                                 pred_nodes, node_slot, out, store)],
+        S, P, K, num_nodes, B, T, W, smem, _build.stream_handle(dev),
+    )
+    _build.check(err, "exhaustive wavefront")
+    LAUNCHES_WAVEFRONT += 1
+    return (*out.unbind(0), torch.zeros(B, dtype=torch.bool, device=dev))
+
+
+def _launch_serial(eq, code, is_start, is_source_start, pred_nodes,
+                   node_slot, *, num_nodes, max_passes):
+    global LAUNCHES_SERIAL
     S, _, _, B = eq.shape
     P, K = pred_nodes.shape
     dev = eq.device
@@ -78,19 +140,18 @@ def _launch(eq, code, is_start, is_source_start, pred_nodes, node_slot, *,
     store = torch.empty((num_nodes, 6, B), dtype=torch.int32, device=dev)
     nonconv = torch.empty((B,), dtype=torch.int32, device=dev)
     lib = _build.library("exhaustive")
-    fn = lib.ga_exhaustive
+    fn = lib.ga_exhaustive_serial
     fn.restype = ctypes.c_int
-    fn.argtypes = [ctypes.c_void_p] * 9 + [ctypes.c_int] * 7 + [
+    fn.argtypes = [ctypes.c_void_p] * 9 + [ctypes.c_int] * 6 + [
         ctypes.c_void_p
     ]
     err = fn(
         *[a.data_ptr() for a in (eq, code, is_start, is_source_start,
                                  pred_nodes, node_slot, out, store, nonconv)],
-        S, P, K, num_nodes, B, int(bool(cyclic)), max_passes,
-        _build.stream_handle(dev),
+        S, P, K, num_nodes, B, max_passes, _build.stream_handle(dev),
     )
-    _build.check(err, "exhaustive")
-    LAUNCHES += 1
+    _build.check(err, "exhaustive serial")
+    LAUNCHES_SERIAL += 1
     return (*out.unbind(0), nonconv != 0)
 
 

@@ -28,6 +28,8 @@ CORPORA = {
                        "wavefront"),
     "sim_i": ("sim/bubbles.vg", "sim/sim.fastq", "wavefront"),
     "longsim_i": ("longsim/graph.vg", "sim/sim.fastq", "column"),
+    # a cyclic graph: the JAX engine takes its column backend's fixpoint
+    "cyclic_i": ("sim/cyclic.gfa", "torch/cyclic_i/reads.fastq", "column"),
 }
 
 

@@ -1,8 +1,10 @@
-"""K1's plain version against graphaligner_tpu's banded_cell_kernel.
+"""K1's plain cell pass against graphaligner_tpu's banded_cell_kernel.
 
-The JAX kernel runs in Pallas interpret mode on the CPU. Two sources of
-arguments: every slice of a port scan over sim reads (recorded at the
-kernel's call site, so the metadata is the production layout), and a
+``banded_cell_plain`` is the cell pass that ``slice_cells_plain`` (the
+plain version of the fused K1) runs. The JAX kernel runs in Pallas
+interpret mode on the CPU. Two sources of arguments: every slice of a port
+scan over sim reads (recorded at the cell pass's call site, so the
+metadata is the production layout), and a
 seeded random case that respects the meta bit layout but draws every
 field — random column words included — freely. Tolerance zero: the
 outputs are integer.
@@ -14,7 +16,7 @@ import numpy as np
 import pytest
 import torch
 
-from graphaligner_tpu_torch.ops.banded_cell import banded_cell
+from graphaligner_tpu_torch.ops.banded_cell import banded_cell_plain
 
 SIM = pathlib.Path(__file__).parent / "fixtures" / "sim"
 
@@ -29,8 +31,8 @@ def _both(args, K_in):
     B = args[0].shape[1]
     ref = banded_cell_kernel(*[jnp.asarray(a) for a in args], K_in=K_in,
                              Bb=B)
-    got = banded_cell(*[torch.from_numpy(np.ascontiguousarray(a))
-                        for a in args], K_in=K_in)
+    got = banded_cell_plain(*[torch.from_numpy(np.ascontiguousarray(a))
+                              for a in args], K_in=K_in)
     for name, r, g in zip(("cols", "buf", "nmin"), ref, got):
         np.testing.assert_array_equal(g.numpy(), np.asarray(r), err_msg=name)
 
@@ -64,6 +66,76 @@ def _random_args(rng, Cm, Nm, B, K_in):
             (m1, m2, old_end, pseudo, eq_lo, eq_hi, seq_len, buf)]
 
 
+def _random_slice_args(rng, N, K_in, Nm, Cm, B):
+    """Seeded arguments of ``slice_cells`` on a random graph of in-degree up
+    to ``K_in`` (back edges included): bands and previous bands that share
+    nodes, scores with INF holes, some lanes inactive, Eq windows past both
+    ends of the read. numpy arrays in the wrapper's dtypes."""
+    from graphaligner_tpu_torch.core.tables import _MATCH_TABLE, match_bits
+
+    empty, inf = 2**31 - 1, 1 << 20
+    node_len = rng.integers(1, 14, N)
+    node_start = np.cumsum(node_len) - node_len
+    in_nbrs = np.full((N, K_in), -1)
+    for n in range(N):
+        deg = int(rng.integers(0, K_in + 1))
+        in_nbrs[n, :deg] = rng.choice(N, deg, replace=False)
+    seq_codes = rng.integers(0, 5, int(node_len.sum()))
+
+    def band():
+        out = np.full((Nm, B), empty)
+        for b in range(B):
+            k = int(rng.integers(0, Nm + 1))
+            out[:k, b] = np.sort(rng.choice(N, k, replace=False))
+        return out
+
+    def scores(shape, hi, p_inf):
+        return np.where(rng.random(shape) < p_inf, inf,
+                        rng.integers(0, hi, shape))
+
+    L = 4 * 64
+    args = (
+        band(), rng.random(B) < 0.1, band(),
+        scores((Nm, B), 300, 0.2), scores((Nm, B), 300, 0.2),
+        scores((Cm, B), 400, 0.2), rng.integers(0, 100, B),
+        rng.random(B) < 0.8, rng.random(B) < 0.3, rng.integers(64, 2000, B),
+        rng.integers(0, 15, (B, L)), rng.integers(0, 6, B),
+        node_len, node_start, in_nbrs, seq_codes, match_bits(_MATCH_TABLE),
+    )
+    dtypes = [np.int32, bool, np.int32, np.int32, np.int32, np.int32,
+              np.int32, bool, bool, np.int32, np.uint8] + [np.int32] * 6
+    return [np.ascontiguousarray(a, dtype=d) for a, d in zip(args, dtypes)]
+
+
+def test_slice_cells_random_in_degree_5_cpu_route(monkeypatch):
+    """CPU tensors take the plain version; its outputs hold the invariants
+    of the step: inactive lanes keep their carries and a zero control word,
+    every cell past the band is the invalid column."""
+    import graphaligner_tpu_torch.ops.banded_cell as k1
+
+    calls = []
+    orig = k1.slice_cells_plain
+    monkeypatch.setattr(k1, "slice_cells_plain",
+                        lambda *a, **kw: calls.append(1) or orig(*a, **kw))
+    Nm, Cm, B = 32, 160, 24
+    args = [torch.from_numpy(a) for a in
+            _random_slice_args(np.random.default_rng(5), 60, 5, Nm, Cm, B)]
+    n0 = k1.LAUNCHES
+    cols, nm, ctrl, ids, send, nmin, nend, pmin = k1.slice_cells(*args)
+    assert calls == [1] and k1.LAUNCHES == n0
+    assert cols.shape == (7, Cm, B) and nm.shape == (6, Nm, B)
+    idle = ~args[7]
+    assert idle.any() and (ctrl[idle] == 0).all()
+    for new, old in ((ids, args[2]), (send, args[5]), (nmin, args[3]),
+                     (nend, args[4]), (pmin, args[6])):
+        assert torch.equal(new[..., idle], old[..., idle])
+    c_used = (ctrl >> 7) & 0x7FFFFF
+    assert ((ctrl >> 30) & 1).bool().any()  # some band overflows Cm
+    for b in torch.nonzero(args[7]).flatten().tolist():
+        tail = cols[:, int(c_used[b]):, b]
+        assert (tail[4] == 1 << 20).all() and (tail[6] == 8).all()
+
+
 @pytest.mark.parametrize("seed,K_in", [(0, 2), (1, 3), (2, 5)])
 def test_banded_cell_plain_matches_jax_random(seed, K_in):
     rng = np.random.default_rng(seed)
@@ -71,8 +143,10 @@ def test_banded_cell_plain_matches_jax_random(seed, K_in):
 
 
 def test_banded_cell_plain_matches_jax_on_recorded_sim_slices(monkeypatch):
-    """Every K1 call of a port scan over sim reads, replayed through both."""
+    """Every cell pass of a port scan over sim reads, replayed through
+    both."""
     import graphaligner_tpu_torch.core.engine_banded as eb
+    import graphaligner_tpu_torch.ops.banded_cell as k1
     from graphaligner_tpu.core.align import _pad_to_word
     from graphaligner_tpu.core.params import WORD_SIZE
     from graphaligner_tpu.core.reach import ensure_reach
@@ -85,13 +159,13 @@ def test_banded_cell_plain_matches_jax_on_recorded_sim_slices(monkeypatch):
     )
 
     calls = []
-    orig = eb.banded_cell
+    orig = k1.banded_cell_plain
 
     def rec(*args, **kw):
         calls.append(([a.numpy().copy() for a in args], kw["K_in"]))
         return orig(*args, **kw)
 
-    monkeypatch.setattr(eb, "banded_cell", rec)
+    monkeypatch.setattr(k1, "banded_cell_plain", rec)
     graph = load_alignment_graph(str(SIM / "bubbles.vg"))
     reads = load_fastq(str(SIM / "sim.fastq"))[:4]
     seeds = load_seed_hits(str(SIM / "seeds.gam"), [r.seq_id for r in reads])
@@ -125,6 +199,6 @@ def test_banded_cell_checks_its_arguments():
     args = [torch.from_numpy(a) for a in
             _random_args(np.random.default_rng(0), 8, 4, 8, 2)]
     with pytest.raises(ValueError, match="old_end"):
-        banded_cell(*args[:2], args[2].long(), *args[3:], K_in=2)
+        banded_cell_plain(*args[:2], args[2].long(), *args[3:], K_in=2)
     with pytest.raises(NotImplementedError):
-        banded_cell(*args, K_in=6)
+        banded_cell_plain(*args, K_in=6)

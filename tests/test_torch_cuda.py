@@ -12,9 +12,12 @@ import numpy as np
 import pytest
 import torch
 
-from test_torch_banded_cell import _random_args
+from test_torch_banded_cell import _random_slice_args
 
-SIM = pathlib.Path(__file__).parent / "fixtures" / "sim"
+FIX = pathlib.Path(__file__).parent / "fixtures"
+SIM = FIX / "sim"
+K1_OUTS = ("cols", "nm", "ctrl", "p_ids", "p_cell_send", "p_node_min",
+           "p_node_end", "p_min")
 
 
 @pytest.fixture
@@ -24,21 +27,103 @@ def cuda():
     return torch.device("cuda")
 
 
-@pytest.mark.cuda
-@pytest.mark.parametrize("K_in", [2, 5])
-def test_banded_cell_kernel_matches_plain(cuda, K_in):
+def _k1_matches_plain(args, P_fix=16):
     from graphaligner_tpu_torch.ops import banded_cell as k1
 
-    rng = np.random.default_rng(K_in)
-    args = [torch.from_numpy(a).to(cuda)
-            for a in _random_args(rng, Cm=288, Nm=32, B=512, K_in=K_in)]
     n0 = k1.LAUNCHES
-    got = k1.banded_cell(*args, K_in=K_in)
+    got = k1.slice_cells(*args, P_fix=P_fix)
     torch.cuda.synchronize()
     assert k1.LAUNCHES == n0 + 1
-    want = k1.banded_cell_plain(*args, K_in=K_in)
-    for g, w in zip(got, want):
-        assert torch.equal(g, w)
+    want = k1.slice_cells_plain(*args, P_fix=P_fix)
+    for name, g, w in zip(K1_OUTS, got, want):
+        assert torch.equal(g, w), name
+
+
+def _recorded_slices(cuda, graph, reads, seeds, monkeypatch, Nm=32, Cm=288):
+    """Every slice_cells call of the port's scan over ``reads`` (one lane
+    each, seeded at their first seed) on the card."""
+    from graphaligner_tpu_torch.core import engine_banded as eb
+    from graphaligner_tpu_torch.core.align import _pad_to_word
+    from graphaligner_tpu_torch.core.engine import encode_read
+    from graphaligner_tpu_torch.core.reach import ensure_reach
+    from graphaligner_tpu_torch.core.tables import (
+        build_graph_tables, device_tables, make_seed_carry,
+    )
+
+    calls = []
+    orig = eb.slice_cells
+
+    def rec(*args, **kw):
+        calls.append([a.clone() for a in args])
+        return orig(*args, **kw)
+
+    monkeypatch.setattr(eb, "slice_cells", rec)
+    tables = build_graph_tables(graph)
+    reach = ensure_reach(tables, 35 + 63)
+    probs = []
+    for r in reads:
+        node_id, pos, rev = seeds[r.seq_id][0]
+        probs.append((_pad_to_word(r.sequence[pos:]),
+                      graph.node_lookup[node_id * 2 + (1 if rev else 0)]))
+    B = len(probs)
+    S = max(len(p[0]) // 64 for p in probs)
+    codes = np.full((B, S * 64), 14, np.uint8)
+    seq_len, steps, starts = (np.zeros(B, np.int32) for _ in range(3))
+    for i, (seq, node) in enumerate(probs):
+        codes[i, : len(seq)] = encode_read(seq)
+        seq_len[i], steps[i], starts[i] = len(seq), len(seq) // 64, node
+    eb.banded_scan(
+        device_tables(tables, reach, cuda), codes, seq_len, steps,
+        np.zeros(B, np.int32), np.full((S, B), 35, np.int32),
+        *make_seed_carry(tables, starts, Nm, Cm), S_max=S, Nm=Nm, Cm=Cm,
+    )
+    assert len(calls) == S
+    return calls
+
+
+@pytest.mark.cuda
+def test_slice_cells_kernel_matches_plain_on_recorded_sim_slices(
+        cuda, monkeypatch):
+    """The fused K1 against slice_cells_plain on every slice of a scan over
+    the 20 sim reads: all eight outputs bit for bit."""
+    from graphaligner_tpu_torch.graph import load_alignment_graph
+    from graphaligner_tpu_torch.io import load_fastq
+    from graphaligner_tpu_torch.runtime.aligner import load_seed_hits
+
+    graph = load_alignment_graph(str(SIM / "bubbles.vg"))
+    reads = load_fastq(str(SIM / "sim.fastq"))
+    seeds = load_seed_hits(str(SIM / "seeds.gam"), [r.seq_id for r in reads])
+    for args in _recorded_slices(cuda, graph, reads, seeds, monkeypatch):
+        _k1_matches_plain(args)
+
+
+@pytest.mark.cuda
+def test_slice_cells_kernel_matches_plain_on_cyclic_back_edges(
+        cuda, monkeypatch):
+    """The fused K1's per-lane fixpoint against the plain version's global
+    loop on sim/cyclic.gfa (reads through the repeat twice, so bands carry
+    back edges), at the default pass cap and cut to one extra pass."""
+    from graphaligner_tpu_torch.graph import graph_from_gfa_file
+    from graphaligner_tpu_torch.io import load_fastq
+
+    graph = graph_from_gfa_file(str(SIM / "cyclic.gfa"))
+    reads = load_fastq(str(FIX / "torch" / "cyclic_i" / "reads.fastq"))[:8]
+    seeds = {r.seq_id: [(6, 0, False)] for r in reads}
+    calls = _recorded_slices(cuda, graph, reads, seeds, monkeypatch)
+    for args in calls:
+        _k1_matches_plain(args)
+        _k1_matches_plain(args, P_fix=1)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("K_in", [2, 5])
+def test_slice_cells_kernel_matches_plain_random(cuda, K_in):
+    """The fused K1 on a seeded random graph of in-degree K_in, random
+    bands, carries and Eq windows, at Cm=288, Nm=32, B=512."""
+    rng = np.random.default_rng(K_in)
+    args = [torch.from_numpy(a).to(cuda)
+            for a in _random_slice_args(rng, 60, K_in, 32, 288, 512)]
+    _k1_matches_plain(args)
 
 
 @pytest.mark.cuda
@@ -113,10 +198,20 @@ def test_sim_on_gpu_matches_goldens_and_walk_plain(cuda, bw, ramp, golden,
             np.testing.assert_array_equal(rk[j, :n], rp[j, :n])
 
 
+def _eq(cuda, codes, S):
+    from graphaligner_tpu_torch.core import engine
+
+    return torch.as_tensor(
+        engine._build_eq_vectors(codes, engine._MATCH_TABLE, S).view(np.int32),
+        device=cuda,
+    )
+
+
 @pytest.mark.cuda
 def test_exhaustive_kernel_matches_plain(cuda):
-    """K3 on bubbles x the 20 sim reads: all six slabs bit-identical to its
-    plain version on the card, and the -i GAM equal to the JAX golden."""
+    """K3's wavefront on bubbles x the 20 sim reads (S=11, B=20): all six
+    slabs bit-identical to its plain version on the card, and the -i GAM
+    equal to the JAX golden."""
     from graphaligner_tpu_torch.core import engine
     from graphaligner_tpu_torch.graph import load_alignment_graph
     from graphaligner_tpu_torch.io import load_fastq, stream, vg
@@ -134,10 +229,11 @@ def test_exhaustive_kernel_matches_plain(cuda):
         device=cuda,
     )
     kw = dict(num_nodes=ba.sched.num_nodes, cyclic=ba.sched.cyclic)
-    n0 = k3.LAUNCHES
+    assert not ba.sched.cyclic
+    n0 = k3.LAUNCHES_WAVEFRONT
     got = k3.exhaustive(eq, *ba._dev_sched, **kw)
     torch.cuda.synchronize()
-    assert k3.LAUNCHES == n0 + 1
+    assert k3.LAUNCHES_WAVEFRONT == n0 + 1
     want = k3.exhaustive_plain(eq, *ba._dev_sched, **kw)
     for g, w in zip(got, want):
         assert torch.equal(g, w)
@@ -150,6 +246,35 @@ def test_exhaustive_kernel_matches_plain(cuda):
         for m in aln.path.mapping:
             m.position.node_id //= 2
         assert aln.encode() == gold[r.seq_id]
+
+
+@pytest.mark.cuda
+def test_exhaustive_wavefront_crosses_slice_groups(cuda):
+    """K3's wavefront on smallexample (P = 332, not a multiple of the chunk)
+    at S = 40 (three groups of slice-warps, two seams) and B = 20 (not a
+    multiple of the lanes a warp carries): bit-identical to the plain
+    version."""
+    from graphaligner_tpu_torch.core import engine
+    from graphaligner_tpu_torch.graph import load_alignment_graph
+    from graphaligner_tpu_torch.ops import exhaustive as k3
+
+    ba = engine.BatchAligner(
+        load_alignment_graph(str(FIX / "smallexample" / "sub_test.vg")), cuda)
+    P = len(ba.sched.code)
+    B, S = 20, 40
+    assert P % k3.WAVE_CHUNK and S > k3.WAVE_WARPS and B % k3.WAVE_LANES
+    rng = np.random.default_rng(8)
+    codes = np.full((B, S * 64), engine._READ_CODE["N"], np.uint8)
+    for i in range(B):
+        n = int(rng.integers(S * 32, S * 64))
+        codes[i, :n] = rng.integers(0, 4, n)
+    eq = _eq(cuda, codes, S)
+    num_nodes = ba.sched.num_nodes
+    got = k3._launch_wavefront(eq, *ba._dev_sched, num_nodes=num_nodes)
+    want = k3.exhaustive_plain(eq, *ba._dev_sched, num_nodes=num_nodes,
+                               cyclic=False)
+    for g, w in zip(got, want):
+        assert torch.equal(g, w)
 
 
 @pytest.mark.cuda
@@ -174,10 +299,10 @@ def test_exhaustive_kernel_cyclic_fixpoint_matches_plain(cuda):
         device=cuda,
     )
     kw = dict(num_nodes=ba.sched.num_nodes, cyclic=True)
-    n0 = k3.LAUNCHES
+    n0 = k3.LAUNCHES_SERIAL
     got = k3.exhaustive(eq, *ba._dev_sched, **kw)
     torch.cuda.synchronize()
-    assert k3.LAUNCHES == n0 + 1
+    assert k3.LAUNCHES_SERIAL == n0 + 1
     want = k3.exhaustive_plain(eq, *ba._dev_sched, **kw)
     for g, w in zip(got, want):
         assert torch.equal(g, w)

@@ -134,11 +134,13 @@ def test_schedule_matches_jax():
 
 def test_lanes_that_fit_follow_free_memory(monkeypatch):
     """The -i chunk is what half the free memory holds: 24 * S * P bytes
-    of slabs a lane and the smaller per-lane terms, capped, at least 1."""
+    of slabs a lane and the smaller per-lane terms (the wavefront's node
+    store once per slice-warp), capped, at least 1."""
     ba = teng.BatchAligner(t_load_alignment_graph(str(SIM / "bubbles.vg")), "cpu")
     S, P, N = 11, len(ba.sched.code), ba.sched.num_nodes
     slabs = 24 * S * P
-    lane = (slabs + 8 * S * N + 104 * S) + (slabs + 24 * N + 40 * S) \
+    assert not ba.sched.cyclic and S <= 16  # one store a slice-warp
+    lane = (slabs + 8 * S * N + 104 * S) + (slabs + 24 * S * N + 40 * S) \
         + 2 * slabs + 48 * N
     for lanes in (1, 3, 40):
         monkeypatch.setattr(teng, "host_free_bytes", lambda n=lanes: 2 * lane * n)
@@ -192,12 +194,30 @@ def _make_goldens():
     return mod
 
 
-@pytest.mark.parametrize("name", ["smallexample_i", "sim_i"])
+@pytest.mark.parametrize("name", ["smallexample_i", "sim_i", "cyclic_i"])
 def test_goldens_rederived_through_jax(name, tmp_path):
     """The committed -i goldens are what the JAX package writes today."""
     out = tmp_path / "out.gam"
     _make_goldens().make(name, str(out))
     assert out.read_bytes() == (FIX / "torch" / name / "out.gam").read_bytes()
+
+
+def test_cyclic_i_matches_its_golden(tmp_path):
+    """-i on the cyclic graph (the serial fixpoint route on the card, the
+    plain version here) writes the JAX-made golden of every read."""
+    from graphaligner_tpu_torch.core.params import AlignerParams
+    from graphaligner_tpu_torch.io import stream, vg
+    from graphaligner_tpu_torch.runtime.aligner import align_reads
+
+    d = FIX / "torch" / "cyclic_i"
+    params = AlignerParams(graph_file=str(SIM / "cyclic.gfa"),
+                           fastq_file=str(d / "reads.fastq"),
+                           initial_bandwidth=35, initial_full_band=True)
+    alns = align_reads(params, log=lambda *a: None, output_dir=str(tmp_path),
+                       backend="cpu")
+    gold = {a.name: a.encode()
+            for a in stream.read_messages(str(d / "out.gam"), vg.Alignment)}
+    assert len(gold) == 32 and {a.name: a.encode() for a in alns} == gold
 
 
 def test_port_reads_match_jax_reads():

@@ -76,7 +76,43 @@ def _cyclic():
     return graph, reads, seeds
 
 
-CORPORA = {"sim": _sim, "gwws": _gwws, "cyclic": _cyclic}
+def _cyclic_indels():
+    """The reads of test_banded_cyclic.py: six walks around the repeat,
+    mutated with substitutions and indels (random seed 7)."""
+    import random
+
+    from graphaligner_tpu.io.fastq import FastQ
+
+    graph = graph_from_gfa_file(str(SIM / "cyclic.gfa"))
+    seqs = {}
+    for line in open(SIM / "cyclic.gfa"):
+        if line.startswith("S\t"):
+            _, nid, seq = line.split()
+            seqs[int(nid)] = seq
+    rng = random.Random(7)
+    path = [6, 7, 8, 9, 10, 11, 12, 8, 9, 10, 11, 12, 13, 14]
+    truth = "".join(seqs[n] for n in path)
+    reads, seeds = [], {}
+    for i in range(6):
+        out = []
+        for c in truth:
+            r = rng.random()
+            if r < 0.05 / 3:
+                continue
+            if r < 2 * 0.05 / 3:
+                out.append(rng.choice("ACGT"))
+                continue
+            out.append(c)
+            if rng.random() < 0.05 / 3:
+                out.append(rng.choice("ACGT"))
+        read = "".join(out)
+        reads.append(FastQ(seq_id=f"cyc{i}", sequence=read, quality="!"))
+        seeds[f"cyc{i}"] = [(path[0], 0, False)]
+    return graph, reads, seeds
+
+
+CORPORA = {"sim": _sim, "gwws": _gwws, "cyclic": _cyclic,
+           "cyclic_indels": _cyclic_indels}
 
 
 def _problems(graph, reads, seeds, n):
@@ -142,7 +178,22 @@ def _segmented_inputs(tables, problems, Nm, Cm):
 @pytest.mark.parametrize("corpus", sorted(CORPORA))
 @pytest.mark.parametrize("mode", ["plain", "segmented"])
 def test_banded_scan_matches_jax(corpus, mode, monkeypatch):
+    import graphaligner_tpu_torch.ops.banded_cell as k1
+
     monkeypatch.setenv("GA_FORCE_PALLAS", "1")
+    passes = []  # cell passes of each slice
+    orig_slice, orig_cell = k1.slice_cells_plain, k1.banded_cell_plain
+
+    def count_slice(*a, **kw):
+        passes.append(0)
+        return orig_slice(*a, **kw)
+
+    def count_cell(*a, **kw):
+        passes[-1] += 1
+        return orig_cell(*a, **kw)
+
+    monkeypatch.setattr(k1, "slice_cells_plain", count_slice)
+    monkeypatch.setattr(k1, "banded_cell_plain", count_cell)
     graph, reads, seeds = CORPORA[corpus]()
     tables = build_graph_tables(graph)
     reach = ensure_reach(tables, BW + 10 + WORD_SIZE - 1)
@@ -169,9 +220,12 @@ def test_banded_scan_matches_jax(corpus, mode, monkeypatch):
         got["ids_sub"].numpy(),
         band_hash_np(np.moveaxis(got["band_ids"].numpy()[::8], 1, -1)),
     )
-    if corpus == "cyclic":
-        # the fixpoint must have had back edges to repeat over
+    assert len(passes) == S_max and min(passes) >= 1
+    if corpus.startswith("cyclic"):
+        # the fixpoint must have had back edges to repeat over: some lane
+        # took more than one pass
         assert (np.asarray(ref["num_cells"]) > 0).any()
+        assert max(passes) > 1
 
 
 def test_device_tables_refuse_graph_without_reach():

@@ -121,7 +121,7 @@ def test_pass_cap_flags_non_convergence():
 
 def test_wrapper_checks_and_cuda_route(monkeypatch):
     """Bad dtypes and shapes raise; a CUDA launch without nvcc raises
-    rather than running the plain version."""
+    rather than running the plain version, on both routes."""
     from graphaligner_tpu_torch.ops import _build
 
     P, B = 3, 2
@@ -138,8 +138,72 @@ def test_wrapper_checks_and_cuda_route(monkeypatch):
         raise RuntimeError("nvcc not found: the CUDA kernels cannot be built")
 
     monkeypatch.setattr(_build, "library", no_nvcc)
-    n0 = k3.LAUNCHES
-    with pytest.raises(RuntimeError, match="nvcc"):
-        k3._launch(eq, z, z, z, preds, z, num_nodes=1, cyclic=False,
-                   max_passes=128)
-    assert k3.LAUNCHES == n0
+    n0 = (k3.LAUNCHES_WAVEFRONT, k3.LAUNCHES_SERIAL)
+    for cyclic in (False, True):
+        with pytest.raises(RuntimeError, match="nvcc"):
+            k3._launch(eq, z, z, z, preds, z, num_nodes=1, cyclic=cyclic,
+                       max_passes=128)
+    assert (k3.LAUNCHES_WAVEFRONT, k3.LAUNCHES_SERIAL) == n0
+
+
+@pytest.mark.parametrize("cyclic", [False, True])
+def test_launch_routes_acyclic_to_wavefront_and_cyclic_to_serial(
+        cyclic, monkeypatch):
+    """On the card an acyclic schedule launches the slice wavefront and a
+    cyclic one the serial fixpoint kernel, with the pass cap."""
+    routes = []
+    monkeypatch.setattr(
+        k3, "_launch_wavefront",
+        lambda *a, **kw: routes.append(("wavefront", kw)) or "w")
+    monkeypatch.setattr(
+        k3, "_launch_serial",
+        lambda *a, **kw: routes.append(("serial", kw)) or "s")
+    out = k3._launch(*[torch.zeros(1, dtype=torch.int32)] * 6, num_nodes=7,
+                     cyclic=cyclic, max_passes=5)
+    if cyclic:
+        assert out == "s"
+        assert routes == [("serial", {"num_nodes": 7, "max_passes": 5})]
+    else:
+        assert out == "w"
+        assert routes == [("wavefront", {"num_nodes": 7})]
+
+
+def test_wave_shape_fits_shared_memory():
+    """The wavefront takes up to 16 slice-warps, fewer when the slices are
+    fewer or its staging rings would not fit in a block's shared memory."""
+    L = k3.WAVE_LANES
+    T, W, smem = k3.wave_shape(11, 2)
+    assert (T, W) == (k3.WAVE_CHUNK, 11)
+    assert smem == 4 * (W * 2 * T * L + (W + 1) * (4 * T + 1 + T * 2))
+    assert k3.wave_shape(160, 2)[1] == 16
+    T, W, smem = k3.wave_shape(160, 200)
+    assert 1 <= W < 16 and smem <= k3.SMEM_LIMIT
+    assert 4 * ((W + 1) * 2 * T * L + (W + 2) * (4 * T + 1 + T * 200)) \
+        > k3.SMEM_LIMIT
+    with pytest.raises(NotImplementedError, match="shared memory"):
+        k3.wave_shape(4, 2000)
+
+ACYCLIC = ["smallexample/sub_test.vg", "sim/bubbles.vg", "longsim/graph.vg",
+           "gwws_fail_ex1.vg", "giantband/graph.vg", "sim/overlap.gfa"]
+
+
+@pytest.mark.parametrize("graph", ACYCLIC)
+def test_acyclic_schedule_preds_precede_their_starts(graph):
+    """The premise of the wavefront's unreset node store: on an acyclic
+    graph every in-neighbour named at a node start is scheduled, and so
+    written, earlier in the slice."""
+    from graphaligner_tpu_torch.core.engine import build_schedule
+    from graphaligner_tpu_torch.graph import load_alignment_graph as load
+
+    sched = build_schedule(load(str(FIX / graph)))
+    assert not sched.cyclic
+    starts = np.nonzero(sched.is_start)[0]
+    assert sorted(sched.node_slot[starts]) == list(range(sched.num_nodes))
+    first = np.empty(sched.num_nodes, np.int64)  # each node's first step
+    first[sched.node_slot[starts]] = starts
+    preds = sched.pred_nodes[starts]
+    has = preds >= 0
+    assert has.any()
+    assert (first[np.where(has, preds, 0)][has]
+            < np.broadcast_to(starts[:, None], preds.shape)[has]).all()
+    assert (sched.pred_nodes[~sched.is_start] == -1).all()

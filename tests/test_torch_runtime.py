@@ -132,14 +132,19 @@ def test_cuda_tensor_without_gpu_raises_in_kernel_wrapper(monkeypatch):
         raise RuntimeError("nvcc not found: the CUDA kernels cannot be built")
 
     monkeypatch.setattr(_build, "library", no_nvcc)
-    from graphaligner_tpu_torch.ops.banded_cell import _launch
+    from graphaligner_tpu_torch.ops import banded_cell as k1
 
+    Nm, Cm, B, N = 3, 4, 2, 5
+    i = torch.int32
+    z = lambda *shape, dtype=i: torch.zeros(shape, dtype=dtype)  # noqa: E731
+    args = (z(Nm, B), z(B, dtype=torch.bool), z(Nm, B), z(Nm, B), z(Nm, B),
+            z(Cm, B), z(B), z(B, dtype=torch.bool), z(B, dtype=torch.bool),
+            z(B), z(B, 64, dtype=torch.uint8), z(B), z(N), z(N), z(N, 2),
+            z(8), z(15))
+    n0 = k1.LAUNCHES
     with pytest.raises(RuntimeError, match="nvcc"):
-        z = torch.zeros((4, 2), dtype=torch.int32)
-        _launch(z, z, z, z, torch.zeros((5, 2), dtype=torch.int32),
-                torch.zeros((5, 2), dtype=torch.int32),
-                torch.zeros((1, 2), dtype=torch.int32),
-                torch.zeros((7, 3, 2), dtype=torch.int32), K_in=2)
+        k1._launch(*args, P_fix=16)
+    assert k1.LAUNCHES == n0
 
 
 def test_unported_routes_raise(tmp_path):
