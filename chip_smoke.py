@@ -21,15 +21,18 @@ GA_NO_FALLBACK=1:
 Each path's kernel launches are counted over its run (each must be > 0,
 host-fallback lanes must be 0). Then each kernel is held against its plain
 torch version on the card, on arguments recorded from that run: K1's eight
-outputs bit for bit on its widest longsim call, for every K2 call the fail
-flags of every lane and every decoded trace exactly, K3's wavefront six
-slabs bit for bit on its sim call, and K3's serial kernel, through its
-cyclic fixpoint, on sim/cyclic.gfa (where a one-pass cap must flag every
-lane). Each kernel's bound (the larger of its bytes over the memory rate
-and its integer operations over the card's int32 issue rate) is computed
-from the recorded arguments, K2's from the walk that ran. One more longsim
-x10 run under torch.profiler gives the device-kernel count, busy time and
-idle share of the seeded path.
+outputs bit for bit on its widest longsim call; for every K2 call its
+moves, fail flags, state_out and used bit for bit against the plain walk at
+Bb=1 (per lane, as the kernel steps), and the plain walk's moves decoded to
+the main run's traces, then K2 on the widest call's table cut into a chain of two windows
+and on its first 128 lanes padded to Cm=2304; K3's wavefront six slabs bit
+for bit on its sim call, and K3's serial kernel, through its cyclic
+fixpoint, on sim/cyclic.gfa (where a one-pass cap must flag every lane).
+Each kernel's bound (the larger of its bytes over the memory rate and its
+integer operations over the card's int32 issue rate) is computed from the
+recorded arguments, K2's from the walk that ran. One more longsim x10 run
+under torch.profiler gives the device-kernel count, busy time and idle
+share of the seeded path, and K2's launches and summed time there.
 
 Prints the card's name and power limit, versions, build time, per-corpus
 rates, one JSON line of kernel results, and last
@@ -151,8 +154,8 @@ def run_corpus(device, graph, reads, seeds, bw, ramp):
 class Recorder:
     """Records the kernels' arguments at their call sites during the main
     path: the K1 (slice_cells) call with the most lanes, and every K2 call
-    together with the decode call of its block (if any of its lanes
-    survived the walk)."""
+    together with the decode call of its block and its decoded traces (if
+    any of its lanes survived the walk)."""
 
     def __init__(self):
         import graphaligner_tpu_torch.core.batch_align as ba
@@ -161,7 +164,8 @@ class Recorder:
         native = ba.native
 
         self.k1 = None
-        self.k2 = []  # [args, kwargs, fail flags of the run, decode args]
+        # [args, kwargs, outputs of the run, decode args, decoded traces]
+        self.k2 = []
         self._mods = (eb, ba, native)
         self._orig = (eb.slice_cells, ba.walk_moves, native.decode_moves_batch)
 
@@ -172,14 +176,16 @@ class Recorder:
 
         def rec_k2(*args, **kw):
             out = self._orig[1](*args, **kw)
-            self.k2.append([[a.clone() for a in args], kw, out[1].clone(),
-                            None])
+            self.k2.append([[a.clone() for a in args], kw,
+                            [o.clone() for o in out], None, None])
             return out
 
         def rec_decode(*args, **kw):
+            out = self._orig[2](*args, **kw)
             if self.k2 and self.k2[-1][3] is None:
                 self.k2[-1][3] = (args[1:], kw)
-            return self._orig[2](*args, **kw)
+                self.k2[-1][4] = out
+            return out
 
         eb.slice_cells = rec_k1
         ba.walk_moves = rec_k2
@@ -362,71 +368,181 @@ def k2_work(args, outs, decode, traces):
     return moved, ops
 
 
-def compare_k2(rec, rate):
-    """Every K2 call of the main path against the plain walk on the same
-    arguments: fail flags on every lane, decoded traces of every live lane.
-    Times the kernel and the plain walk on the largest block."""
-    import numpy as np
+def k2_equal(got, want, what):
+    """K2's four outputs bit for bit, or fail. Returns the largest
+    |got - want| over them."""
     import torch
 
+    err = 0
+    for name, g, w in zip(("moves", "fail", "state_out", "used"), got, want):
+        diff = int((g.to(torch.int64) - w.to(torch.int64)).abs().max())
+        err = max(err, diff)
+        if not torch.equal(g, w):
+            fail(f"K2 {name} differs {what} on {int((g != w).sum())} "
+                 f"entries (max {diff})")
+    return err
+
+
+def k2_lanes(args, n):
+    """A K2 call's first n lanes (every argument is lane-last but
+    bits_lut)."""
+    return [a if i == 6 else a[..., :n].contiguous()
+            for i, a in enumerate(args)]
+
+
+def k2_decode(moves, used, decode):
+    """The native decode of a K2 call's moves, as core.batch_align runs
+    it: (w, r, n) slabs of the recorded decode call's lanes."""
+    import numpy as np
+
     from graphaligner_tpu_torch.core.batch_align import native
+
+    dargs, dkw = decode
+    rows = min(moves.shape[0], int(used.max()) // 8 + 1)
+    return native.decode_moves_batch(
+        np.ascontiguousarray(moves[:rows].cpu().numpy()).view(np.uint32),
+        *dargs, **dkw,
+    )
+
+
+def k2_traces_equal(got, want, what):
+    import numpy as np
+
+    (wk, rk, nk), (ww, rw, nw) = got, want
+    if not np.array_equal(nk, nw) or (nk < 1).any():
+        fail(f"K2 decoded trace lengths differ {what}, or a lane is "
+             "malformed")
+    for j in range(len(nk)):
+        n = int(nk[j])
+        if not (np.array_equal(wk[j, :n], ww[j, :n])
+                and np.array_equal(rk[j, :n], rw[j, :n])):
+            fail(f"K2 decoded trace of lane {j} differs {what}")
+
+
+def compare_k2(rec, rate):
+    """Every K2 call of the main path against walk_moves_plain at Bb=1 (per
+    lane, as the kernel steps): moves, fail flags, state_out and used bit
+    for bit, the largest difference kept as K2's error; the plain walk's
+    moves decoded as the main run decoded the kernel's. Times the kernel at
+    the widest call and at 256 of its lanes, and the plain walk at the
+    widest call."""
+    from graphaligner_tpu_torch.ops import _build
     from graphaligner_tpu_torch.ops import walk_moves as k2
 
-    err = n_lanes = n_traces = 0
+    n_lanes = n_traces = err = 0
     largest = max(rec.k2, key=lambda r: r[0][0].numel())
-    largest_traces = None
     for call in rec.k2:
-        args, kw, fail_main, decode = call
-        moves_k, fail_k, _, used_k = k2.walk_moves(*args, **kw)
-        (moves_p, fail_p, _, used_p), ms_p = timed(
-            lambda: k2.walk_moves_plain(*args, **kw)
-        )
+        args, kw, main_out, decode, traces = call
+        got = k2.walk_moves(*args, **kw)
+        k2_equal(got, main_out, "between two runs of the same call")
+        want, ms_p = timed(lambda: k2.walk_moves_plain(*args, **kw, Bb=1))
+        err = max(err, k2_equal(got, want, "from walk_moves_plain(Bb=1)"))
         if call is largest:
             plain_ms = ms_p
-        if not torch.equal(fail_k, fail_main):
-            fail("K2 is not deterministic: fail flags changed between runs")
-        if not torch.equal(fail_k, fail_p):
-            n = int((fail_k != fail_p).sum())
-            fail(f"K2 fail flags differ from its plain version on {n} lanes")
-        n_lanes += fail_k.shape[1]
-        if decode is None:
-            continue
-        dargs, dkw = decode
-        rows = min(moves_k.shape[0],
-                   int(torch.maximum(used_k, used_p).max()) // 8 + 1)
-        traces = [
-            native.decode_moves_batch(
-                np.ascontiguousarray(m[:rows].cpu().numpy()).view(np.uint32),
-                *dargs, **dkw,
-            )
-            for m in (moves_k, moves_p)
-        ]
-        (wk, rk, nk), (wp, rp, np_) = traces
-        if call is largest:
-            largest_traces = traces[0]
-        if not np.array_equal(nk, np_):
-            fail("K2 decoded trace lengths differ from the plain version's")
-        for j in range(len(nk)):
-            n = int(nk[j])
-            if n < 1:
-                fail(f"K2 decoded lane {j} is malformed")
-            err = max(err, int(np.abs(wk[j, :n] - wp[j, :n]).max()),
-                      int(np.abs(rk[j, :n] - rp[j, :n]).max()))
-        n_traces += len(nk)
-    if err:
-        fail(f"K2 decoded traces differ from the plain version's (max {err})")
-    args, kw = largest[:2]
-    ms = cuda_ms(lambda: k2.walk_moves(*args, **kw), 3)
+        n_lanes += got[1].shape[1]
+        if decode is not None:
+            k2_traces_equal(k2_decode(want[0], want[3], decode), traces,
+                            "between the plain walk and the main run")
+            n_traces += len(traces[2])
+    args, kw, outs, decode, traces = largest
+    if decode is None:
+        fail("no lane of the widest K2 call was decoded")
     K1_, _, Cm, B = args[0].shape
-    outs = k2.walk_moves(*args, **kw)
-    moved, ops = k2_work(args, outs, largest[3], largest_traces)
+    Nm, R = args[1].shape[1], args[6].shape[0]
+    smem = k2.smem_bytes(Cm, Nm, R)
+    ms = cuda_ms(lambda: k2.walk_moves(*args, **kw), 3)
+    moved, ops = k2_work(args, outs, decode, traces)
     bms, by = bound(moved, ops, rate)
-    print(f"K2 walk_moves vs plain over {len(rec.k2)} calls: fail flags equal "
-          f"on all {n_lanes} lanes, {n_traces} decoded traces identical; at "
-          f"K={K1_ - 1} Cm={Cm} B={B} kernel {ms:.3f} ms, plain "
+    steps = int(outs[3].max())
+    print(f"K2 walk_moves vs walk_moves_plain(Bb=1) over {len(rec.k2)} "
+          f"calls: moves, fail, state_out and used bit-identical on all "
+          f"{n_lanes} lanes (max abs err {err}); the plain walk's moves decode "
+          f"to the main run's {n_traces} traces; "
+          f"one lane a block, one slice buffer, {smem} B shared; at "
+          f"K={K1_ - 1} Cm={Cm} B={B} kernel {ms:.3f} ms ({steps} steps in "
+          f"the longest lane, {ms * 1e6 / steps:.1f} ns a step), plain "
           f"{plain_ms:.1f} ms; bound {bms:.5f} ms by {by} ({moved} B, {ops} "
           f"int32 ops), share {bms / ms:.4f}", flush=True)
+    n = min(256, B)
+    sub = k2_lanes(args, n)
+    ms_sub = cuda_ms(lambda: k2.walk_moves(*sub, **kw), 5)
+    (lanes, *rest), dkw = decode
+    keep = lanes < n
+    sub_decode = ((lanes[keep], *[x[keep] for x in rest[:2]], *rest[2:]), dkw)
+    m_sub, o_sub = k2_work(sub, k2_lanes(outs, n), sub_decode,
+                           tuple(x[keep] for x in traces))
+    b_sub, by_sub = bound(m_sub, o_sub, rate)
+    print(f"K2 at {n} of those lanes: kernel {ms_sub:.3f} ms; bound "
+          f"{b_sub:.5f} ms by {by_sub} ({m_sub} B, {o_sub} int32 ops), share "
+          f"{b_sub / ms_sub:.4f}", flush=True)
+    for line in _build.BUILD_LOG.get("walk_moves", (0, ""))[1].splitlines():
+        if "registers" in line or "stack" in line or "spill" in line:
+            print(f"  [walk_moves ptxas] {line.strip()}", flush=True)
     return err, ms, plain_ms, bms, by
+
+
+def k2_window_chain(rec):
+    """The widest K2 call split at its middle slice m into two windows, as
+    a windowed long-read walk chains them: the upper (slices m+1..K,
+    win_base m) from the call's state, the lower from the kernel's
+    state_out. Each window bit for bit against walk_moves_plain(Bb=1); the
+    two move streams concatenated decode as the main run's did."""
+    import torch
+
+    from graphaligner_tpu_torch.ops import walk_moves as k2
+
+    args, kw, outs, decode, traces = max(rec.k2,
+                                         key=lambda r: r[0][0].numel())
+    K = args[0].shape[0] - 1
+    m = K // 2
+    upper = [a[m:].contiguous() if i < 6 else a for i, a in enumerate(args)]
+    upper[9] = torch.full_like(args[9], m)
+    up = k2.walk_moves(*upper, **kw)
+    k2_equal(up, k2.walk_moves_plain(*upper, **kw, Bb=1),
+             "from walk_moves_plain(Bb=1) in the upper window")
+    lower = [a[: m + 1].contiguous() if i < 6 else a
+             for i, a in enumerate(args)]
+    lower[10] = up[2]
+    lo = k2.walk_moves(*lower, **kw)
+    k2_equal(lo, k2.walk_moves_plain(*lower, **kw, Bb=1),
+             "from walk_moves_plain(Bb=1) in the lower window")
+    if bool(up[1].any()) or not torch.equal(lo[1], outs[1]):
+        fail("K2's window chain failed lanes the single walk did not")
+    chained = torch.cat([up[0], lo[0]])
+    k2_traces_equal(
+        k2_decode(chained, torch.tensor([chained.shape[0] * 8 - 1]), decode),
+        traces, "across the window chain from the single walk's")
+    started = int((args[10][0] > m).sum())
+    print(f"K2 window chain at slice {m} of K={K}, B={args[0].shape[3]} "
+          f"({started} lanes start in the upper window): both windows "
+          f"bit-identical to the plain walk, {len(traces[2])} chained traces "
+          f"as in the single walk", flush=True)
+
+
+def k2_top_tier(rec):
+    """The widest call's first 128 lanes with their columns padded from Cm
+    to 2304, the top of the capacity ladder: bit for bit against
+    walk_moves_plain(Bb=1) and the unpadded call's outputs; timed."""
+    import torch
+
+    from graphaligner_tpu_torch.ops import walk_moves as k2
+
+    args, kw = max(rec.k2, key=lambda r: r[0][0].numel())[:2]
+    sub = k2_lanes(args, 128)
+    K1, F, Cm, B = sub[0].shape
+    padded = torch.zeros((K1, F, 2304, B), dtype=torch.int32,
+                         device=sub[0].device)
+    padded[:, :, :Cm] = sub[0]
+    top = [padded] + sub[1:]
+    got = k2.walk_moves(*top, **kw)
+    k2_equal(got, k2.walk_moves_plain(*top, **kw, Bb=1),
+             "from walk_moves_plain(Bb=1) at Cm=2304")
+    k2_equal(got, k2.walk_moves(*sub, **kw), "at Cm=2304 from Cm=288")
+    smem = k2.smem_bytes(2304, sub[1].shape[1], sub[6].shape[0])
+    ms = cuda_ms(lambda: k2.walk_moves(*top, **kw), 3)
+    print(f"K2 at Cm=2304 (K={K1 - 1}, B={B}, {smem} B shared): "
+          f"bit-identical to the plain walk and to the "
+          f"Cm={Cm} call; kernel {ms:.3f} ms", flush=True)
 
 
 class K3Recorder:
@@ -705,6 +821,10 @@ def profile_seeded(device, corpus, card):
           f"{busy:.3f} s; unprofiled wall {wall:.3f} s, idle share "
           f"{1 - busy / wall:.3f} (profiled wall {wall_prof:.3f} s) [{card}]",
           flush=True)
+    k2_events = [e for e in events if "walk_moves" in e.name]
+    print(f"  K2 walk_moves_kernel: {len(k2_events)} launches, "
+          f"{sum(dev_us(e) for e in k2_events) / 1e3:.3f} ms summed device "
+          f"time [{card}]", flush=True)
     by_name = {}
     for e in events:
         n, t = by_name.get(e.name, (0, 0.0))
@@ -865,6 +985,8 @@ def main() -> int:
         "exhaustive_wavefront": compare_k3(rec3, rate),
         "exhaustive_serial": compare_k3_cyclic(rec3, rate),
     }
+    k2_window_chain(rec)
+    k2_top_tier(rec)
     profile_seeded(device, longsim, card)
     sources = {
         "slice_cells": ("banded_cell.cu", "banded_cell.py:44"),

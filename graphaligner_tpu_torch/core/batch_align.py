@@ -529,8 +529,12 @@ class BandedBatchAligner:
         return results
 
     def _walk_moves(self, problems, lanes, keeps, walk_idx, starts, results):
-        """Lanes grouped by quantized table length, in blocks of <= 256
-        lanes, one K2 call each (sparse rungs ride the next rung)."""
+        """Lanes grouped by quantized table length (sparse rungs ride the
+        next rung), one K2 call a group on the card (the chunks that
+        ``get_traces``/``get_traces_stream`` hand the walk bound its size),
+        and a block of 256 lanes a call on the CPU: the JAX package's walk
+        block, so the plain version's lockstep blocks are the JAX
+        kernel's."""
         starts_map = dict(zip(walk_idx, starts))
         groups: dict = {}
         for i in walk_idx:
@@ -541,9 +545,10 @@ class BandedBatchAligner:
                 groups[min(bigger)].extend(groups.pop(kq))
         for kq in sorted(groups, reverse=True):
             g = groups[kq]
-            for j in range(0, len(g), 256):
+            step = len(g) if self.device.type == "cuda" else 256
+            for j in range(0, len(g), step):
                 self._walk_block(
-                    problems, lanes, keeps, g[j : j + 256], starts_map, kq,
+                    problems, lanes, keeps, g[j : j + step], starts_map, kq,
                     results,
                 )
 

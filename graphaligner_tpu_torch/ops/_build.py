@@ -30,7 +30,8 @@ NVCC_FLAGS = [
 ]
 
 _LIBS: dict = {}
-# name -> (seconds, compiler stderr) of the builds this process ran
+# name -> (seconds of the build this process ran, or 0.0 for a library
+# built before, whose compiler stderr is kept beside it; compiler stderr)
 BUILD_LOG: dict = {}
 
 
@@ -66,8 +67,12 @@ def library(name: str) -> ctypes.CDLL:
                 f"nvcc failed for {src.name} (exit {proc.returncode}):\n"
                 f"{proc.stderr}"
             )
+        out.with_suffix(".log").write_text(proc.stderr)
         os.replace(tmp, out)
         BUILD_LOG[name] = (time.time() - t0, proc.stderr)
+    elif name not in BUILD_LOG:
+        log = out.with_suffix(".log")
+        BUILD_LOG[name] = (0.0, log.read_text() if log.exists() else "")
     lib = ctypes.CDLL(str(out))
     _LIBS[name] = lib
     return lib

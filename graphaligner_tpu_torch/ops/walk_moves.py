@@ -1,5 +1,5 @@
-"""Backtrace walk emitting 4-bit move codes (kernel K2): wrapper, prologue
-and plain version.
+"""Backtrace walk emitting 4-bit move codes (kernel K2): wrapper and plain
+version.
 
 ``walk_moves`` takes the arguments of
 ``graphaligner_tpu.ops.pallas.walk_moves.walk_moves_kernel`` and returns
@@ -8,17 +8,17 @@ with T_w = ceil((112 K + 512) / 8). Move codes (K_in <= 4): 0 PAD, 1 STOP,
 2 V, 3 H within the node, 4 D within the node, 8+k H via in-neighbour k,
 12+k D via in-neighbour k; nibble t of a lane's stream is its t-th move.
 
-The prologue (both paths) expands the read codes to per-row match masks
-and packs the engine's 7-field columns into the walk's 6 fields (field 4 =
-sbs | e << 24, field 5 = send).
-
-A CUDA tensor launches ``csrc/walk_moves.cu``: one thread per lane, each
-with its own step budget, so a lane's moves carry no PAD nibbles. A CPU
-tensor runs ``walk_moves_plain``, which keeps the TPU kernel's lockstep
-semantics block by block (``Bb`` lanes share one step counter and budget),
-so at the same block width its raw moves, fail flags and ``used`` equal the
-JAX kernel's. The native decoder skips PAD per lane: both give the same
-traces.
+A CUDA tensor launches ``csrc/walk_moves.cu``: one lane a one-warp block,
+four threads weighing its in-neighbours, each slice's walk tables staged
+in shared memory (``smem_bytes``: 9.5 KB at Cm=288, 66 KB at Cm=2304),
+each lane with its own step budget, so a lane's moves carry no PAD
+nibbles. It reads the engine's 7-field columns and the uint8 codes as they
+are. A CPU tensor runs ``walk_moves_plain``, which keeps the TPU kernel's
+lockstep semantics block by block (``Bb`` lanes share one step counter and
+budget), so at the same block width its raw moves, fail flags and ``used``
+equal the JAX kernel's; at ``Bb=1`` it has the kernel's per-lane semantics
+and equals it bit for bit. The native decoder skips PAD per lane: every block width
+gives the same traces.
 """
 
 from __future__ import annotations
@@ -37,7 +37,9 @@ LAUNCHES = 0
 
 
 def _prologue(cols_tab, codes8, bits_lut):
-    """Match-mask table [K+1, 64, B] and 6-field columns [K+1, 6, Cm, B]."""
+    """The plain version's inputs: the match-mask table [K+1, 64, B] and
+    the 6-field columns [K+1, 6, Cm, B] (field 4 = sbs | e << 24, field 5 =
+    send)."""
     R = bits_lut.shape[0]
     c = codes8.to(torch.int64)
     mtab = torch.where(c < R, bits_lut[c.clamp(max=R - 1)], 0).to(torch.int32)
@@ -105,6 +107,16 @@ def walk_moves(cols_tab, band_tab, lens_tab, pred_tab, pred_prev_tab, codes8,
     return _launch(*[a.contiguous() for a in args], K_in=K_in, W_cap=W_cap)
 
 
+SMEM_LIMIT = 232448  # dynamic shared memory a Hopper block can opt into
+
+
+def smem_bytes(Cm: int, Nm: int, R: int) -> int:
+    """Shared memory of a launch (one lane a block): bits_lut, then the
+    lane's tables of one slice, 7 Cm column words, 9 (Nm + 1) band-table
+    words and 64 code words."""
+    return 4 * (-(-R // 4) * 4 + 7 * Cm + 9 * (Nm + 1) + 64)
+
+
 def _launch(cols_tab, band_tab, lens_tab, pred_tab, pred_prev_tab, codes8,
             bits_lut, seq_len, seed_node, win_base, init_state, *, K_in,
             W_cap):
@@ -112,25 +124,34 @@ def _launch(cols_tab, band_tab, lens_tab, pred_tab, pred_prev_tab, codes8,
     K1, _, Cm, B = cols_tab.shape
     K = K1 - 1
     Nm = band_tab.shape[1]
+    R = bits_lut.shape[0]
+    if R > 256:
+        raise ValueError("walk_moves: bits_lut has more than 256 entries")
+    smem = smem_bytes(Cm, Nm, R)
+    if smem > SMEM_LIMIT:
+        raise NotImplementedError(
+            f"walk_moves: a slice of Cm={Cm}, Nm={Nm} does not fit in shared "
+            "memory"
+        )
     T_total = K * 112 + 512
     T_w = (T_total + 7) // 8
     dev = cols_tab.device
-    mtab, cols6 = _prologue(cols_tab, codes8, bits_lut)
-    moves = torch.empty((T_w, B), dtype=torch.int32, device=dev)
+    moves = torch.zeros((T_w, B), dtype=torch.int32, device=dev)
     fail = torch.empty((1, B), dtype=torch.int32, device=dev)
     state_out = torch.empty((16, B), dtype=torch.int32, device=dev)
     used = torch.empty((1, B), dtype=torch.int32, device=dev)
     fn = _build.library("walk_moves").ga_walk_moves
     fn.restype = ctypes.c_int
-    fn.argtypes = [ctypes.c_void_p] * 14 + [ctypes.c_int] * 8 + [
+    fn.argtypes = [ctypes.c_void_p] * 15 + [ctypes.c_int] * 10 + [
         ctypes.c_void_p
     ]
     err = fn(
-        *[a.data_ptr() for a in (cols6, band_tab, lens_tab, pred_tab,
-                                 pred_prev_tab, mtab, seq_len, seed_node,
-                                 win_base, init_state, moves, fail, state_out,
-                                 used)],
-        K, Cm, Nm, B, K_in, W_cap, T_total, T_w, _build.stream_handle(dev),
+        *[a.data_ptr() for a in (cols_tab, band_tab, lens_tab, pred_tab,
+                                 pred_prev_tab, codes8, bits_lut, seq_len,
+                                 seed_node, win_base, init_state, moves, fail,
+                                 state_out, used)],
+        K, Cm, Nm, B, K_in, W_cap, T_total, T_w, R, smem,
+        _build.stream_handle(dev),
     )
     _build.check(err, "walk_moves")
     LAUNCHES += 1

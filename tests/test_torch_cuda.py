@@ -126,18 +126,64 @@ def test_slice_cells_kernel_matches_plain_random(cuda, K_in):
     _k1_matches_plain(args)
 
 
-@pytest.mark.cuda
-@pytest.mark.parametrize("bw,ramp,golden", [(35, 0, "golden_b35"),
-                                            (5, 20, "golden_b5_B20")])
-def test_sim_on_gpu_matches_goldens_and_walk_plain(cuda, bw, ramp, golden,
-                                                   monkeypatch):
-    """sim on the card: goldens byte for byte, and every K2 call's fail
-    flags and decoded traces equal to the plain walk's on the same args."""
-    from graphaligner_tpu_torch.core import batch_align as ba
-    from graphaligner_tpu_torch.graph import load_alignment_graph
-    from graphaligner_tpu_torch.io import load_fastq, native, stream, vg
-    from graphaligner_tpu_torch.runtime.aligner import load_seed_hits
+def _decode(graph, args, moves, used, lanes):
+    """Decoded traces {lane: (w, r)} of a K2 call's ``lanes`` (through
+    native.decode_moves_batch, as core.batch_align decodes a walk block),
+    each from its start in the call's init_state; tensors or arrays."""
+    from graphaligner_tpu_torch.core.tables import build_graph_tables
+    from graphaligner_tpu_torch.io import native
+
+    band, st = (np.asarray(a.cpu() if hasattr(a, "cpu") else a)
+                for a in (args[1], args[10]))
+    moves = np.asarray(moves.cpu() if hasattr(moves, "cpu") else moves)
+    used = np.asarray(used.cpu() if hasattr(used, "cpu") else used)
+    lanes = np.asarray(lanes)
+    node = band[st[0, lanes], st[2, lanes], lanes]
+    start_w = np.asarray(graph.node_start)[node].astype(np.int64) + st[3, lanes]
+    rows = min(moves.shape[0], int(np.max(used)) // 8 + 1)
+    w, r, n = native.decode_moves_batch(
+        np.ascontiguousarray(moves[:rows]).view(np.uint32),
+        lanes.astype(np.int32), start_w,
+        st[0, lanes].astype(np.int64) * 64 - 1,
+        np.ascontiguousarray(graph.node_start, dtype=np.int64),
+        np.ascontiguousarray(graph.node_end, dtype=np.int64),
+        np.ascontiguousarray(graph.pos_to_node, dtype=np.int32),
+        np.ascontiguousarray(build_graph_tables(graph).in_nbrs,
+                             dtype=np.int32),
+        int(band.shape[0] - 1) * 64 * 3 + 64, 4,
+    )
+    assert (n >= 1).all()
+    return {int(b): (w[j, : n[j]].copy(), r[j, : n[j]].copy())
+            for j, b in enumerate(lanes)}
+
+
+def _assert_traces_equal(a, b):
+    assert a.keys() == b.keys()
+    for i in a:
+        np.testing.assert_array_equal(a[i][0], b[i][0])
+        np.testing.assert_array_equal(a[i][1], b[i][1])
+
+
+def _k2_matches_per_lane_plain(args, kw, out=None):
+    """The kernel's four outputs (``out``, or a launch now) bit for bit
+    against walk_moves_plain at Bb=1, whose semantics are per lane."""
     from graphaligner_tpu_torch.ops import walk_moves as k2
+
+    if out is None:
+        n0 = k2.LAUNCHES
+        out = k2.walk_moves(*args, **kw)
+        torch.cuda.synchronize()
+        assert k2.LAUNCHES == n0 + 1
+    want = k2.walk_moves_plain(*args, **kw, Bb=1)
+    for name, g, w in zip(("moves", "fail", "state_out", "used"), out, want):
+        assert torch.equal(g, w), name
+    return out
+
+
+def _recorded_walks(cuda, graph, reads, seeds, bw, ramp, monkeypatch):
+    """(results, [(args, kwargs, outputs)] of every K2 call) of the seeded
+    path over ``reads`` on the card, with no host fallback."""
+    from graphaligner_tpu_torch.core import batch_align as ba
 
     monkeypatch.setenv("GA_NO_FALLBACK", "1")
     walks = []
@@ -149,12 +195,39 @@ def test_sim_on_gpu_matches_goldens_and_walk_plain(cuda, bw, ramp, golden,
         return out
 
     monkeypatch.setattr(ba, "walk_moves", rec)
-    graph = load_alignment_graph(str(SIM / "bubbles.vg"))
-    reads = load_fastq(str(SIM / "sim.fastq"))
-    seeds = load_seed_hits(str(SIM / "seeds.gam"), [r.seq_id for r in reads])
     res = ba.align_reads_seeded_batch(
         graph, ba.BandedBatchAligner(graph, bw, ramp, cuda), reads, seeds
     )
+    assert walks
+    return res, walks
+
+
+def _sim(bw=35, ramp=0):
+    from graphaligner_tpu_torch.graph import load_alignment_graph
+    from graphaligner_tpu_torch.io import load_fastq
+    from graphaligner_tpu_torch.runtime.aligner import load_seed_hits
+
+    graph = load_alignment_graph(str(SIM / "bubbles.vg"))
+    reads = load_fastq(str(SIM / "sim.fastq"))
+    seeds = load_seed_hits(str(SIM / "seeds.gam"), [r.seq_id for r in reads])
+    return graph, reads, seeds
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("bw,ramp,golden", [(35, 0, "golden_b35"),
+                                            (5, 20, "golden_b5_B20")])
+def test_sim_on_gpu_matches_goldens_and_walk_plain(cuda, bw, ramp, golden,
+                                                   monkeypatch):
+    """sim on the card: goldens byte for byte; every K2 call's four outputs
+    bit for bit equal to the plain walk's at Bb=1 (per lane, as the kernel
+    steps), and its decoded traces equal to those of the plain walk's
+    lockstep blocks."""
+    from graphaligner_tpu_torch.io import stream, vg
+    from graphaligner_tpu_torch.ops import walk_moves as k2
+
+    graph, reads, seeds = _sim()
+    res, walks = _recorded_walks(cuda, graph, reads, seeds, bw, ramp,
+                                 monkeypatch)
     gold = {a.name: a for a in
             stream.read_messages(str(SIM / golden / "out.gam"), vg.Alignment)}
     for r in reads:
@@ -162,40 +235,128 @@ def test_sim_on_gpu_matches_goldens_and_walk_plain(cuda, bw, ramp, golden,
         for m in aln.path.mapping:
             m.position.node_id //= 2
         assert aln == gold[r.seq_id]
-    assert walks
-    for args, kw, (moves, fail, _, used) in walks:
+    for args, kw, out in walks:
+        moves, fail, _, used = _k2_matches_per_lane_plain(args, kw, out)
         p_moves, p_fail, _, p_used = k2.walk_moves_plain(*args, **kw)
         assert torch.equal(fail, p_fail)
         st = args[10].cpu().numpy()
         live = np.nonzero((fail[0].cpu().numpy() == 0) & (st[5] == 0))[0]
-        rows = int(torch.maximum(used, p_used).max()) // 8 + 1
-        g = graph
-        band = args[1].cpu().numpy()
-        node = band[st[0, live], st[2, live], live]
-        start_w = np.asarray(g.node_start)[node].astype(np.int64) + st[3, live]
-        dec = [
-            native.decode_moves_batch(
-                np.ascontiguousarray(m[:rows].cpu().numpy()).view(np.uint32),
-                live.astype(np.int32),
-                start_w,
-                (st[0, live].astype(np.int64) * 64 - 1),
-                np.ascontiguousarray(g.node_start, dtype=np.int64),
-                np.ascontiguousarray(g.node_end, dtype=np.int64),
-                np.ascontiguousarray(g.pos_to_node, dtype=np.int32),
-                np.ascontiguousarray(
-                    ba.build_graph_tables(g).in_nbrs, dtype=np.int32),
-                int(args[0].shape[0] - 1) * 64 * 3 + 64, 4,
-            )
-            for m in (moves, p_moves)
-        ]
-        # lane j's trace is (out_w[j, :n], out_r[j, :n]), n = n_out[j]; the
-        # slabs past n are uninitialised
-        (wk, rk, nk), (wp, rp, n_p) = dec
-        assert (nk >= 1).all()
-        np.testing.assert_array_equal(nk, n_p)
-        for j, n in enumerate(nk):
-            np.testing.assert_array_equal(wk[j, :n], wp[j, :n])
-            np.testing.assert_array_equal(rk[j, :n], rp[j, :n])
+        _assert_traces_equal(_decode(graph, args, moves, used, live),
+                             _decode(graph, args, p_moves, p_used, live))
+
+
+@pytest.mark.cuda
+def test_walk_kernel_window_chain(cuda, monkeypatch):
+    """K2 across a window chain on the card: the sim -b 35 walk's table
+    split at a middle slice m, the upper window (win_base m) walked from
+    the call's state, the lower one from the kernel's state_out. Each
+    window bit for bit equal to the plain walk at Bb=1; the two move
+    streams concatenated decode as the single-window walk does."""
+    graph, reads, seeds = _sim()
+    _, walks = _recorded_walks(cuda, graph, reads, seeds, 35, 0, monkeypatch)
+    args, kw, whole = walks[0]
+    st = args[10].cpu().numpy()
+    live = np.nonzero(st[5] == 0)[0]
+    m = int(st[0, live][st[0, live] >= 4].min()) // 2
+    assert m >= 1 and (st[0, live] <= m).any()
+    upper = [a[m:] if i < 6 else a for i, a in enumerate(args)]
+    upper[9] = torch.full_like(args[9], m)
+    up = _k2_matches_per_lane_plain([a.contiguous() for a in upper], kw)
+    lower = [a[: m + 1] if i < 6 else a for i, a in enumerate(args)]
+    lower[10] = up[2]
+    lo = _k2_matches_per_lane_plain([a.contiguous() for a in lower], kw)
+    assert not bool(up[1].any())
+    assert bool((up[2][0, live] <= m).all())
+    ok = live[lo[1][0, live].cpu().numpy() == 0]
+    assert torch.equal(lo[1], whole[1]) and len(ok)
+    chained = torch.cat([up[0], lo[0]])
+    _assert_traces_equal(
+        _decode(graph, args, whole[0], whole[3], ok),
+        _decode(graph, args, chained, [chained.shape[0] * 8 - 1], ok),
+    )
+
+
+@pytest.mark.cuda
+def test_walk_kernel_at_top_capacity_tier(cuda, monkeypatch):
+    """A recorded sim walk with its columns padded from Cm=288 to 2304, the
+    top of the capacity ladder (66 KB of shared memory a lane): bit for bit
+    equal to the plain walk at Bb=1 and to the unpadded call's outputs."""
+    from graphaligner_tpu_torch.ops import walk_moves as k2
+
+    graph, reads, seeds = _sim()
+    _, walks = _recorded_walks(cuda, graph, reads, seeds, 35, 0, monkeypatch)
+    args, kw, whole = walks[0]
+    K1, F, Cm, B = args[0].shape
+    padded = torch.zeros((K1, F, 2304, B), dtype=torch.int32, device=cuda)
+    padded[:, :, :Cm] = args[0]
+    assert k2.smem_bytes(2304, args[1].shape[1], args[6].shape[0]) > 7 * 2304 * 4
+    out = _k2_matches_per_lane_plain([padded] + list(args[1:]), kw)
+    for g, w in zip(out, whole):
+        assert torch.equal(g, w)
+
+
+def _bubble_chain(path, rng, bubbles=12, width=4):
+    """A GFA chain of shared nodes (20-40 bp) joined by bubbles of
+    ``width`` alleles (1-10 bp): every shared node past the first has
+    in-degree ``width``. Returns the node list of each rank."""
+    seqs, order, links = {}, [], []
+
+    def node(lo, hi):
+        nid = len(seqs) + 1
+        seqs[nid] = "".join(rng.choice(list("ACGT"), int(rng.integers(lo, hi))))
+        return nid
+
+    prev = node(20, 41)
+    order.append([prev])
+    for _ in range(bubbles):
+        alleles = [node(1, 11) for _ in range(width)]
+        nxt = node(20, 41)
+        links += [(prev, a) for a in alleles] + [(a, nxt) for a in alleles]
+        order += [alleles, [nxt]]
+        prev = nxt
+    with open(path, "w") as f:
+        for n, sq in seqs.items():
+            f.write(f"S\t{n}\t{sq}\n")
+        for a, b in links:
+            f.write(f"L\t{a}\t+\t{b}\t+\t0M\n")
+    return seqs, order
+
+
+@pytest.mark.cuda
+def test_walk_kernel_matches_plain_at_in_degree_4(cuda, monkeypatch,
+                                                  tmp_path):
+    """K2 at K_in = 4: a seeded random bubble chain (4 alleles a bubble,
+    numpy seed 4) x 24 reads along random paths with 3 % substitutions,
+    aligned on the card with no host fallback. Every K2 call bit for bit
+    equal to the plain walk at Bb=1, with diagonal moves through
+    in-neighbours 2 and 3 among its moves."""
+    from graphaligner_tpu_torch.core.tables import build_graph_tables
+    from graphaligner_tpu_torch.graph import graph_from_gfa_file
+    from graphaligner_tpu_torch.io.fastq import FastQ
+
+    rng = np.random.default_rng(4)
+    seqs, order = _bubble_chain(tmp_path / "chain.gfa", rng)
+    graph = graph_from_gfa_file(str(tmp_path / "chain.gfa"))
+    assert build_graph_tables(graph).k_in == 4
+    reads, seeds = [], {}
+    for i in range(24):
+        path = [o[int(rng.integers(0, len(o)))] for o in order]
+        s = "".join(seqs[n] for n in path)
+        mut = rng.random(len(s)) < 0.03
+        s = "".join(str(rng.choice(list("ACGT"))) if m else c
+                    for c, m in zip(s, mut))
+        reads.append(FastQ(f"r{i}", s, "I" * len(s)))
+        seeds[f"r{i}"] = [(path[0], 0, False)]
+    res, walks = _recorded_walks(cuda, graph, reads, seeds, 35, 0,
+                                 monkeypatch)
+    assert not any(r.alignment_failed for r in res.values())
+    codes = set()
+    for args, kw, out in walks:
+        assert kw["K_in"] == 4
+        moves = _k2_matches_per_lane_plain(args, kw, out)[0]
+        codes |= {int(c) for j in range(8)
+                  for c in ((moves >> (4 * j)) & 15).unique()}
+    assert {14, 15} <= codes
 
 
 def _eq(cuda, codes, S):

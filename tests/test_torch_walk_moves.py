@@ -5,7 +5,9 @@ Pallas kernel in interpret mode, GA_FORCE_PALLAS=1 GA_FORCE_MOVES=1), then
 replayed through both. The port's plain version keeps the lockstep
 semantics, so raw moves, fail flags, state and ``used`` must all be
 identical (tolerance zero). A second case perturbs the starts so some lanes
-fail, and one caps the per-slice budget so lanes get stuck.
+fail, and one caps the per-slice budget so lanes get stuck. The tests of
+the per-lane semantics (Bb=1, the CUDA kernel's) and of window chains
+follow below.
 """
 
 import pathlib
@@ -22,7 +24,8 @@ from graphaligner_tpu.core.batch_align import (
 from graphaligner_tpu.graph import load_alignment_graph
 from graphaligner_tpu.io import load_fastq
 from graphaligner_tpu.runtime.aligner import load_seed_hits
-from graphaligner_tpu_torch.ops.walk_moves import walk_moves
+from graphaligner_tpu_torch.ops.walk_moves import walk_moves, walk_moves_plain
+from test_torch_cuda import _assert_traces_equal, _decode
 
 SIM = pathlib.Path(__file__).parent / "fixtures" / "sim"
 
@@ -90,3 +93,109 @@ def test_walk_moves_refuses_wide_in_degree(recorded):
     with pytest.raises(NotImplementedError, match="walk_batch"):
         walk_moves(*[torch.from_numpy(np.ascontiguousarray(a)) for a in args],
                    K_in=5)
+
+
+# ---------------------------------------------------------------- per lane
+# The CUDA kernel steps each lane on its own budget; walk_moves_plain at
+# Bb=1 has those semantics. The tests below pin them on the CPU: against
+# the JAX kernel at block width 1, against the lockstep widths through the
+# native decoder, and across a window chain (win_base, init_state and
+# state_out, as a windowed long-read walk chains calls).
+
+
+def _lanes(args, idx):
+    """The recorded call cut to lanes ``idx`` (every array is lane-last
+    except bits_lut)."""
+    return [a if i == 6 else np.ascontiguousarray(a[..., idx])
+            for i, a in enumerate(args)]
+
+
+def _live(args):
+    return np.nonzero(args[10][5] == 0)[0]
+
+
+def _plain(args, **kw):
+    return [o.numpy() for o in walk_moves_plain(
+        *[torch.from_numpy(np.array(a)) for a in args], **kw)]
+
+
+def _jax(args, **kw):
+    return [np.asarray(o) for o in jwm.walk_moves(*args, **kw)]
+
+
+@pytest.fixture(scope="module")
+def sim_graph():
+    from graphaligner_tpu_torch.graph import load_alignment_graph as load_port
+
+    return load_port(str(SIM / "bubbles.vg"))
+
+
+def test_walk_moves_plain_per_lane_matches_jax(recorded):
+    """Plain at Bb=1 equals the JAX kernel at Bb=1 (interpret mode) in all
+    four outputs, on four live lanes of the first recorded call and with
+    a budget cut so lanes stop mid-walk."""
+    args, kw = recorded[0]
+    sub = _lanes(args, _live(args)[:4])
+    for W_cap in (448, 20):
+        want = _jax(sub, **dict(kw, W_cap=W_cap, Bb=1))
+        got = _plain(sub, **dict(kw, W_cap=W_cap, Bb=1))
+        for name, r, g in zip(("moves", "fail", "state_out", "used"), want,
+                              got):
+            np.testing.assert_array_equal(g, r, err_msg=f"{name} W_cap={W_cap}")
+
+
+def test_walk_moves_plain_block_widths_decode_alike(recorded, sim_graph):
+    """On every recorded call, plain at Bb=1 (per lane) and at the default
+    width (lockstep, PAD while the block steps) give the same fail flags,
+    and every live lane decodes to the same trace."""
+    for args, kw in recorded:
+        lock = _plain(args, **kw)
+        lane = _plain(args, **kw, Bb=1)
+        np.testing.assert_array_equal(lane[1], lock[1])
+        assert (lane[3] <= lock[3]).all()
+        ok = _live(args)[lock[1][0, _live(args)] == 0]
+        assert len(ok)
+        _assert_traces_equal(_decode(sim_graph, args, lock[0], lock[3], ok),
+                             _decode(sim_graph, args, lane[0], lane[3], ok))
+
+
+@pytest.mark.parametrize("Bb", [1, 256])
+def test_walk_moves_window_chain(recorded, sim_graph, Bb):
+    """The first recorded call's table split at a middle slice m: the
+    upper window (slices m+1..K, win_base m, entry 0 = slice m) walked
+    from the call's state, then the lower one (slices 1..m) from the upper
+    window's state_out. Plain equals JAX in each window, every lane leaves
+    the upper window below it or not yet started, and the two move streams
+    concatenated decode as the single-window walk does."""
+    args, kw = recorded[0]
+    live = _live(args)
+    sk = args[10][0, live]
+    # lanes that start above m, and two that start below it (they pass the
+    # upper window untouched)
+    m = int(sk[sk >= 4].min()) // 2
+    args = _lanes(args, np.concatenate([live[sk > m][:6], live[sk <= m][:2]]))
+    sk = args[10][0]
+    assert m >= 1 and (sk <= m).sum() == 2
+    upper = [a[m:] if i < 6 else a for i, a in enumerate(args)]
+    upper[9] = np.full_like(args[9], m)
+    outs = []
+    for win in (upper, None):
+        if win is None:
+            win = [a[: m + 1] if i < 6 else a for i, a in enumerate(args)]
+            win[10] = outs[0][2]
+        win = [np.ascontiguousarray(a) for a in win]
+        want = _jax(win, **kw, Bb=Bb)
+        got = _plain(win, **kw, Bb=Bb)
+        for name, r, g in zip(("moves", "fail", "state_out", "used"), want,
+                              got):
+            np.testing.assert_array_equal(g, r, err_msg=name)
+        outs.append(got)
+    assert not outs[0][1].any() and (outs[0][2][0] <= m).all()
+    assert not outs[1][1].any() and (outs[1][2][5] == 1).all()
+    whole = _plain(args, **kw, Bb=Bb)
+    chained = np.concatenate([outs[0][0], outs[1][0]])
+    lanes = np.arange(len(sk))
+    _assert_traces_equal(
+        _decode(sim_graph, args, whole[0], whole[3], lanes),
+        _decode(sim_graph, args, chained, [chained.shape[0] * 8 - 1], lanes),
+    )
