@@ -14,9 +14,11 @@ GA_NO_FALLBACK=1:
   byte against the reference binary's goldens;
 - exhaustive mode, -i, through ``align_reads``: K3's slice wavefront on
   the acyclic graphs — smallexample, sim (20 reads on bubbles.vg) and the
-  longsim graph x the sim reads tiled x8 (160 lanes) — and K3's serial
-  fixpoint kernel on sim/cyclic.gfa x 32 reads through its repeat, every
-  read byte for byte against the JAX-made goldens of tests/fixtures/torch/.
+  longsim graph x the sim reads tiled x8 (160 lanes) — and K3's cyclic
+  route on sim/cyclic.gfa x 32 reads through its repeat and on the longsim
+  graph closed into a circle x 16 reads of 640 bp, half across the seam,
+  every read byte for byte against the JAX-made goldens of
+  tests/fixtures/torch/.
 
 Each path's kernel launches are counted over its run (each must be > 0,
 host-fallback lanes must be 0). Then each kernel is held against its plain
@@ -26,11 +28,14 @@ moves, fail flags, state_out and used bit for bit against the plain walk at
 Bb=1 (per lane, as the kernel steps), and the plain walk's moves decoded to
 the main run's traces, then K2 on the widest call's table cut into a chain of two windows
 and on its first 128 lanes padded to Cm=2304; K3's wavefront six slabs bit
-for bit on its sim call, and K3's serial kernel, through its cyclic
-fixpoint, on sim/cyclic.gfa (where a one-pass cap must flag every lane).
+for bit on its sim call, and K3's cyclic route on sim/cyclic.gfa at pass
+caps 1, 2 and 128 (one pass must flag every lane, 128 none), with its
+passes and recomputed nodes per pass there and on the circle.
 Each kernel's bound (the larger of its bytes over the memory rate and its
 integer operations over the card's int32 issue rate) is computed from the
-recorded arguments, K2's from the walk that ran. One more longsim x10 run
+recorded arguments, K2's from the walk that ran, the cyclic route's on
+sim/cyclic.gfa from the positions the plain version's passes show the
+fixpoint needs. One more longsim x10 run
 under torch.profiler gives the device-kernel count, busy time and idle
 share of the seeded path, and K2's launches and summed time there.
 
@@ -592,26 +597,51 @@ class K3Recorder:
          engine.BatchAligner.compute_tables) = self._orig
 
 
-def k3_work(args, kw, passes=1):
-    """(bytes, int32 operations) of one K3 call with ``passes`` whole-slice
-    passes (1 on an acyclic graph; on a cyclic one the least a slice takes
-    is 2, one and one that finds nothing changed): inputs read once, the six
-    [S, P, B] slabs and the flags written once; per lane, slice and pass,
-    one Myers step at each position without in-neighbours and, at each node
-    start, one pred advance and merge per in-neighbour."""
+def k3_work(args, steps=None):
+    """(bytes, int32 operations) of one K3 call: inputs read once, the six
+    [S, P, B] slabs and the flags written once; ``steps`` int64 [P], how
+    many (slice, lane, pass) computations of each position the function
+    needs (S x B, one pass, by default), each one Myers step at a position
+    without in-neighbours and, at a node start, one pred advance and merge
+    per in-neighbour."""
     import torch
 
-    if kw["cyclic"] != (passes > 1):
-        fail("k3_work: an acyclic graph takes one pass, a cyclic one more")
     eq, code, is_start, _, preds, _ = args
     S, _, _, B = eq.shape
     P = code.shape[0]
-    has_pred = (preds >= 0) & is_start.to(torch.bool)[:, None]
-    n_preds = int(has_pred.sum())
-    merged = int(has_pred.any(1).sum())
-    ops = passes * S * B * ((P - merged) * K3_OPS_CHAIN
-                            + n_preds * K1_OPS_PRED)
+    n_pred = ((preds >= 0) & is_start.to(torch.bool)[:, None]).sum(1).cpu()
+    cost = torch.where(n_pred > 0, n_pred * K1_OPS_PRED, K3_OPS_CHAIN)
+    if steps is None:
+        steps = torch.full((P,), S * B, dtype=torch.int64)
+    ops = int((steps.cpu() * cost.to(torch.int64)).sum())
     return nbytes(args) + 6 * S * P * B * 4 + B, ops
+
+
+def k3_needed_steps(trace, args):
+    """int64 [P]: the (slice, lane, pass) computations of each position the
+    cyclic fixpoint needs, counted from exhaustive_plain's passes
+    (``trace``), not from the kernel: every position in pass 1, and in each
+    later pass up to a lane's confirming one, the positions of the nodes
+    whose in-neighbours' end columns changed for that lane
+    (``node_rule_marks``; a lane's marks are empty after it confirmed)."""
+    import torch
+
+    from graphaligner_tpu_torch.ops import exhaustive as k3
+
+    _, _, is_start, _, preds, slot = args
+    passes = {}
+    for s, new in trace:
+        passes.setdefault(s, []).append(new)
+    P, B = passes[0][0].shape[1:]
+    steps = torch.zeros(P, dtype=torch.int64, device=preds.device)
+    old_end = torch.zeros((P, B), dtype=torch.int64, device=preds.device)
+    for s in sorted(passes):
+        steps += B
+        for mark in k3.node_rule_marks(passes[s], old_end, is_start, preds,
+                                       slot):
+            steps += mark.sum(1)
+        old_end = passes[s][-1][5]
+    return steps.cpu()
 
 
 def write_tiled_fastq(src, dst, tile):
@@ -677,8 +707,6 @@ def compare_k3(rec, rate):
     arguments of its sim -i call: all six slabs and the flags bit for bit.
     Also reports the bound of the longsim x8 launch beside its time in the
     main path."""
-    import torch
-
     from graphaligner_tpu_torch.ops import exhaustive as k3
 
     calls = [c for c in rec.calls if c[0] == "sim -i"]
@@ -689,16 +717,9 @@ def compare_k3(rec, rate):
         fail("sim -i took K3's cyclic route")
     got = k3.exhaustive(*args, **kw)
     want, plain_ms = timed(lambda: k3.exhaustive_plain(*args, **kw))
-    err = 0
-    for name, g, w in zip(("vp_lo", "vp_hi", "vn_lo", "vn_hi", "sbs", "send",
-                           "nonconv"), got, want):
-        diff = int((g.to(torch.int64) - w.to(torch.int64)).abs().max())
-        err = max(err, diff)
-        if not torch.equal(g, w):
-            fail(f"K3 wavefront {name} differs from its plain version "
-                 f"(max {diff})")
+    err = k3_equal(got, want, "in the wavefront from its plain version")
     ms = cuda_ms(lambda: k3.exhaustive(*args, **kw), 5)
-    moved, ops = k3_work(args, kw)
+    moved, ops = k3_work(args)
     bms, by = bound(moved, ops, rate)
     S, _, _, B = args[0].shape
     P = args[1].shape[0]
@@ -708,7 +729,7 @@ def compare_k3(rec, rate):
           f"int32 ops), share {bms / ms:.5f}", flush=True)
     for corpus, a, k, t in rec.calls:
         if corpus.startswith("longsim"):
-            m, o = k3_work(a, k)
+            m, o = k3_work(a)
             b_ms, b_by = bound(m, o, rate)
             print(f"K3 wavefront in {corpus} at S={a[0].shape[0]} "
                   f"P={a[1].shape[0]} B={a[0].shape[3]}: {t:.3f} ms per "
@@ -741,45 +762,111 @@ def cyclic_reads(gfa, lanes, seed):
     return reads
 
 
-def compare_k3_cyclic(rec, rate):
-    """K3's serial fixpoint kernel on the card, on the arguments of its
-    cyclic -i call (sim/cyclic.gfa x 32 reads through its cycle): all six
-    slabs and the flags bit for bit against the plain version, no lane
-    flagged; cut to one pass, every lane flagged."""
+def pass_log_lines(log, P):
+    """One line a slice of the cyclic route's pass log [S, cap, 3]: the
+    passes its warps ran, then per pass the nodes recomputed (summed over
+    the warps that ran it) and their positions' share of those warps' P."""
+    lines = []
+    for s, rows in enumerate(log.tolist()):
+        ran = [r for r in rows if r[0] > 0]
+        per = " ".join(f"{n}/{p / (w * P):.3f}" for w, n, p in ran)
+        lines.append(f"    slice {s}: {len(ran)} passes; nodes/position "
+                     f"share by pass: {per}")
+    return lines
+
+
+def k3_equal(got, want, what):
+    """K3's six slabs and flags bit for bit, or fail; returns the largest
+    |got - want|."""
     import torch
 
-    from graphaligner_tpu_torch.ops import exhaustive as k3
-
-    calls = [c for c in rec.calls if c[0] == "cyclic -i"]
-    if len(calls) != 1 or not calls[0][2]["cyclic"]:
-        fail("expected one K3 call on cyclic -i, on the cyclic route")
-    _, args, kw, _ = calls[0]
-    got = k3.exhaustive(*args, **kw)
-    want, plain_ms = timed(lambda: k3.exhaustive_plain(*args, **kw))
     err = 0
     for name, g, w in zip(("vp_lo", "vp_hi", "vn_lo", "vn_hi", "sbs", "send",
                            "nonconv"), got, want):
         diff = int((g.to(torch.int64) - w.to(torch.int64)).abs().max())
         err = max(err, diff)
         if not torch.equal(g, w):
-            fail(f"K3 serial {name} differs from its plain version "
-                 f"(max {diff})")
-    if bool(got[6].any()):
-        fail("K3 flagged a lane on sim/cyclic.gfa within 128 passes")
-    one = k3.exhaustive(*args, **dict(kw, max_passes=1))[6]
-    if not bool(one.all()):
-        fail(f"K3 cut to one pass flagged {int(one.sum())} of "
-             f"{one.shape[0]} lanes, not all")
-    ms = cuda_ms(lambda: k3.exhaustive(*args, **kw), 5)
-    moved, ops = k3_work(args, kw, passes=2)
-    bms, by = bound(moved, ops, rate)
-    S, _, _, B = args[0].shape
-    print(f"K3 exhaustive serial (cyclic fixpoint) vs plain on "
-          f"sim/cyclic.gfa at S={S} P={args[1].shape[0]} B={B}: six slabs "
-          f"and flags bit-identical, none flagged; cut to one pass, all "
-          f"{B} flagged; kernel {ms:.4f} ms (mean of 5), plain "
-          f"{plain_ms:.1f} ms; bound {bms:.5f} ms by {by} ({moved} B, {ops} "
-          f"int32 ops, two passes a slice), share {bms / ms:.5f}", flush=True)
+            fail(f"K3 {name} differs {what} (max {diff})")
+    return err
+
+
+def compare_k3_cyclic(rec, rate, card):
+    """K3's cyclic route on the card, on the arguments of its cyclic -i
+    call (sim/cyclic.gfa x 32 reads through its cycle): all six slabs and
+    the flags bit for bit against the plain version at pass caps 1, 2 and
+    128 (all lanes flagged at 1, none at 128). Prints the route's ptxas
+    report, its launch shape, its pass log and its time there and on the
+    circular -i call (the longsim graph closed into a circle). The bound
+    counts the work the function needs, not what the kernel did: on cyclic
+    -i the positions ``k3_needed_steps`` counts from the plain version's
+    passes at cap 128; on the circle, where the plain version would take
+    too long, a floor of two whole passes a slice."""
+    import torch
+
+    from graphaligner_tpu_torch.ops import _build
+    from graphaligner_tpu_torch.ops import exhaustive as k3
+
+    calls = {}
+    for corpus in ("cyclic -i", "circular -i"):
+        found = [c for c in rec.calls if c[0] == corpus]
+        if len(found) != 1 or not found[0][2]["cyclic"]:
+            fail(f"expected one K3 call on {corpus}, on the cyclic route")
+        calls[corpus] = found[0]
+    for line in _build.BUILD_LOG.get("exhaustive", (0, ""))[1].splitlines():
+        if "cyclic" in line or "registers" in line or "spill" in line:
+            print(f"  [exhaustive ptxas] {line.strip()}", flush=True)
+    _, args, kw, _ = calls["cyclic -i"]
+    err = 0
+    for cap in (1, 2, 128):
+        kc = dict(kw, max_passes=cap)
+        got = k3.exhaustive(*args, **kc)
+        trace = []
+        want, ms_p = timed(lambda: k3.exhaustive_plain(*args, **kc,
+                                                       trace=trace))
+        err = max(err, k3_equal(got, want, f"from its plain version at cap "
+                                           f"{cap}"))
+        if cap == 128:
+            plain_ms = ms_p
+            needed = k3_needed_steps(trace, args)
+        flagged = int(got[6].sum())
+        if (cap == 1 and flagged != got[6].shape[0]) or (cap == 128
+                                                         and flagged):
+            fail(f"K3 cyclic at cap {cap} flagged {flagged} lanes")
+        print(f"K3 cyclic vs plain on cyclic -i at cap {cap}: six slabs and "
+              f"flags bit-identical, {flagged} of {got[6].shape[0]} lanes "
+              f"flagged", flush=True)
+    out = {}
+    for corpus, (_, a, k, main_ms) in calls.items():
+        k3.exhaustive(*a, **k)
+        log = k3.PASS_LOG.cpu()
+        S, _, _, B = a[0].shape
+        P, K = a[4].shape
+        N = k["num_nodes"]
+        W, tab, sto, smem = k3.cyclic_shape(N, K, B)
+        warps = -(-B // k3.WAVE_LANES)
+        computed = int(log[:, :, 2].sum()) / (warps * S * P)
+        if corpus == "cyclic -i":
+            steps = needed
+            how = (f"{int(needed.sum()) / (S * B * P):.4f} whole passes a "
+                   f"lane and slice, counted from the plain version's passes")
+        else:
+            steps = torch.full((P,), 2 * S * B, dtype=torch.int64)
+            how = "a floor of two whole passes a slice"
+        moved, ops = k3_work(a, steps)
+        bms, by = bound(moved, ops, rate)
+        ms = cuda_ms(lambda: k3.exhaustive(*a, **k), 5 if P < 10_000 else 2)
+        print(f"K3 cyclic on {corpus} at S={S} P={P} N={N} B={B}: {warps} "
+              f"warps, {W} a block, tables in "
+              f"{'shared' if tab else 'device'} memory, store in "
+              f"{'shared' if sto else 'device'} memory, {smem} B shared; the "
+              f"kernel computed {computed:.4f} whole passes a warp and slice; "
+              f"kernel {ms:.4f} ms (main path {main_ms:.4f} ms); bound "
+              f"{bms:.5f} ms by {by} ({moved} B, {ops} int32 ops at {how}), "
+              f"share {bms / ms:.5f} [{card}]", flush=True)
+        for line in pass_log_lines(log, P):
+            print(line, flush=True)
+        out[corpus] = (ms, bms, by)
+    ms, bms, by = out["cyclic -i"]
     return err, ms, plain_ms, bms, by
 
 
@@ -941,6 +1028,8 @@ def main() -> int:
              "longsim_i"),
             ("cyclic -i", f"{FIX}/sim/cyclic.gfa",
              f"{FIX}/torch/cyclic_i/reads.fastq", "cyclic_i"),
+            ("circular -i", f"{FIX}/torch/circular_i/graph.gfa",
+             f"{FIX}/torch/circular_i/reads.fastq", "circular_i"),
         ]
         try:
             for name, graph_file, reads_file, golden in corpora_i:
@@ -972,7 +1061,7 @@ def main() -> int:
     launches["exhaustive_serial"] = k3.LAUNCHES_SERIAL
     fallbacks = ba.host_fallback_count() - fb0
     print(f"-i launches: K3 wavefront {launches['exhaustive_wavefront']}, "
-          f"K3 serial {launches['exhaustive_serial']}; host-fallback lanes "
+          f"K3 cyclic {launches['exhaustive_serial']}; host-fallback lanes "
           f"{fallbacks}", flush=True)
     if min(launches["exhaustive_wavefront"], launches["exhaustive_serial"]) < 1:
         fail("a K3 route never launched on the -i path")
@@ -983,7 +1072,7 @@ def main() -> int:
         "slice_cells": compare_k1(rec, rate),
         "walk_moves": compare_k2(rec, rate),
         "exhaustive_wavefront": compare_k3(rec3, rate),
-        "exhaustive_serial": compare_k3_cyclic(rec3, rate),
+        "exhaustive_serial": compare_k3_cyclic(rec3, rate, card),
     }
     k2_window_chain(rec)
     k2_top_tier(rec)

@@ -5,8 +5,8 @@ in every slice (banded semantics with unbounded bandwidth), so the
 alignments are optimal. The positions are swept in the topological order
 of the SCC condensation (``build_schedule``); the DP of every slice runs as
 kernel K3 (``ops.exhaustive``): a slice wavefront on acyclic graphs, and
-a serial kernel that iterates cyclic graphs to their fixpoint. The packed
-slabs come back to the host, where ``DeviceSliceView`` unpacks node
+a kernel that iterates cyclic graphs to their fixpoint node by node. The
+packed slabs come back to the host, where ``DeviceSliceView`` unpacks node
 columns lazily for the unchanged host backtrace.
 
 The JAX package picks between an XLA wavefront and an XLA column scan
@@ -245,10 +245,13 @@ class BatchAligner:
         whose ``compute_tables`` fits in half the free memory. A lane takes
         the six int32 slabs (24 * S * P bytes) on the device, with its Eq
         words and the node store (24 * N bytes for each slice-warp of the
-        wavefront, at most ``WAVE_WARPS``; once for the serial kernel on a
-        cyclic graph), and again on the host, with the per-node minima, its
-        read codes and Eq words. On the CPU both live in host memory, beside
-        the plain version's int64 slabs and store."""
+        wavefront, at most ``WAVE_WARPS``; once for the cyclic route, which
+        keeps it in shared memory instead where it fits: an upper bound
+        there; its node tables, kept for the schedule, and its pass log are
+        not per lane),
+        and again on the host, with the per-node minima, its read codes and
+        Eq words. On the CPU both live in host memory, beside the plain
+        version's int64 slabs and store."""
         S, P, N = num_slices, len(self.sched.code), self.sched.num_nodes
         slabs = 24 * S * P
         stores = 1 if self.sched.cyclic else min(S, WAVE_WARPS)

@@ -31,13 +31,38 @@
 // stored by one thread of each lane and read at a later node start by all
 // four (and by the warp's lanes past B), so the warp syncs after each store.
 //
-// Route 2, exhaustive_serial_kernel (cyclic graphs): graphaligner_tpu/
-// core/engine.py::_align_batch_device's fixpoint. One thread per lane loops
-// over slices, whole-slice passes and positions; each slice starts from a
-// node store reset to INF, and the slice is swept in passes (back-edge
-// predecessors read the previous pass's store) until none of the lane's
-// outputs change, at most max_passes times; a lane still changing is
-// flagged in nonconv.
+// Route 2, exhaustive_cyclic_kernel (cyclic graphs): graphaligner_tpu/
+// core/engine.py::_align_batch_device's fixpoint. Each slice starts from a
+// node store reset to INF and is swept in passes (a back-edge in-neighbour
+// reads the store as the previous pass left it) until no output of a lane
+// changes, at most max_passes times; a lane still changing is flagged in
+// nonconv. The wavefront's lane layout: 8 lanes a warp, 4 threads a lane
+// splitting a node start's merge, up to 4 independent warps a block. The
+// kernel works node by node (each node's positions are contiguous in the
+// schedule; the wrapper numbers the nodes by their schedule rank). A
+// node's outputs follow from its start column, and the start column only
+// from old_end, the Eq word and the in-neighbours' stored end columns. So
+// in pass k >= 2 a node can differ from pass k - 1 only if an in-neighbour's
+// end column, as read there, changed: a forward one (rank below) earlier in
+// this pass, a back one (rank at or above) in pass k - 1. Each warp keeps
+// two generations of need bits per node in shared memory: pass 1 takes
+// every node and marks for pass 2 those with a back in-neighbour (whose
+// store left the reset value); in later passes a node whose end column
+// changed for any lane of the warp marks its out-neighbours, after it in
+// this pass, at or before it in the next. Every other node is skipped: its
+// slab entries and its store already hold the previous pass's values. A
+// lane's pass changed iff a recomputed node's start column differs from
+// the slab's, one compare a node. Pass 1 reads only in-neighbours ranked
+// below the node (the others hold the reset store, which adds nothing to a
+// merge), so the store needs no reset. The node tables (first position and
+// source flag, in-neighbours) are staged once into shared memory where
+// they fit, else read from device memory; the per-position code and the
+// warp's old_end row travel in chunks of 32 positions through a ring of two
+// buffers, staged with cp.async a chunk ahead and waited for only where a
+// node or a chunk begins (the next position's inputs are read a position
+// early). The node store [N][6][8] sits in shared memory where it fits
+// beside the tables, else in device memory [N, 6, B]. Each warp adds its
+// passes, recomputed nodes and positions to a per-slice pass log.
 //
 // Both keep the column in registers (uint64_t vp/vn, sbs, send, e) and
 // merge a node start in score space over 64 unrolled rows: each
@@ -48,15 +73,24 @@
 // What bounds it: the card's floor is the bytes — for the longsim graph
 // (P = 102,646) x 160 lanes x 11 slices, the 24 * S * P * B = 4.3 GB of
 // output, 1.3 ms at 3.35 TB/s, above the 18.4 G int32 operations the
-// function needs, 1.1 ms at the int32 issue rate. The serial route took
-// about 0.74 s there (NVIDIA H100 80GB HBM3, 700 W; chip_smoke.py): 1.13 M
-// dependent positions a lane, each waiting on a DRAM load of old_end. The
+// function needs, 1.1 ms at the int32 issue rate. A serial kernel (one
+// thread a lane) took about 0.74 s there (NVIDIA H100 80GB HBM3, 700 W;
+// chip_smoke.py): 1.13 M dependent positions a lane, each waiting on a
+// DRAM load of old_end. The
 // wavefront cuts the chain to about 103 k positions with no DRAM load on
 // it, and the wavefront takes about 52 ms there: what bounds it is still
 // each slice-warp's chain of dependent latencies, about 1,000 cycles a
 // position, not the SM's issue rate — a block of 4 slice-warps runs a round
 // in nearly the time a block of 11 does. The merge split over the threads of
-// a lane, and the Eq word picked in registers, shorten that chain.
+// a lane, and the Eq word picked in registers, shorten that chain. The
+// cyclic route is bound the same way, by each warp's chain over S slices
+// and its passes; recomputing only the nodes whose inputs changed cuts the
+// passes' share of that chain (to 3.2 to 3.6 whole passes of 7 to 13 on
+// sim/cyclic.gfa and on the longsim graph closed into a circle), and the
+// staged tables, the two-store column and the node start outside the
+// position loop cut a position to about 250-280 ns (NVIDIA H100 80GB
+// HBM3, 700 W; chip_smoke.py --baseline: 5.5x and 11.9x the serial
+// kernel it replaced).
 #include <cuda_runtime.h>
 
 #include "wordops.cuh"
@@ -64,7 +98,9 @@
 #define EX_INF (1 << 30)
 #define EX_FIELDS 6
 #define EX_MAX_WARPS 16
-#define EX_WAVE_G 4  // threads a lane in the wavefront: 32 / 4 = 8 lanes a warp
+#define EX_WAVE_G 4  // threads a lane in both routes: 32 / 4 = 8 lanes a warp
+#define EX_CYC_CHUNK 32  // positions a staged chunk of the cyclic route
+#define EX_CYC_MAX_WARPS 4  // warps a block of the cyclic route
 
 __device__ __forceinline__ void cp_async4(void *smem, const void *gmem) {
   const unsigned s = (unsigned)__cvta_generic_to_shared(smem);
@@ -86,12 +122,14 @@ __device__ __forceinline__ void cp_async_wait_all() {
 // the carry into row group sub is min_{j < sub} (end_j + R * (sub - 1 - j))
 // over the groups' local closures end_j — and the groups' bits are OR-ed
 // together; every thread of the lane ends with the whole column. The
-// within-node advance runs on all G threads alike.
+// within-node advance runs on all G threads alike. In-neighbours at or above
+// lim are skipped.
 template <int G>
 __device__ __forceinline__ int32_t ex_step(
     const int32_t *store, size_t fS, size_t nS, uint64_t eqc, bool start,
-    bool source0, const int32_t *preds, int K, int32_t oe, uint64_t &vp,
-    uint64_t &vn, int32_t sbs, int32_t &send, int32_t e, int lane, int sub) {
+    bool source0, const int32_t *preds, int K, int lim, int32_t oe,
+    uint64_t &vp, uint64_t &vn, int32_t sbs, int32_t &send, int32_t e,
+    int lane, int sub) {
   constexpr int R = 64 / G, L = 32 / G;
   int32_t r_t;
   if (start) {
@@ -104,7 +142,7 @@ __device__ __forceinline__ int32_t ex_step(
     int32_t r_in = EX_INF;
     for (int k = 0; k < K; ++k) {
       const int pred = preds[k];
-      if (pred < 0) continue;
+      if (pred < 0 || pred >= lim) continue;
       const int32_t *p = store + pred * nS;
       const uint64_t pvp = ga_u64(p[0], p[fS]);
       const uint64_t pvn = ga_u64(p[2 * fS], p[3 * fS]);
@@ -299,7 +337,8 @@ __global__ void __launch_bounds__(EX_MAX_WARPS * 32)
           const uint64_t eqc = ga_pick5(eqw, ch[i]);
           const int32_t r_t = ex_step<G>(
               st, fS, nS, eqc, ch[T + i] != 0, ch[2 * T + i] != 0 && s == 0,
-              ch + 4 * T + 1 + i * K, K, oe, vp, vn, sbs, send, e, lane, sub);
+              ch + 4 * T + 1 + i * K, K, N, oe, vp, vn, sbs, send, e, lane,
+              sub);
           sbs = r_t;
           e = r_t == oe;
           if (oe_out) oe_out[i * L] = send;
@@ -355,84 +394,290 @@ extern "C" int ga_exhaustive_wavefront(
 }
 
 // ---------------------------------------------------------------- route 2
-__global__ void exhaustive_serial_kernel(
-    const int32_t *__restrict__ eq,        // [S, 5, 2, B]
-    const int32_t *__restrict__ code,      // [P]
-    const int32_t *__restrict__ is_start,  // [P]
-    const int32_t *__restrict__ is_source, // [P]
-    const int32_t *__restrict__ preds,     // [P, K]
-    const int32_t *__restrict__ slot,      // [P]
-    int32_t *__restrict__ out,             // [6, S, P, B]
-    int32_t *__restrict__ store,           // [N, 6, B]
-    int32_t *__restrict__ nonconv,         // [B]
-    int S, int P, int K, int N, int B, int max_passes) {
-  const int b = blockIdx.x * blockDim.x + threadIdx.x;
-  if (b >= B) return;
+// Shared memory, in int32 words: the node tables when they fit (nodes
+// [N + 1], npred [N * K]), then for each warp its need bits [2][NW]
+// (NW = ceil(N / 32)), its ring of two staged chunks (old_end [2][T][L],
+// code [2][T]) and, when it fits, its node store [N][6][L]. The sizes are
+// computed by the wrapper (ops/exhaustive.py::cyclic_shape).
+__device__ __forceinline__ void cyc_stage(int32_t *ring_oe, int32_t *ring_code,
+                                          int c, int P, int s,
+                                          const int32_t *code,
+                                          const int32_t *prev_send, int b0,
+                                          int B, int tid) {
+  constexpr int L = 32 / EX_WAVE_G, T = EX_CYC_CHUNK;
+  const int t0 = c * T, n = min(T, P - t0);
+  int32_t *dc = ring_code + (c & 1) * T;
+  for (int i = tid; i < n; i += 32) cp_async4(dc + i, code + t0 + i);
+  if (s > 0) {
+    int32_t *doe = ring_oe + (c & 1) * T * L;
+    for (int i = tid; i < n * L; i += 32)
+      cp_async4(doe + i,
+                prev_send + (size_t)(t0 + i / L) * B + min(b0 + i % L, B - 1));
+  }
+}
+
+// The warp's ring of two staged chunks (warp-uniform): the chunk each
+// buffer holds and whether its copy is known to have landed. Fields, not
+// arrays, so that it stays in registers.
+struct CycRing {
+  int tag0 = -1, tag1 = -1;
+  bool done0 = true, done1 = true;
+  __device__ int tag(int c) const { return (c & 1) ? tag1 : tag0; }
+  __device__ bool done(int c) const { return (c & 1) ? done1 : done0; }
+  __device__ void issued(int c) {
+    if (c & 1) {
+      tag1 = c;
+      done1 = false;
+    } else {
+      tag0 = c;
+      done0 = false;
+    }
+  }
+  // every copy of the warp landed and visible to all its threads
+  __device__ void wait() {
+    cp_async_wait_all();
+    __syncwarp();
+    done0 = done1 = true;
+  }
+};
+
+__global__ void __launch_bounds__(EX_CYC_MAX_WARPS * 32)
+    exhaustive_cyclic_kernel(
+        const int32_t *__restrict__ eq,        // [S, 5, 2, B]
+        const int32_t *__restrict__ code,      // [P]
+        const int32_t *__restrict__ nodes,     // [N + 1]
+        const int32_t *__restrict__ npred,     // [N, K]
+        const int32_t *__restrict__ succ_ptr,  // [N + 1]
+        const int32_t *__restrict__ succ,      // [E]
+        int32_t *__restrict__ out,             // [6, S, P, B]
+        int32_t *__restrict__ gstore,          // [N, 6, B] or unused
+        int32_t *__restrict__ nonconv,         // [B]
+        int32_t *__restrict__ plog,            // [S, max_passes, 3]
+        int S, int P, int K, int N, int B, int max_passes, int W,
+        int table_smem, int store_smem) {
+  constexpr int G = EX_WAVE_G, L = 32 / G, T = EX_CYC_CHUNK;
+  extern __shared__ int32_t smem[];
+  const int warp = threadIdx.x >> 5, tid = threadIdx.x & 31;
+  const int lane = tid % L, sub = tid / L;
+  const int32_t *tnodes = nodes, *tpred = npred;
+  int32_t *base = smem;
+  if (table_smem) {
+    for (int i = threadIdx.x; i <= N; i += blockDim.x) base[i] = nodes[i];
+    for (int i = threadIdx.x; i < N * K; i += blockDim.x)
+      base[N + 1 + i] = npred[i];
+    tnodes = base;
+    tpred = base + N + 1;
+    base += N + 1 + N * K;
+  }
+  __syncthreads();  // the block's only barrier: the warps run apart below
+  const int NW = (N + 31) / 32;
+  const int per_warp =
+      2 * NW + 2 * T * (L + 1) + (store_smem ? N * EX_FIELDS * L : 0);
+  int32_t *wbase = base + warp * per_warp;
+  uint32_t *need = (uint32_t *)wbase;  // [2][NW]
+  int32_t *ring_oe = wbase + 2 * NW;    // [2][T][L]
+  int32_t *ring_code = ring_oe + 2 * T * L;  // [2][T]
+  const int b0 = (blockIdx.x * W + warp) * L;
+  if (b0 >= B) return;
+  const int b = b0 + lane, bc = min(b, B - 1);
+  const bool valid = b < B;
   const size_t sB = (size_t)B;
   const size_t fO = (size_t)S * P * sB;  // field stride of out
-  const size_t fS = sB;                   // field stride of store
-  const size_t nS = EX_FIELDS * sB;       // node stride of store
-  int32_t *st = store + b;
+  int32_t *st;
+  size_t fS, nS;  // field and node strides of the store
+  if (store_smem) {
+    st = ring_code + 2 * T + (bc - b0);
+    fS = L;
+    nS = EX_FIELDS * L;
+  } else {
+    st = gstore + bc;
+    fS = sB;
+    nS = EX_FIELDS * sB;
+  }
+  const uint32_t last_bits =
+      (N & 31) ? (1u << (N & 31)) - 1u : 0xFFFFFFFFu;  // of word NW - 1
+  const int nchunks = (P + T - 1) / T;
+  CycRing ring;
   int32_t flag = 0;
   for (int s = 0; s < S; ++s) {
     uint64_t eqw[5];
 #pragma unroll
     for (int g = 0; g < 5; ++g)
-      eqw[g] = ga_u64(eq[((size_t)(s * 5 + g) * 2) * sB + b],
-                      eq[((size_t)(s * 5 + g) * 2 + 1) * sB + b]);
-    for (int n = 0; n < N; ++n)
-      for (int f = 0; f < EX_FIELDS; ++f)
-        st[n * nS + f * fS] = f == 4 ? EX_INF : 0;
-    const int32_t *old_end = out + 5 * fO + (size_t)(s ? s - 1 : 0) * P * sB + b;
+      eqw[g] = ga_u64(eq[((size_t)(s * 5 + g) * 2) * sB + bc],
+                      eq[((size_t)(s * 5 + g) * 2 + 1) * sB + bc]);
+    const int32_t *prev_send =
+        out + 5 * fO + (size_t)(s > 0 ? s - 1 : 0) * P * sB;
     int32_t *o = out + (size_t)s * P * sB + b;
-    bool changed = true;
-    int pass = 0;
-    while (true) {
-      ++pass;
-      bool diff = false;
-      uint64_t vp = 0, vn = 0;
-      int32_t sbs = EX_INF, send = EX_INF, e = 0;
-      for (int t = 0; t < P; ++t) {
-        const size_t at = (size_t)t * sB;
-        const int32_t oe = s ? old_end[at] : 0;
-        const int32_t r_t = ex_step<1>(
-            st, fS, nS, ga_pick5(eqw, code[t]), is_start[t] != 0,
-            is_source[t] != 0 && s == 0, preds + (size_t)t * K, K, oe, vp, vn,
-            sbs, send, e, 0, 0);
-        sbs = r_t;
-        e = r_t == oe;
-        const int32_t fields[6] = {
-            (int32_t)(uint32_t)vp, (int32_t)(uint32_t)(vp >> 32),
-            (int32_t)(uint32_t)vn, (int32_t)(uint32_t)(vn >> 32), sbs, send};
-        if (pass > 1)
-          for (int f = 0; f < 6; ++f) diff |= o[f * fO + at] != fields[f];
-        for (int f = 0; f < 6; ++f) o[f * fO + at] = fields[f];
-        if (t + 1 == P || slot[t + 1] != slot[t]) {
-          int32_t *q = st + slot[t] * nS;
-          for (int f = 0; f < 5; ++f) q[f * fS] = fields[f];
-          q[5 * fS] = e;
+    // the ring's chunks hold this slice's old_end; pass 1 takes every node
+    ring.wait();
+    ring.tag0 = ring.tag1 = -1;
+    auto stage = [&](int c) {
+      if (!ring.done(c)) ring.wait();  // a copy still landing there
+      __syncwarp();  // and no thread still reads the buffer
+      cyc_stage(ring_oe, ring_code, c, P, s, code, prev_send, b0, B, tid);
+      ring.issued(c);
+    };
+    for (int i = tid; i < NW; i += 32) {
+      need[i] = i + 1 < NW ? 0xFFFFFFFFu : last_bits;
+      need[NW + i] = 0u;
+    }
+    __syncwarp();
+    int cur = 0;
+    bool changed;
+    for (int pass = 1;; ++pass) {
+      uint32_t *need_cur = need + cur * NW, *need_nxt = need + (cur ^ 1) * NW;
+      bool lane_changed = pass == 1 && valid;
+      int n_nodes = 0, n_pos = 0;
+      for (int j = 0;;) {
+        // the next node at or after j whose bit is set
+        int w = j >> 5;
+        if (w >= NW) break;
+        uint32_t bits = need_cur[w] & (0xFFFFFFFFu << (j & 31));
+        while (bits == 0u && ++w < NW) bits = need_cur[w];
+        if (bits == 0u) break;
+        j = (w << 5) + __ffs(bits) - 1;
+        const int32_t n0 = tnodes[j];
+        const int a = n0 >> 1, z = tnodes[j + 1] >> 1;
+        const bool source0 = (n0 & 1) && s == 0;
+        const int32_t *pj = tpred + (size_t)j * K;
+        // pass 1 reads only the in-neighbours scheduled before j: the others
+        // hold the reset store (sbs INF), which adds nothing to a merge
+        const int lim = pass == 1 ? j : N;
+        // pass >= 2: the previous pass's start column and stored end column,
+        // each thread the two fields it writes (so no other thread's store
+        // can come first): word sub and field 4 + (sub & 1)
+        int32_t old_w = 0, old_f = 0, old_sw = 0, old_sf = 0;
+        if (pass > 1 && valid) {
+          old_w = o[sub * fO + (size_t)a * sB];
+          old_f = o[(4 + (sub & 1)) * fO + (size_t)a * sB];
+          old_sw = st[j * nS + sub * fS];
+          old_sf = st[j * nS + (4 + (sub & 1)) * fS];
         }
+        uint64_t vp = 0, vn = 0, eqc, eqc_n = 0;
+        int32_t sbs = EX_INF, send = EX_INF, e = 0, oe, oe_n = 0;
+        // position t's old_end and Eq word: staged where the node or a chunk
+        // begins, else read a position early, off the previous one's chain
+        auto fetch = [&](int t) {
+          const int c = (unsigned)t / T, i = t - c * T;
+          const int32_t *roe = ring_oe + (c & 1) * T * L + lane;
+          const int32_t *rcode = ring_code + (c & 1) * T;
+          if (t == a || i == 0) {
+            if (ring.tag(c) != c) stage(c);
+            if (!ring.done(c)) ring.wait();
+            if (c + 1 < nchunks && ring.tag(c + 1) != c + 1) stage(c + 1);
+            oe = s ? roe[i * L] : 0;
+            eqc = ga_pick5(eqw, rcode[i]);
+          } else {
+            oe = oe_n;
+            eqc = eqc_n;
+          }
+          if (i + 1 < T && t + 1 < z) {
+            oe_n = s ? roe[(i + 1) * L] : 0;
+            eqc_n = ga_pick5(eqw, rcode[i + 1]);
+          }
+        };
+        // a column's word `sub` (vp lo, vp hi, vn lo, vn hi): each thread of
+        // a lane writes one of them and field 4 + (sub & 1), so a column is
+        // two stores of the whole warp
+        auto word = [&]() {
+          const uint64_t x = sub < 2 ? vp : vn;
+          return (int32_t)(uint32_t)(sub & 1 ? x >> 32 : x);
+        };
+        auto put = [&](int t) {
+          if (valid) {
+            const size_t at = (size_t)t * sB;
+            o[sub * fO + at] = word();
+            o[(4 + (sub & 1)) * fO + at] = sub & 1 ? send : sbs;
+          }
+        };
+        fetch(a);
+        sbs = ex_step<G>(st, fS, nS, eqc, true, source0, pj, K, lim, oe, vp,
+                         vn, sbs, send, e, lane, sub);
+        e = sbs == oe;
+        put(a);
+        // a node's outputs follow from its start column: they change in this
+        // pass iff the start column does (the lane's threads check a field
+        // each, sbs and send twice)
+        if (pass > 1 && valid)
+          lane_changed |= word() != old_w || (sub & 1 ? send : sbs) != old_f;
+        for (int t = a + 1; t < z; ++t) {
+          fetch(t);
+          sbs = ex_step<G>(st, fS, nS, eqc, false, false, pj, K, lim, oe, vp,
+                           vn, sbs, send, e, lane, sub);
+          e = sbs == oe;
+          put(t);
+        }
+        // node j's end column (e in field 5), what later node starts read
+        const bool end_changed =
+            pass > 1 && valid &&
+            (word() != old_sw || (sub & 1 ? e : sbs) != old_sf);
+        if (valid) {
+          st[j * nS + sub * fS] = word();
+          st[j * nS + (4 + (sub & 1)) * fS] = sub & 1 ? e : sbs;
+        }
+        if (pass == 1) {
+          // every end column changed from the reset store: j's back
+          // in-neighbours (scheduled at or after j) are read anew in pass 2
+          if (tid == 0) {
+            bool back = false;
+            for (int k = 0; k < K; ++k) back |= pj[k] >= j;
+            if (back) need_nxt[j >> 5] |= 1u << (j & 31);
+          }
+        } else if (__ballot_sync(0xFFFFFFFFu, end_changed)) {
+          // an out-neighbour after j is recomputed in this pass, one at or
+          // before j in the next
+          for (int q = succ_ptr[j] + tid; q < succ_ptr[j + 1]; q += 32) {
+            const int v = succ[q];
+            atomicOr(v > j ? &need_cur[v >> 5] : &need_nxt[v >> 5],
+                     1u << (v & 31));
+          }
+        }
+        __syncwarp();
+        ++n_nodes;
+        n_pos += z - a;
+        ++j;
       }
-      changed = pass == 1 || diff;
-      if (!changed || pass >= max_passes) break;
+      if (tid == 0) {
+        int32_t *lg = plog + ((size_t)s * max_passes + pass - 1) * 3;
+        atomicAdd(lg, 1);
+        atomicAdd(lg + 1, n_nodes);
+        atomicAdd(lg + 2, n_pos);
+      }
+      const unsigned any = __ballot_sync(0xFFFFFFFFu, lane_changed);
+      if (pass >= max_passes || !any) {
+        changed = (any >> lane) & 0x01010101u;  // any of the lane's threads
+        break;
+      }
+      // the next pass takes this pass's next-generation bits
+      for (int i = tid; i < NW; i += 32) need_cur[i] = 0u;
+      cur ^= 1;
+      __syncwarp();
     }
     if (changed) flag = 1;
+    __syncwarp();  // this slice's send slab is read as the next's old_end
   }
-  nonconv[b] = flag;
+  if (valid && sub == 0) nonconv[b] = flag;
 }
 
-extern "C" int ga_exhaustive_serial(const int32_t *eq, const int32_t *code,
-                                    const int32_t *is_start,
-                                    const int32_t *is_source,
-                                    const int32_t *preds, const int32_t *slot,
-                                    int32_t *out, int32_t *store,
-                                    int32_t *nonconv, int S, int P, int K,
-                                    int N, int B, int max_passes,
-                                    void *stream) {
-  const int threads = 32;
-  const int blocks = (B + threads - 1) / threads;
-  exhaustive_serial_kernel<<<blocks, threads, 0, (cudaStream_t)stream>>>(
-      eq, code, is_start, is_source, preds, slot, out, store, nonconv, S, P,
-      K, N, B, max_passes);
+// smem: the bytes of the layout above, computed by the wrapper
+// (ops/exhaustive.py::cyclic_shape).
+extern "C" int ga_exhaustive_cyclic(
+    const int32_t *eq, const int32_t *code, const int32_t *nodes,
+    const int32_t *npred, const int32_t *succ_ptr, const int32_t *succ,
+    int32_t *out, int32_t *gstore, int32_t *nonconv, int32_t *plog, int S,
+    int P, int K, int N, int B, int max_passes, int W, int table_smem,
+    int store_smem, int smem, void *stream) {
+  if (W < 1 || W > EX_CYC_MAX_WARPS || max_passes < 1)
+    return (int)cudaErrorInvalidValue;
+  cudaError_t err = cudaFuncSetAttribute(
+      exhaustive_cyclic_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      smem);
+  if (err != cudaSuccess) return (int)err;
+  const int L = 32 / EX_WAVE_G;
+  const int warps = (B + L - 1) / L;
+  exhaustive_cyclic_kernel<<<(warps + W - 1) / W, W * 32, smem,
+                             (cudaStream_t)stream>>>(
+      eq, code, nodes, npred, succ_ptr, succ, out, gstore, nonconv, plog, S,
+      P, K, N, B, max_passes, W, table_smem, store_smem);
   return (int)cudaGetLastError();
 }

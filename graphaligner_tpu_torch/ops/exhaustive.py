@@ -20,9 +20,12 @@ lane still changing after the last pass is flagged.
 
 On the card the acyclic and the cyclic graph take two kernels of
 ``csrc/exhaustive.cu``: a slice wavefront (one warp per slice, lanes across
-its threads) and the serial per-lane kernel that carries the fixpoint;
-each has its launch count. A CPU tensor runs ``exhaustive_plain``, the
-same computation in plain torch ops.
+its threads) and the cyclic kernel that carries the fixpoint node by node,
+recomputing in each pass after the first only the nodes whose inputs
+changed (``node_rule_marks`` states the rule on the plain version's
+passes); each route has its launch count. A CPU tensor runs
+``exhaustive_plain``, the same computation in plain torch ops, in whole
+passes.
 """
 
 from __future__ import annotations
@@ -40,6 +43,12 @@ WORD = 64
 # kernel launches since the last reset (plain counts, read by the smoke run)
 LAUNCHES_WAVEFRONT = 0
 LAUNCHES_SERIAL = 0
+# the last cyclic launch's pass log, int32 [S, max_passes, 3]: per slice and
+# pass, the warps that ran it, the nodes and the positions they recomputed
+PASS_LOG = None
+# the cyclic route's node tables of the last schedule it launched on: (the
+# schedule tensors, their versions and num_nodes, the tables)
+_TABLES = None
 
 # the wavefront's shape: read lanes a warp carries (each on 32 / lanes
 # threads; csrc/exhaustive.cu EX_WAVE_G), schedule positions a chunk,
@@ -48,6 +57,14 @@ WAVE_LANES = 8
 WAVE_CHUNK = 64
 WAVE_WARPS = 16
 SMEM_LIMIT = 232448  # dynamic shared memory a Hopper block can opt into
+# the cyclic route: positions a staged chunk (csrc/exhaustive.cu
+# EX_CYC_CHUNK), warps a block at most (EX_CYC_MAX_WARPS), and whether its
+# node tables and its node store may sit in shared memory (else they stay
+# in device memory)
+CYC_CHUNK = 32
+CYC_WARPS = 4
+CYC_TABLE_SMEM = True
+CYC_STORE_SMEM = True
 
 
 def exhaustive(eq, code, is_start, is_source_start, pred_nodes, node_slot, *,
@@ -82,7 +99,7 @@ def exhaustive(eq, code, is_start, is_source_start, pred_nodes, node_slot, *,
 
 
 def _launch(*args, num_nodes, cyclic, max_passes):
-    """The route: the serial fixpoint kernel on a cyclic graph, the slice
+    """The route: the cyclic fixpoint kernel on a cyclic graph, the slice
     wavefront otherwise."""
     if cyclic:
         return _launch_serial(*args, num_nodes=num_nodes,
@@ -130,29 +147,147 @@ def _launch_wavefront(eq, code, is_start, is_source_start, pred_nodes,
     return (*out.unbind(0), torch.zeros(B, dtype=torch.bool, device=dev))
 
 
+def node_tables(is_start, is_source_start, pred_nodes, node_slot,
+                num_nodes: int):
+    """The cyclic route's node tables, nodes numbered by schedule rank:
+    nodes int32 [N + 1] (first position * 2 + source flag; nodes[N] = 2P),
+    npred [N, K] (in-neighbours' ranks, -1 pad), and the out-neighbours as
+    CSR, succ_ptr [N + 1] and succ [E]. Raises unless each node's positions
+    are contiguous and start at an is_start position."""
+    P, K = pred_nodes.shape
+    dev = pred_nodes.device
+    starts = torch.nonzero(is_start).flatten()
+    N = num_nodes
+    node_of = torch.cumsum((is_start != 0).to(torch.int64), 0) - 1
+    slot_of = node_slot[starts].to(torch.int64)
+    if (starts.numel() != N or not bool(is_start[0])
+            or not torch.equal(node_slot, node_slot[starts][node_of])
+            or not torch.equal(torch.bincount(slot_of, minlength=N),
+                               torch.ones(N, dtype=torch.int64, device=dev))):
+        raise ValueError("exhaustive: each node's positions must be "
+                         "contiguous, one run a node, starting at is_start")
+    rank = torch.empty(N, dtype=torch.int64, device=dev)
+    rank[slot_of] = torch.arange(N, device=dev)
+    first = torch.cat([starts, torch.tensor([P], device=dev)])
+    source = torch.cat([is_source_start[starts].to(torch.int64) != 0,
+                        torch.zeros(1, dtype=torch.bool, device=dev)])
+    nodes = (first * 2 + source).to(torch.int32)
+    pr = pred_nodes[starts].to(torch.int64)
+    npred = torch.where(pr >= 0, rank[pr.clamp(min=0)], -1)
+    src = npred.flatten()
+    dst = torch.arange(N, device=dev).repeat_interleave(K)
+    keep = src >= 0
+    src, dst = src[keep], dst[keep]
+    succ = dst[torch.argsort(src * N + dst)].to(torch.int32)
+    succ_ptr = torch.cat([torch.zeros(1, dtype=torch.int64, device=dev),
+                          torch.cumsum(torch.bincount(src, minlength=N), 0)])
+    return nodes, npred.to(torch.int32), succ_ptr.to(torch.int32), succ
+
+
+def schedule_tables(is_start, is_source_start, pred_nodes, node_slot,
+                    num_nodes: int):
+    """``node_tables`` of the schedule, built (with a device sync) only when
+    it is not the one the last call was given: the engine launches the
+    cyclic route on one schedule, batch after batch."""
+    global _TABLES
+    sched = (is_start, is_source_start, pred_nodes, node_slot)
+    key = tuple(t._version for t in sched) + (num_nodes,)
+    if (_TABLES is None or _TABLES[1] != key
+            or any(a is not b for a, b in zip(_TABLES[0], sched))):
+        _TABLES = (sched, key, node_tables(*sched, num_nodes))
+    return _TABLES[2]
+
+
+def cyclic_shape(N: int, K: int, B: int):
+    """(W, table_smem, store_smem, shared bytes) of a cyclic launch: W warps
+    a block (up to ``CYC_WARPS``), the node tables and the node store in
+    shared memory where they fit (the store first, as it is read at every
+    in-neighbour of a node start), the most warps that fit with them."""
+    L, T = WAVE_LANES, CYC_CHUNK
+    table = 4 * (N + 1 + N * K)
+    ring = 4 * (2 * ((N + 31) // 32) + 2 * T * (L + 1))
+    store = 4 * N * 6 * L
+    for tab, sto in ((True, True), (False, True), (True, False),
+                     (False, False)):
+        if (tab and not CYC_TABLE_SMEM) or (sto and not CYC_STORE_SMEM):
+            continue
+        for W in range(min(-(-B // L), CYC_WARPS), 0, -1):
+            smem = tab * table + W * (ring + sto * store)
+            if smem <= SMEM_LIMIT:
+                return W, tab, sto, smem
+    raise NotImplementedError(
+        f"the K3 cyclic route's need bits for {N} nodes do not fit in shared "
+        "memory"
+    )
+
+
 def _launch_serial(eq, code, is_start, is_source_start, pred_nodes,
                    node_slot, *, num_nodes, max_passes):
-    global LAUNCHES_SERIAL
+    global LAUNCHES_SERIAL, PASS_LOG
     S, _, _, B = eq.shape
     P, K = pred_nodes.shape
     dev = eq.device
-    out = torch.empty((6, S, P, B), dtype=torch.int32, device=dev)
-    store = torch.empty((num_nodes, 6, B), dtype=torch.int32, device=dev)
-    nonconv = torch.empty((B,), dtype=torch.int32, device=dev)
     lib = _build.library("exhaustive")
-    fn = lib.ga_exhaustive_serial
+    tables = schedule_tables(is_start, is_source_start, pred_nodes,
+                             node_slot, num_nodes)
+    W, tab, sto, smem = cyclic_shape(num_nodes, K, B)
+    out = torch.empty((6, S, P, B), dtype=torch.int32, device=dev)
+    store = (torch.empty(1, dtype=torch.int32, device=dev) if sto else
+             torch.empty((num_nodes, 6, B), dtype=torch.int32, device=dev))
+    nonconv = torch.empty((B,), dtype=torch.int32, device=dev)
+    plog = torch.zeros((S, max_passes, 3), dtype=torch.int32, device=dev)
+    fn = lib.ga_exhaustive_cyclic
     fn.restype = ctypes.c_int
-    fn.argtypes = [ctypes.c_void_p] * 9 + [ctypes.c_int] * 6 + [
+    fn.argtypes = [ctypes.c_void_p] * 10 + [ctypes.c_int] * 10 + [
         ctypes.c_void_p
     ]
     err = fn(
-        *[a.data_ptr() for a in (eq, code, is_start, is_source_start,
-                                 pred_nodes, node_slot, out, store, nonconv)],
-        S, P, K, num_nodes, B, max_passes, _build.stream_handle(dev),
+        *[a.data_ptr() for a in (eq, code, *tables, out, store, nonconv,
+                                 plog)],
+        S, P, K, num_nodes, B, max_passes, W, int(tab), int(sto), smem,
+        _build.stream_handle(dev),
     )
-    _build.check(err, "exhaustive serial")
+    _build.check(err, "exhaustive cyclic")
     LAUNCHES_SERIAL += 1
+    PASS_LOG = plog
     return (*out.unbind(0), nonconv != 0)
+
+
+def node_rule_marks(trace, old_end, is_start, pred_nodes, node_slot):
+    """The nodes the cyclic kernel's rule recomputes, from one slice's
+    passes of ``exhaustive_plain``: ``trace`` its passes' outputs, int64
+    [6, P, B] each, pass 1 first; ``old_end`` [P, B]. In pass k >= 2 a node
+    is marked for a lane iff an in-neighbour's end column (the four words,
+    sbs, and e = sbs == old_end at its last position) as read there changed:
+    a forward one (scheduled before the node) from pass k - 1 to k, a back
+    one from pass k - 2 to k - 1 (pass 0 being the reset store). Returns,
+    for each pass k >= 2, bool [P, B]: each position's node's mark."""
+    dev = old_end.device
+    N = int((is_start != 0).sum())
+    nodes, npred, _, _ = node_tables(is_start, torch.zeros_like(is_start),
+                                     pred_nodes, node_slot, N)
+    npred = npred.to(torch.int64)
+    last = (nodes[1:] >> 1).to(torch.int64) - 1
+    node_of = torch.cumsum((is_start != 0).to(torch.int64), 0) - 1
+    back = npred >= torch.arange(N, device=dev)[:, None]
+    reset = torch.zeros((6, N, old_end.shape[1]), dtype=torch.int64,
+                        device=dev)
+    reset[4] = INF
+    ends = [reset] + [
+        torch.cat([x[:5, last], (x[4, last] == old_end[last])[None]])
+        for x in trace
+    ]
+    marks = []
+    for k in range(2, len(trace) + 1):
+        fwd = (ends[k] != ends[k - 1]).any(0)  # [N, B]
+        bck = (ends[k - 1] != ends[k - 2]).any(0)
+        mark = torch.zeros_like(fwd)
+        for col, is_back in zip(npred.T, back.T):
+            p = col.clamp(min=0)
+            mark |= ((col >= 0) & is_back)[:, None] & bck[p]
+            mark |= ((col >= 0) & ~is_back)[:, None] & fwd[p]
+        marks.append(mark[node_of])
+    return marks
 
 
 def _bits(lo, hi, rows):
@@ -169,11 +304,12 @@ def _pack(mask, rows):
 
 def exhaustive_plain(eq, code, is_start, is_source_start, pred_nodes,
                      node_slot, *, num_nodes: int, cyclic: bool,
-                     max_passes: int = 128):
-    """Plain torch version of K3 (any device): a loop over slices, passes
-    and positions, vectorised over the lanes. Node starts merge in score
-    space on [64, B] rows; the other positions take the Myers advance on
-    (lo, hi) halves held in int64."""
+                     max_passes: int = 128, trace: list | None = None):
+    """Plain torch version of K3 (any device): a loop over slices, whole
+    passes and positions, vectorised over the lanes. Node starts merge in
+    score space on [64, B] rows; the other positions take the Myers advance
+    on (lo, hi) halves held in int64. ``trace``, when given, receives
+    (slice, outputs int64 [6, P, B]) of every pass."""
     S, _, _, B = eq.shape
     P, K = pred_nodes.shape
     dev = eq.device
@@ -247,6 +383,8 @@ def exhaustive_plain(eq, code, is_start, is_source_start, pred_nodes,
                 col[5] = e_prev
                 store[:, slot_l[t]] = col
             new = new.permute(1, 0, 2)
+            if trace is not None:
+                trace.append((s, new))
             if not cyclic:
                 out[:, s] = new
                 break

@@ -10,6 +10,12 @@ batched exhaustive engine) on the CPU. Each corpus writes
 ``BatchAligner.compute_tables`` with ``backend="column"``: the default
 wavefront backend does not finish that graph on a CPU in minutes, and
 ``tests/test_engine.py`` holds the two backends bit-identical.
+
+``circular_i`` first writes its inputs (``write_circular``): the longsim
+graph closed into a circle by one link from its sink node to its source
+node (``graph.gfa``), and reads taken from one source-to-sink walk read as
+a circle, half of them across the seam (``reads.fastq``). Its golden takes
+the column backend's fixpoint on the CPU for about half an hour.
 """
 
 from __future__ import annotations
@@ -30,7 +36,79 @@ CORPORA = {
     "longsim_i": ("longsim/graph.vg", "sim/sim.fastq", "column"),
     # a cyclic graph: the JAX engine takes its column backend's fixpoint
     "cyclic_i": ("sim/cyclic.gfa", "torch/cyclic_i/reads.fastq", "column"),
+    # the longsim graph closed into a circle (a circular genome of ~51 kb a
+    # strand): written by write_circular, then the column fixpoint
+    "circular_i": ("torch/circular_i/graph.gfa",
+                   "torch/circular_i/reads.fastq", "column"),
 }
+
+CIRCULAR_READS = 16  # half of them across the seam
+CIRCULAR_LEN = 640  # 10 slices
+CIRCULAR_SEED = 13
+
+
+def write_circle_gfa(vg_file: str, gfa_file: str):
+    """Writes the graph of ``vg_file`` (every edge + to +) as a GFA with one
+    more link from each sink node to each source node, closing it into a
+    circle. Returns (sequences by node id, out-neighbours by node id,
+    sources, sinks)."""
+    from graphaligner_tpu.io import stream, vg
+
+    nodes, out = {}, {}
+    for chunk in stream.read_messages(vg_file, vg.Graph):
+        for n in chunk.node:
+            nodes[n.id] = n.sequence
+        for e in chunk.edge:
+            if e.from_start or e.to_end:
+                raise ValueError("write_circle_gfa expects + to + edges only")
+            out.setdefault(e.from_, []).append(e.to)
+    has_in = {t for ts in out.values() for t in ts}
+    sources = sorted(n for n in nodes if n not in has_in)
+    sinks = sorted(n for n in nodes if n not in out)
+    with open(gfa_file, "w") as f:
+        for n in sorted(nodes):
+            f.write(f"S\t{n}\t{nodes[n]}\n")
+        links = [(a, b) for a in sorted(out) for b in out[a]]
+        links += [(a, b) for a in sinks for b in sources]
+        for a, b in links:
+            f.write(f"L\t{a}\t+\t{b}\t+\t0M\n")
+    return nodes, out, sources, sinks
+
+
+def write_circular(out_dir: str) -> None:
+    """Writes ``graph.gfa`` and ``reads.fastq`` of the circular_i corpus.
+
+    The graph: ``longsim/graph.vg`` (one source, one sink, node ids in
+    topological order) closed by ``write_circle_gfa``. The reads:
+    ``CIRCULAR_READS`` reads of ``CIRCULAR_LEN`` bp from one source-to-sink
+    walk (each step takes one of the node's out-neighbours, sorted by id, at
+    random) read as a circle; the first half start within
+    ``CIRCULAR_LEN - 1`` bp of the walk's end, so they cross the seam; 5 %
+    substitutions. All draws from one numpy generator seeded with
+    ``CIRCULAR_SEED``."""
+    import numpy as np
+
+    nodes, out, (source,), (sink,) = write_circle_gfa(
+        os.path.join(FIX, "longsim", "graph.vg"),
+        os.path.join(out_dir, "graph.gfa"))
+    rng = np.random.default_rng(CIRCULAR_SEED)
+    walk = [source]
+    while walk[-1] != sink:
+        nxt = sorted(out[walk[-1]])
+        walk.append(nxt[int(rng.integers(len(nxt)))])
+    truth = "".join(nodes[n] for n in walk)
+    L, R, half = len(truth), CIRCULAR_LEN, CIRCULAR_READS // 2
+    starts = np.concatenate([
+        rng.integers(L - R + 1, L, half),
+        rng.integers(0, L - R + 1, CIRCULAR_READS - half),
+    ])
+    with open(os.path.join(out_dir, "reads.fastq"), "w") as f:
+        for i, st in enumerate(starts):
+            read = (truth + truth)[int(st):int(st) + R]
+            mut = rng.random(R) < 0.05
+            sub = rng.choice(list("ACGT"), R)
+            seq = "".join(s if m else c for c, s, m in zip(read, sub, mut))
+            f.write(f"@circ{i}\n{seq}\n+\n{'I' * R}\n")
 
 
 def make(name: str, out_gam: str) -> list:
@@ -73,6 +151,8 @@ def main(names) -> int:
         out_dir = os.path.join(HERE, name)
         os.makedirs(out_dir, exist_ok=True)
         t0 = time.time()
+        if name == "circular_i":
+            write_circular(out_dir)
         alns = make(name, os.path.join(out_dir, "out.gam"))
         print(f"{name}: {len(alns)} alignments in {time.time() - t0:.1f} s",
               flush=True)

@@ -18,6 +18,7 @@ FIX = pathlib.Path(__file__).parent / "fixtures"
 SIM = FIX / "sim"
 K1_OUTS = ("cols", "nm", "ctrl", "p_ids", "p_cell_send", "p_node_min",
            "p_node_end", "p_min")
+NAMES = ("vp_lo", "vp_hi", "vn_lo", "vn_hi", "sbs", "send", "nonconv")
 
 
 @pytest.fixture
@@ -469,3 +470,90 @@ def test_exhaustive_kernel_cyclic_fixpoint_matches_plain(cuda):
         assert torch.equal(g, w)
     assert not bool(got[6].any())
     assert bool(k3.exhaustive(eq, *ba._dev_sched, **kw, max_passes=1)[6].all())
+
+
+def _cyclic_args(cuda, graph_file, B, S, seed):
+    from graphaligner_tpu_torch.core import engine
+    from graphaligner_tpu_torch.graph import load_alignment_graph
+
+    ba = engine.BatchAligner(load_alignment_graph(graph_file), cuda)
+    assert ba.sched.cyclic
+    rng = np.random.default_rng(seed)
+    codes = np.full((B, S * 64), engine._READ_CODE["N"], np.uint8)
+    for i in range(B):
+        n = int(rng.integers(10, S * 64))
+        codes[i, :n] = rng.integers(0, 4, n)
+    return (_eq(cuda, codes, S), *ba._dev_sched), ba.sched.num_nodes
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("table_smem,store_smem", [(True, True),
+                                                   (False, True),
+                                                   (True, False),
+                                                   (False, False)])
+def test_exhaustive_cyclic_kernel_matches_plain_at_caps(cuda, monkeypatch,
+                                                        table_smem,
+                                                        store_smem):
+    """K3's cyclic route on sim/cyclic.gfa x 20 random reads of 3 slices
+    (numpy seed 9; 20 lanes leave the last warp part-full) at pass caps 1, 2
+    and 128, with its node tables and store in shared or device memory: the
+    six slabs and the flags bit for bit against the plain version, one
+    counted launch each, every lane flagged at cap 1 and none at 128; every
+    warp runs pass 1 over every position."""
+    from graphaligner_tpu_torch.ops import exhaustive as k3
+
+    monkeypatch.setattr(k3, "CYC_TABLE_SMEM", table_smem)
+    monkeypatch.setattr(k3, "CYC_STORE_SMEM", store_smem)
+    args, N = _cyclic_args(cuda, str(SIM / "cyclic.gfa"), 20, 3, 9)
+    S, P, B = args[0].shape[0], args[1].shape[0], args[0].shape[3]
+    assert k3.cyclic_shape(N, args[4].shape[1], B)[1:3] == (table_smem,
+                                                            store_smem)
+    for cap in (1, 2, 128):
+        kw = dict(num_nodes=N, cyclic=True, max_passes=cap)
+        n0 = k3.LAUNCHES_SERIAL
+        got = k3.exhaustive(*args, **kw)
+        torch.cuda.synchronize()
+        assert k3.LAUNCHES_SERIAL == n0 + 1
+        log = k3.PASS_LOG.cpu()
+        want = k3.exhaustive_plain(*args, **kw)
+        for name, g, w in zip(NAMES, got, want):
+            assert torch.equal(g, w), (cap, name)
+        if cap == 1:
+            assert bool(got[6].all())
+        if cap == 128:
+            assert not bool(got[6].any())
+        warps = -(-B // k3.WAVE_LANES)
+        assert (log[:, 0, 0] == warps).all()
+        assert (log[:, 0, 2] == warps * P).all()
+        assert int(log[:, :, 0].sum()) >= warps * S * min(cap, 2)
+
+
+@pytest.mark.cuda
+def test_exhaustive_cyclic_kernel_matches_plain_on_circle(cuda, tmp_path):
+    """K3's cyclic route on sim/bubbles.vg closed into a circle (its reverse
+    strand's schedule runs against every edge: each pass moves a change one
+    node on) x 12 random reads of 2 slices (numpy seed 4): bit for bit
+    against the plain version, run on the CPU, with no lane flagged; later
+    passes recompute fewer nodes than the first."""
+    import importlib.util
+
+    from graphaligner_tpu_torch.ops import exhaustive as k3
+
+    spec = importlib.util.spec_from_file_location(
+        "make_goldens", FIX / "torch" / "make_goldens.py")
+    mg = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mg)
+    gfa = str(tmp_path / "circle.gfa")
+    mg.write_circle_gfa(str(SIM / "bubbles.vg"), gfa)
+    args, N = _cyclic_args(cuda, gfa, 12, 2, 4)
+    kw = dict(num_nodes=N, cyclic=True)
+    got = k3.exhaustive(*args, **kw)
+    log = k3.PASS_LOG.cpu()
+    want = k3.exhaustive_plain(*[a.cpu() for a in args], **kw)
+    for name, g, w in zip(NAMES, got, want):
+        assert torch.equal(g.cpu(), w), name
+    assert not bool(want[6].any())
+    later = log[:, 1:, 1]
+    ran = log[:, 1:, 0] > 0
+    assert ran.any()
+    assert (later[ran] < log[:, :1, 1].expand_as(later)[ran]).all()

@@ -9,6 +9,7 @@ a numpy seed; tolerance zero (everything is integer).
 """
 
 import functools
+import importlib.util
 import pathlib
 
 import numpy as np
@@ -27,6 +28,31 @@ from graphaligner_tpu_torch.ops import exhaustive as k3
 
 FIX = pathlib.Path(__file__).parent / "fixtures"
 NAMES = ("vp_lo", "vp_hi", "vn_lo", "vn_hi", "sbs", "send")
+CIRCLE = "circle of sim/bubbles.vg"  # written by make_goldens.write_circle_gfa
+
+
+@functools.lru_cache(maxsize=None)
+def _circle_gfa(tmp_dir: str) -> str:
+    """sim/bubbles.vg closed into a circle (its two sinks linked to its
+    source), as make_goldens.py closes the longsim graph."""
+    spec = importlib.util.spec_from_file_location(
+        "make_goldens", FIX / "torch" / "make_goldens.py")
+    mg = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mg)
+    path = str(pathlib.Path(tmp_dir) / "bubbles_circle.gfa")
+    mg.write_circle_gfa(str(FIX / "sim" / "bubbles.vg"), path)
+    return path
+
+
+@pytest.fixture(scope="module")
+def cyclic_graphs(tmp_path_factory):
+    """Cyclic graph files by name: the fixtures' and the small circle."""
+    return {
+        "sim/cyclic.gfa": str(FIX / "sim" / "cyclic.gfa"),
+        "torch/circular_i/graph.gfa": str(FIX / "torch" / "circular_i"
+                                          / "graph.gfa"),
+        CIRCLE: _circle_gfa(str(tmp_path_factory.mktemp("circle"))),
+    }
 
 
 def _codes(seed, B, S):
@@ -98,6 +124,180 @@ def test_plain_matches_column_engine_fixpoint_on_cyclic_graph():
     *got, flags = _plain(sched, codes, S)
     assert not bool(flags.any())
     _assert_equal(got, want)
+
+
+def test_plain_matches_column_engine_fixpoint_on_circle(cyclic_graphs):
+    """The circle (sim/bubbles.vg closed from its sinks to its source; its
+    reverse strand's schedule runs against every edge, so a slice takes
+    many passes) at B=4, S=3: the plain version's slabs and flags equal the
+    column engine's."""
+    import jax.numpy as jnp
+
+    from graphaligner_tpu.graph import graph_from_gfa_file
+
+    sched = build_schedule(graph_from_gfa_file(cyclic_graphs[CIRCLE]))
+    assert sched.cyclic
+    B, S = 4, 3
+    codes = _codes(12, B, S)
+    *want, nonconv = _align_batch_device(
+        jnp.asarray(codes), jnp.asarray(sched.code),
+        jnp.asarray(sched.is_start), jnp.asarray(sched.is_source_start),
+        jnp.asarray(sched.pred_nodes), jnp.asarray(sched.node_slot),
+        num_slices=S, num_nodes=sched.num_nodes, cyclic=True,
+    )
+    assert not bool(nonconv)
+    *got, flags = _plain_traced(cyclic_graphs[CIRCLE], 128)[0]
+    assert not bool(flags.any())
+    _assert_equal(got, want)
+
+
+@functools.lru_cache(maxsize=None)
+def _plain_traced(graph_file: str, max_passes: int):
+    """The plain version's outputs and pass trace at B=4, S=3 (numpy seed
+    12), with the port's schedule of ``graph_file``."""
+    from graphaligner_tpu_torch.core.engine import build_schedule as tsched
+    from graphaligner_tpu_torch.graph import load_alignment_graph as load
+
+    sched = tsched(load(graph_file))
+    B, S = 4, 3
+    eq = _build_eq_vectors(_codes(12, B, S), _MATCH_TABLE, S).view(np.int32)
+
+    def t(a):
+        return torch.as_tensor(np.ascontiguousarray(a, dtype=np.int32))
+
+    trace = []
+    out = k3.exhaustive_plain(
+        torch.as_tensor(eq), t(sched.code), t(sched.is_start),
+        t(sched.is_source_start), t(sched.pred_nodes), t(sched.node_slot),
+        num_nodes=sched.num_nodes, cyclic=True, max_passes=max_passes,
+        trace=trace,
+    )
+    return out, trace, sched
+
+
+@pytest.mark.parametrize("cap", [1, 2, 128])
+@pytest.mark.parametrize("graph", ["sim/cyclic.gfa", CIRCLE])
+def test_node_rule_marks_every_changed_position(graph, cap, cyclic_graphs):
+    """The cyclic kernel's rule is exact: in every pass k >= 2 of every
+    slice, each position whose output changed from pass k - 1 (for a lane)
+    lies in a node the rule marks for that lane (an in-neighbour's end
+    column changed as read there), so skipping the unmarked nodes keeps the
+    whole-pass results. At the full cap the rule also skips positions."""
+    out, trace, sched = _plain_traced(cyclic_graphs[graph], cap)
+    send = out[5].to(torch.int64)
+    is_start = torch.as_tensor(sched.is_start)
+    preds = torch.as_tensor(sched.pred_nodes)
+    slots = torch.as_tensor(sched.node_slot)
+    S, P, B = send.shape
+    changed = skipped = 0
+    for s in range(S):
+        passes = [x for k, x in trace if k == s]
+        assert 1 <= len(passes) <= cap
+        old_end = send[s - 1] if s else torch.zeros((P, B), dtype=torch.int64)
+        marks = k3.node_rule_marks(passes, old_end, is_start, preds, slots)
+        assert len(marks) == len(passes) - 1
+        for k, mark in enumerate(marks, start=2):
+            diff = (passes[k - 1] != passes[k - 2]).any(0)
+            assert not bool((diff & ~mark).any()), (s, k)
+            changed += int(diff.sum())
+            skipped += int((~mark).sum())
+    if cap == 128:
+        assert changed > 0 and skipped > 0
+
+
+@pytest.mark.parametrize("graph", ["sim/cyclic.gfa",
+                                   "torch/circular_i/graph.gfa", CIRCLE])
+def test_cyclic_schedule_nodes_are_contiguous_runs(graph, cyclic_graphs):
+    """The premise of the cyclic kernel's node loop, on every cyclic
+    fixture: each node's positions are one contiguous run of the schedule
+    that starts at an is_start position. ``node_tables`` numbers the nodes
+    by that run's rank and lists each edge once among the in- and once
+    among the out-neighbours."""
+    from graphaligner_tpu_torch.core.engine import build_schedule as tsched
+    from graphaligner_tpu_torch.graph import load_alignment_graph as load
+
+    sched = tsched(load(cyclic_graphs[graph]))
+    assert sched.cyclic
+    starts = np.nonzero(sched.is_start)[0]
+    assert starts[0] == 0 and len(starts) == sched.num_nodes
+    bounds = np.append(starts, len(sched.code))
+    for a, z in zip(bounds[:-1], bounds[1:]):
+        assert (sched.node_slot[a:z] == sched.node_slot[a]).all()
+    assert sorted(sched.node_slot[starts]) == list(range(sched.num_nodes))
+    nodes, npred, succ_ptr, succ = k3.node_tables(
+        *(torch.as_tensor(np.ascontiguousarray(a, dtype=np.int32)) for a in (
+            sched.is_start, sched.is_source_start, sched.pred_nodes,
+            sched.node_slot)), num_nodes=sched.num_nodes)
+    assert (nodes.numpy() >> 1).tolist() == bounds.tolist()
+    assert ((nodes.numpy()[:-1] & 1) == sched.is_source_start[starts]).all()
+    rank = np.empty(sched.num_nodes, np.int64)
+    rank[sched.node_slot[starts]] = np.arange(sched.num_nodes)
+    pr = sched.pred_nodes[starts]
+    assert (npred.numpy() == np.where(pr >= 0, rank[np.maximum(pr, 0)],
+                                      -1)).all()
+    edges = {(int(p), j) for j, row in enumerate(npred.tolist())
+             for p in row if p >= 0}
+    out_edges = {(j, int(v)) for j in range(sched.num_nodes)
+                 for v in succ[succ_ptr[j]:succ_ptr[j + 1]].tolist()}
+    assert out_edges == edges and len(succ) == int((npred >= 0).sum())
+
+
+def test_node_tables_reject_split_nodes():
+    """A schedule whose node runs are split raises, on the CPU too."""
+    z = torch.tensor([1, 0, 1, 0], dtype=torch.int32)
+    preds = torch.full((4, 1), -1, dtype=torch.int32)
+    with pytest.raises(ValueError, match="contiguous"):
+        k3.node_tables(z, z, preds, torch.tensor([0, 1, 1, 0],
+                                                 dtype=torch.int32),
+                       num_nodes=2)
+
+
+def test_schedule_tables_kept_until_the_schedule_changes(monkeypatch):
+    """The cyclic route builds its node tables once a schedule: the same
+    tensors, unchanged, give back the same tables; another schedule, or
+    one written in place, is built anew and equals ``node_tables``."""
+    from graphaligner_tpu.graph import graph_from_gfa_file
+
+    sched = build_schedule(graph_from_gfa_file(str(FIX / "sim" / "cyclic.gfa")))
+
+    def t(a):
+        return torch.as_tensor(np.ascontiguousarray(a, dtype=np.int32))
+
+    monkeypatch.setattr(k3, "_TABLES", None)
+    args = [t(a) for a in (sched.is_start, sched.is_source_start,
+                           sched.pred_nodes, sched.node_slot)]
+    first = k3.schedule_tables(*args, sched.num_nodes)
+    assert k3.schedule_tables(*args, sched.num_nodes) is first
+    copies = [a.clone() for a in args]
+    again = k3.schedule_tables(*copies, sched.num_nodes)
+    assert again is not first
+    for g, w in zip(again, k3.node_tables(*args, sched.num_nodes)):
+        assert torch.equal(g, w)
+    copies[1][0] ^= 1  # the first node's source flag, written in place
+    flipped = k3.schedule_tables(*copies, sched.num_nodes)
+    assert flipped is not again
+    assert int(flipped[0][0] ^ again[0][0]) == 1
+
+
+def test_cyclic_shape_fits_shared_memory(monkeypatch):
+    """The cyclic route keeps its node tables and store in shared memory
+    where they fit beside each warp's need bits and ring, the store in
+    device memory for the circle's 8,386 nodes; the constants force either
+    out."""
+    L, T = k3.WAVE_LANES, k3.CYC_CHUNK
+    ring = 4 * (2 * 2 + 2 * T * (L + 1))
+    W, tab, sto, smem = k3.cyclic_shape(42, 2, 32)
+    assert (W, tab, sto) == (4, True, True)
+    assert smem == 4 * (43 + 42 * 2) + 4 * (ring + 4 * 42 * 6 * L)
+    assert k3.cyclic_shape(42, 2, 12)[0] == 2
+    W, tab, sto, smem = k3.cyclic_shape(8386, 2, 16)
+    assert (W, tab, sto) == (2, True, False) and smem <= k3.SMEM_LIMIT
+    monkeypatch.setattr(k3, "CYC_STORE_SMEM", False)
+    assert k3.cyclic_shape(42, 2, 32)[1:3] == (True, False)
+    monkeypatch.setattr(k3, "CYC_TABLE_SMEM", False)
+    assert k3.cyclic_shape(42, 2, 32)[1:3] == (False, False)
+    with pytest.raises(NotImplementedError, match="shared memory"):
+        k3.cyclic_shape(10_000_000, 2, 8)
 
 
 def test_pass_cap_flags_non_convergence():
