@@ -1,8 +1,7 @@
 """Batched seeded alignment: device DP rounds + exact host control replay.
 
-Port of ``graphaligner_tpu/core/batch_align.py`` in short-read mode. The
-reference's getSqrtSlices control loop (GraphAligner.h:2571-2856) is split
-as there:
+Port of ``graphaligner_tpu/core/batch_align.py``. The reference's
+getSqrtSlices control loop (GraphAligner.h:2571-2856) is split as there:
 
   device: every round is one ``banded_scan`` over all lanes (problems
           packed back to back into segmented lanes, first-fit decreasing),
@@ -19,10 +18,14 @@ move codes back into traces. Lanes that overflow a capacity tier retry on
 the 2x tier; what still fails falls back to the host oracle per lane
 (``GA_NO_FALLBACK=1`` makes that an error; each use is counted).
 
+Reads longer than the window run in the memory-bounded long-read mode: chained
+scan rounds of one window each, whose packed columns are dropped once the
+replay no longer needs them; the walk recomputes them a round at a time,
+newest first, and chains K2 across the windows (``_walk_long``).
+
 Device tensors stay on ``device``; the host reads them with ``.cpu()``.
-Not ported (each raises NotImplementedError): long-read mode (reads past
-LONG_WINDOW slices), the XLA walk for in-degree > 4, and the pairwise
-projection for graphs without a reach table.
+Not ported (each raises NotImplementedError): the XLA walk for in-degree
+> 4, and the pairwise projection for graphs without a reach table.
 """
 
 from __future__ import annotations
@@ -35,7 +38,7 @@ import torch
 
 from ..graph.alignment_graph import AlignmentGraph
 from ..io import native
-from ..ops.walk_moves import walk_moves
+from ..ops.walk_moves import max_window_slices, moves_walk_fits, walk_moves
 from . import hmm as _hmm
 from .align import _pad_to_word
 from .engine import _ENCODE_LUT, _READ_CODE
@@ -152,10 +155,16 @@ class _Round:
     the request layout: per-step bandwidths [S, B], each request's carry
     ("init" or the _Rec it resumes from), (lane, first step, steps) and
     start slice, and the segment-start mask [S, B]. Other device arrays
-    come to the host lazily, each at most once."""
+    come to the host lazily, each at most once.
+
+    In long mode a round also keeps its scan inputs (``scan_inputs``, to
+    recompute it) and, after its replay, each request's last accepted
+    slice columns (``cols_last`` [nreq, 7, Cm] at ``last_steps`` /
+    ``last_lanes``); ``dropped`` marks a round whose rewind carries are
+    gone."""
 
     def __init__(self, out, control, bw, carry_from, req_meta, req_start,
-                 seg_start):
+                 seg_start, scan_inputs=None):
         self.out = out
         self.min_score = control[:, 0]
         self.num_cells = control[:, 1]
@@ -165,7 +174,18 @@ class _Round:
         self.req_meta = req_meta
         self.req_start = req_start
         self.seg_start = seg_start
+        self.scan_inputs = scan_inputs
+        self.dropped = False
         self._host: dict = {}
+
+    def drop(self, *keys) -> None:
+        """Free outputs on the device and their host copies."""
+        if "cols" in keys and "sends" in self.out:
+            # sends is a view of cols: keep a copy so cols' memory goes
+            self.out["sends"] = self.out["sends"].clone()
+        for key in keys:
+            self.out.pop(key, None)
+            self._host.pop(key, None)
 
     def host(self, key) -> np.ndarray:
         arr = self._host.get(key)
@@ -234,8 +254,14 @@ class _LaneState:
 class BandedBatchAligner:
     """Batched seeded/banded alignment on one torch device."""
 
-    # reads past this many slices need the memory-bounded long-read mode
-    # (windowed rounds + windowed walk), which is not yet ported
+    # reads whose slice bucket passes this window (or the tier's
+    # max_window_slices) run the memory-bounded long-read mode: chained
+    # scan rounds of one window each whose packed columns are dropped after
+    # the control replay, and a backtrace that recomputes one window at a
+    # time (the reference's sqrt-slice sampling and getSlicesFromTable
+    # recompute, GraphAligner.h:2571-2943). An instance's LONG_WINDOW does
+    # not reach its 2x retry tier, which reads the class attribute, as the
+    # JAX package's does.
     LONG_WINDOW = 320
 
     def __init__(
@@ -282,6 +308,8 @@ class BandedBatchAligner:
         self.Cm = Cm
         self.tier = _tier
         self.max_rounds = max_rounds
+        self._long_mode = False
+        self._chunk_rounds: list = []
         if _rev_pos is not None:
             self.rev_pos = _rev_pos
         else:
@@ -318,19 +346,12 @@ class BandedBatchAligner:
         return self._bigger
 
     # ------------------------------------------------------------ main entry
-    def _run(self, problems):
-        """All device rounds + control replay for problems =
-        [(padded_sequence, start_node_index)]; returns the final
-        per-problem _LaneState list."""
-        n = len(problems)
+    def _plan(self, problems):
+        """(S_max, long_mode, rounds_cap, true_S) of a chunk, as JAX's
+        _start_run (graphaligner_tpu/core/batch_align.py:719-760): the
+        scan length bucketed to {32, 96, 160, then x2}; long mode when the
+        bucket passes the window, which then becomes the round length."""
         true_S = max(1, max(len(seq) // WORD_SIZE for seq, _ in problems))
-        if true_S > self.LONG_WINDOW:
-            raise NotImplementedError(
-                f"long-read mode (a problem of {true_S} slices > "
-                f"LONG_WINDOW={self.LONG_WINDOW}: windowed rounds and "
-                "walk) is not yet ported"
-            )
-        # the compiled-capacity ladder of the JAX scan: {32, 96, 160, 320}
         if true_S <= 32:
             S_max = 32
         elif true_S <= 96:
@@ -338,11 +359,29 @@ class BandedBatchAligner:
         elif true_S <= 160:
             S_max = 160
         else:
-            S_max = 320
+            S_max = 160
+            while S_max < true_S:
+                S_max *= 2
+        window = min(self.LONG_WINDOW, max_window_slices(self.Cm, self.Nm))
+        long_mode = S_max > window
+        rounds_cap = self.max_rounds
+        if long_mode:
+            S_max = window
+            rounds_cap = max(self.max_rounds, -(-true_S // S_max) + 4)
+        return S_max, long_mode, rounds_cap, true_S
+
+    def _run(self, problems):
+        """All device rounds + control replay for problems =
+        [(padded_sequence, start_node_index)]; returns the final
+        per-problem _LaneState list."""
+        n = len(problems)
+        S_max, long_mode, rounds_cap, true_S = self._plan(problems)
+        self._long_mode = long_mode
+        self._chunk_rounds = []
         lanes = [
             _LaneState(num_slices=len(seq) // WORD_SIZE) for seq, _ in problems
         ]
-        cw = S_max
+        cw = max(S_max, true_S)
         codes = np.full((n, cw * WORD_SIZE), _READ_CODE["N"], dtype=np.uint8)
         seq_lens = np.fromiter((len(seq) for seq, _ in problems), np.int64, n)
         joined = "".join(seq for seq, _ in problems).encode("latin-1")
@@ -355,12 +394,24 @@ class BandedBatchAligner:
         for i in range(n):
             codes[i, : seq_lens[i]] = enc[offs[i] : offs[i + 1]]
         seq_lens = seq_lens.astype(np.int32)
+        self._codes = codes
         self._seq_lens = seq_lens
         requests = [(i, 0, "init", 0) for i in range(n)]
-        for round_no in range(self.max_rounds):
+        for round_no in range(rounds_cap):
             if not requests:
                 break
             rnd = self._round(problems, codes, seq_lens, requests, S_max)
+            if long_mode:
+                # this round took its carries from the one before: that
+                # one's columns can go, and the round before it feeds no
+                # rewind any more (JAX :805-818)
+                if self._chunk_rounds:
+                    self._chunk_rounds[-1].drop("cols", "codes")
+                if len(self._chunk_rounds) >= 2:
+                    old = self._chunk_rounds[-2]
+                    old.drop("sends", "node_min", "node_end")
+                    old.dropped = True
+                self._chunk_rounds.append(rnd)
             for pos, (i, start, _, _) in enumerate(requests):
                 lane = lanes[i]
                 l, s0, m = rnd.req_meta[pos]
@@ -377,7 +428,21 @@ class BandedBatchAligner:
                     continue
                 req = self._replay(lane)
                 if req is not None:
+                    if long_mode and req[1] != "init" and req[1].rnd.dropped:
+                        # a rewind into a round whose carries were dropped
+                        lane.failed = True
+                        continue
                     requests.append((i, req[0], req[1], req[2]))
+            if long_mode:
+                # where the replay cut a chain mid-window (HMM break, ramp
+                # rewind), the next window's walk starts below the last
+                # ACCEPTED step, the carry, not the last computed one
+                overrides = {
+                    carry.lane_in_round: carry.step
+                    for (_, _, carry, _) in requests
+                    if carry != "init" and carry.rnd is rnd
+                }
+                self._stash_round_boundary(rnd, overrides)
         for lane in lanes:
             if not lane.done:
                 lane.failed = True
@@ -486,6 +551,16 @@ class BandedBatchAligner:
             i for i, lane in enumerate(lanes) if not lane.failed and keeps[i] > 0
         ]
         if not walk_idx:
+            return results
+        if self._long_mode:
+            if not moves_walk_fits(self.Cm, self.Nm):
+                # the JAX walk fits no window at Cm >= 1792: fail these
+                # lanes as it does (JAX :1049-1058)
+                for i in walk_idx:
+                    lanes[i].failed = True
+                return results
+            self._walk_long(problems, lanes, keeps, walk_idx,
+                            list(self._chunk_rounds), results)
             return results
         big_dev, st = self._gather_walk_inputs(lanes, keeps)
         starts_map: dict = {}
@@ -859,6 +934,268 @@ class BandedBatchAligner:
         )
         return cols_t.contiguous(), band_t, lens_t, pred_t, pprev_t, codes_t
 
+    def _walk_long(self, problems, lanes, keeps, walk_idx, chunk_rounds,
+                   results):
+        """The windowed backtrace of a long-mode chunk (JAX ``_walk_long``,
+        graphaligner_tpu/core/batch_align.py:1912-2222): for each round,
+        newest first, its columns are recomputed, the lanes whose table
+        ends there get their walk starts, and K2 walks the window from the
+        lane state the newer window left. The windows' move streams,
+        concatenated, decode as one walk's."""
+        dev = self.device
+        Cm, Nm = self.Cm, self.Nm
+        B = len(lanes)
+        # the plain walk's lockstep blocks are the TPU kernel's only at its
+        # lane padding (Bp >= 128); the CUDA kernel steps each lane alone
+        Bp = B if dev.type == "cuda" else max(128, -(-B // 128) * 128)
+        NO_BASE = -(10**6)
+
+        # each lane's table as straight segments, one a round:
+        # [rnd, first step, slices, first slice, lane_in_round]
+        lane_segs: dict = {}
+        for i in walk_idx:
+            segs: list = []
+            ok = True
+            for rec in lanes[i].accepted[: int(keeps[i])]:
+                if (
+                    segs
+                    and segs[-1][0] is rec.rnd
+                    and rec.step == segs[-1][1] + segs[-1][2]
+                    and rec.slice_i == segs[-1][3] + segs[-1][2]
+                ):
+                    segs[-1][2] += 1
+                elif not segs or segs[-1][0] is not rec.rnd:
+                    segs.append(
+                        [rec.rnd, rec.step, 1, rec.slice_i, rec.lane_in_round]
+                    )
+                else:
+                    ok = False
+                    break
+            # the segments must tile the table from slice 0 on
+            ok = ok and [s_[3] for s_ in segs] == list(
+                np.cumsum([0] + [s_[2] for s_ in segs[:-1]])
+            )
+            if not ok or not segs:
+                # a rewound chain lost its dropped columns: the retry tier
+                # (or the host fallback) takes the lane
+                lanes[i].failed = True
+                continue
+            lane_segs[i] = segs
+        live = [i for i in walk_idx if i in lane_segs]
+        if not live:
+            return
+        rounds = [
+            r for r in chunk_rounds
+            if any(s_[0] is r for i in live for s_ in lane_segs[i])
+        ]
+
+        def row1(a):
+            out = np.zeros((1, Bp), np.int32)
+            out[0, :B] = a
+            return torch.as_tensor(out, device=dev)
+
+        seq_row = row1(self._seq_lens)
+        seed_row = row1([p[1] for p in problems])
+        state = np.zeros((16, Bp), np.int32)
+        state[5] = 1  # idle until the lane's last window starts it
+        sw = np.zeros(B, dtype=np.int64)
+        move_parts: list = []
+        S_g = self._codes.shape[1] // WORD_SIZE
+        codes_all = self._codes.reshape(B, S_g, WORD_SIZE)
+
+        for rnd in reversed(rounds):
+            segs_here = {
+                i: s_
+                for i in live
+                for s_ in lane_segs[i]
+                if s_[0] is rnd and not lanes[i].failed
+            }
+            if not segs_here:
+                continue
+            out = self._redispatch_round(rnd)
+            K_w = max(s_[2] for s_ in segs_here.values())
+            steps_map = np.zeros((K_w, Bp), np.int64)
+            valid_map = np.zeros((K_w, Bp), bool)
+            base = np.full(B, NO_BASE, np.int32)
+            lr = np.zeros(Bp, np.int64)
+            for i, (_, step0, n, g0, lane_r) in segs_here.items():
+                base[i] = g0
+                lr[i] = lane_r
+                steps_map[:n, i] = step0 + np.arange(n)
+                valid_map[:n, i] = True
+            st_t = torch.as_tensor(steps_map, device=dev)
+            lr_t = torch.as_tensor(lr, device=dev)[None, :]
+            vm = torch.as_tensor(valid_map, device=dev)[:, None, :]
+
+            # the window's tables by (step, lane_in_round), lane-padded to
+            # Bp; entry 0, the slice below the window, is the lane's
+            # previous segment's last slice from that round's stash
+            tabs = []
+            prev0 = []
+            for key, fill in (("band_ids", int(EMPTY)), ("lens_tab", 0),
+                              ("pred_tab", 0), ("pred_prev", 0)):
+                g_ = rnd.out[key][st_t, :, lr_t].permute(0, 2, 1)
+                tabs.append(torch.where(vm, g_, fill))
+                prev0.append(torch.full((Nm, Bp), fill, dtype=torch.int32,
+                                        device=dev))
+            cols_w = out["cols"][st_t, :, :, lr_t].permute(0, 2, 3, 1)
+            cols_w = torch.where(vm[:, None], cols_w, 0)
+            prev0_cols = torch.zeros((7, Cm, Bp), dtype=torch.int32,
+                                     device=dev)
+            by_prev: dict = {}
+            for i, s_ in segs_here.items():
+                segs = lane_segs[i]
+                k = segs.index(s_)
+                if k > 0:
+                    p_ = segs[k - 1]
+                    by_prev.setdefault(id(p_[0]), (p_[0], []))[1].append(
+                        (i, p_)
+                    )
+            for prnd, pairs in by_prev.values():
+                # a stash miss (a rewind moved an older round's segment end
+                # after its stash was taken) fails the lane to the retry
+                # ladder (JAX :2042-2057)
+                good, reqpos = [], []
+                for i, p_ in pairs:
+                    hits = np.nonzero(
+                        (prnd.last_lanes == p_[4])
+                        & (prnd.last_steps == p_[1] + p_[2] - 1)
+                    )[0]
+                    if len(hits) == 0:
+                        lanes[i].failed = True
+                        continue
+                    good.append((i, p_))
+                    reqpos.append(int(hits[0]))
+                if not good:
+                    continue
+                idx = torch.as_tensor([i for i, _ in good], device=dev)
+                plast = torch.as_tensor([p_[1] + p_[2] - 1 for _, p_ in good],
+                                        device=dev)
+                plane = torch.as_tensor([p_[4] for _, p_ in good], device=dev)
+                prev0_cols[:, :, idx] = prnd.cols_last[
+                    torch.as_tensor(reqpos, device=dev)
+                ].permute(1, 2, 0)
+                for tab, key in zip(prev0, ("band_ids", "lens_tab",
+                                            "pred_tab", "pred_prev")):
+                    tab[:, idx] = prnd.out[key][plast, :, plane].T
+            cols_w = torch.cat([prev0_cols[None], cols_w]).contiguous()
+            band_w, lens_w, pred_w, pprev_w = (
+                torch.cat([p0[None], t_]).contiguous()
+                for p0, t_ in zip(prev0, tabs)
+            )
+
+            # lanes whose table ends in this window start walking here
+            starters = [
+                i
+                for i, s_ in segs_here.items()
+                if s_[3] + s_[2] == int(keeps[i]) and not lanes[i].failed
+            ]
+            if starters:
+                fin_step = torch.as_tensor(
+                    [segs_here[i][1] + segs_here[i][2] - 1 for i in starters],
+                    device=dev,
+                )
+                fin_lane = torch.as_tensor(
+                    [segs_here[i][4] for i in starters], device=dev
+                )
+                final_sends = np.zeros((B, Cm), np.int32)
+                final_band = np.full((B, Nm), int(EMPTY), np.int32)
+                final_sends[starters] = (
+                    out["sends"][fin_step, :, fin_lane].cpu().numpy()
+                )
+                final_band[starters] = (
+                    rnd.out["band_ids"][fin_step, :, fin_lane].cpu().numpy()
+                )
+                try:
+                    starts = self._walk_starts(
+                        problems, lanes, keeps, starters, final_sends,
+                        final_band,
+                    )
+                except AssertionError:
+                    for i in starters:
+                        lanes[i].failed = True
+                    starts = []
+                for i, s0_ in zip(starters, starts):
+                    if s0_ is None:
+                        lanes[i].failed = True
+                        continue
+                    sw[i] = s0_[0]
+                    state[:, i] = 0
+                    state[0, i] = int(keeps[i])
+                    state[1, i] = 63
+                    state[2, i] = s0_[1]
+                    state[3, i] = s0_[2]
+                    state[4, i] = lanes[i].accepted[int(keeps[i]) - 1].min_score
+                    state[7, i] = 1
+            del out
+
+            codes_rows = np.clip(
+                base[:, None] + np.arange(K_w + 1, dtype=np.int32)[None, :] - 1,
+                0, S_g - 1,
+            )
+            base_row = np.full((1, Bp), NO_BASE, np.int32)
+            base_row[0, :B] = base
+            codes8 = np.zeros((K_w + 1, WORD_SIZE, Bp), np.uint8)
+            codes8[:, :, :B] = codes_all[
+                np.arange(B)[:, None], codes_rows
+            ].transpose(1, 2, 0)
+            moves_dev, fail_dev, state_dev, _ = walk_moves(
+                cols_w, band_w, lens_w, pred_w, pprev_w,
+                torch.as_tensor(codes8, device=dev),
+                self._dt.bt_bits_lut, seq_row, seed_row,
+                torch.as_tensor(base_row, device=dev),
+                torch.as_tensor(state, device=dev),
+                K_in=self.tables.k_in,
+            )
+            state = state_dev.cpu().numpy().copy()
+            fail = fail_dev.cpu().numpy()[0]
+            for i in segs_here:
+                if fail[i]:
+                    lanes[i].failed = True
+                    state[5, i] = 1
+            move_parts.append(moves_dev.cpu().numpy().view(np.uint32))
+
+        final_live = []
+        for i in live:
+            if lanes[i].failed:
+                continue
+            if state[5, i] == 1:
+                final_live.append(i)
+            else:
+                lanes[i].failed = True  # never finished across the windows
+        if not final_live:
+            return
+        moves = np.concatenate(move_parts, axis=0)
+        t = self.tables
+        node_start64 = np.ascontiguousarray(self.graph.node_start, dtype=np.int64)
+        node_end64 = np.ascontiguousarray(self.graph.node_end, dtype=np.int64)
+        pos2node = np.ascontiguousarray(t.pos_to_node)
+        in_nbrs = np.ascontiguousarray(t.in_nbrs)
+        # one decode a trace capacity: the JAX package decodes each lane
+        # with cap = keeps * 64 * 3 + 64 and fails it past that
+        by_cap: dict = {}
+        for i in final_live:
+            by_cap.setdefault(int(keeps[i]) * WORD_SIZE * 3 + 64, []).append(i)
+        for cap, grp in by_cap.items():
+            out_w, out_r, n_out = native.decode_moves_batch(
+                moves, np.array(grp, np.int32), sw[grp],
+                keeps[grp].astype(np.int64) * WORD_SIZE - 1,
+                node_start64, node_end64, pos2node, in_nbrs, cap,
+                _host_threads(),
+            )
+            for j, i in enumerate(grp):
+                m = int(n_out[j])
+                lane = lanes[i]
+                if m < 1 or out_r[j, 0] != 0:
+                    lane.failed = True
+                    continue
+                arr = np.stack([out_w[j, :m], out_r[j, :m]], axis=1)
+                score = lane.accepted[int(keeps[i]) - 1].min_score
+                cells = sum(
+                    r.num_cells for r in lane.accepted[: int(keeps[i])]
+                ) * WORD_SIZE
+                results[i] = (score, arr, int(keeps[i]), cells)
+
     # ------------------------------------------------------------- device round
     @staticmethod
     def _ffd_pack(sizes, cap, opens):
@@ -987,7 +1324,42 @@ class BandedBatchAligner:
             req_meta=req_meta,
             req_start=np.array([r[1] for r in requests], dtype=np.int32),
             seg_start=seg_start_mask,
+            scan_inputs=(
+                codes_lane, bw, init_ids, init_send, init_nmin, init_nend,
+                init_min, seg, S_max,
+            ) if self._long_mode else None,
         )
+
+    def _redispatch_round(self, rnd) -> dict:
+        """A long-mode round run again from its scan inputs (JAX
+        :2461-2490): the scan is deterministic (a stable sort, no atomics),
+        so the recomputed outputs equal the dropped ones bit for bit (the
+        reference's getSlicesFromTable recompute, GraphAligner.h:2858-2943)."""
+        (codes_lane, bw, init_ids, init_send, init_nmin, init_nend, init_min,
+         seg, S_max) = rnd.scan_inputs
+        zeros_b = np.zeros(codes_lane.shape[0], dtype=np.int32)
+        return banded_scan(
+            self._dt, codes_lane, zeros_b, zeros_b, zeros_b, bw,
+            init_ids, init_send, init_nmin, init_nend, init_min,
+            S_max=S_max, Nm=self.Nm, Cm=self.Cm, seg=seg, tie8=self._tie8,
+        )
+
+    def _stash_round_boundary(self, rnd, overrides) -> None:
+        """Before a long-mode round's columns go: each request's last
+        accepted slice columns, the below-window slice of the next window's
+        walk, as a [nreq, 7, Cm] gather (JAX :2492-2510). ``overrides`` maps
+        lane_in_round -> the step the replay cut a chain at."""
+        steps = np.array(
+            [overrides.get(l, s0 + n - 1) for (l, s0, n) in rnd.req_meta],
+            dtype=np.int64,
+        )
+        lanes_ = np.array([l for (l, _, _) in rnd.req_meta], dtype=np.int64)
+        rnd.cols_last = rnd.out["cols"][
+            torch.as_tensor(steps, device=self.device), :, :,
+            torch.as_tensor(lanes_, device=self.device),
+        ]
+        rnd.last_steps = steps
+        rnd.last_lanes = lanes_
 
     @staticmethod
     def _unpack_control(ctrl, init_min, seg_active, seg_rnode):

@@ -35,6 +35,36 @@ _EMPTY = 2**31 - 1
 
 LAUNCHES = 0
 
+# The TPU kernel's window limits, copied from
+# graphaligner_tpu/ops/pallas/walk_moves.py:45-107 so that long-read mode
+# chains the same rounds and fails the same lanes as the JAX package. They
+# are Mosaic's scoped-VMEM budget (16 MiB, sized against 15) at a lane
+# block of 128, in int32 words a lane, not limits of this kernel, which
+# walks any window at any Cm up to 2304.
+_VMEM_BUDGET_WORDS = 15 * 2**20 // 4
+
+
+def _per_lane_words(Cm, Nm, K):
+    T_w = (K * 112 + 512 + 7) // 8
+    return 24 * Cm + 12 * Nm + T_w + 220
+
+
+def moves_walk_fits(Cm, Nm) -> bool:
+    """Whether the TPU kernel fits any walk window at the 128-lane block
+    floor (false from Cm = 1792: long mode then fails the tier's lanes)."""
+    return _per_lane_words(Cm, Nm, 32) * 128 <= _VMEM_BUDGET_WORDS
+
+
+def max_window_slices(Cm, Nm):
+    """Largest walk window (slices, a multiple of 16 from 32) whose TPU
+    projection fits at the 128-lane floor: the long-mode window cap of a
+    capacity tier (1648 at Cm=288, 160 at Cm=1152, Nm=32)."""
+    budget = _VMEM_BUDGET_WORDS // 128
+    k = 32
+    while _per_lane_words(Cm, Nm, k + 16) <= budget:
+        k += 16
+    return k
+
 
 def _prologue(cols_tab, codes8, bits_lut):
     """The plain version's inputs: the match-mask table [K+1, 64, B] and

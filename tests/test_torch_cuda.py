@@ -181,9 +181,11 @@ def _k2_matches_per_lane_plain(args, kw, out=None):
     return out
 
 
-def _recorded_walks(cuda, graph, reads, seeds, bw, ramp, monkeypatch):
+def _recorded_walks(cuda, graph, reads, seeds, bw, ramp, monkeypatch,
+                    window=None):
     """(results, [(args, kwargs, outputs)] of every K2 call) of the seeded
-    path over ``reads`` on the card, with no host fallback."""
+    path over ``reads`` on the card, with no host fallback (in long mode
+    when ``window`` is given: one call a window)."""
     from graphaligner_tpu_torch.core import batch_align as ba
 
     monkeypatch.setenv("GA_NO_FALLBACK", "1")
@@ -196,10 +198,11 @@ def _recorded_walks(cuda, graph, reads, seeds, bw, ramp, monkeypatch):
         return out
 
     monkeypatch.setattr(ba, "walk_moves", rec)
-    res = ba.align_reads_seeded_batch(
-        graph, ba.BandedBatchAligner(graph, bw, ramp, cuda), reads, seeds
-    )
-    assert walks
+    aligner = ba.BandedBatchAligner(graph, bw, ramp, cuda)
+    if window is not None:
+        aligner.LONG_WINDOW = window
+    res = ba.align_reads_seeded_batch(graph, aligner, reads, seeds)
+    assert walks and aligner._long_mode == (window is not None)
     return res, walks
 
 
@@ -557,3 +560,175 @@ def test_exhaustive_cyclic_kernel_matches_plain_on_circle(cuda, tmp_path):
     ran = log[:, 1:, 0] > 0
     assert ran.any()
     assert (later[ran] < log[:, :1, 1].expand_as(later)[ran]).all()
+
+
+# long-read mode: chained scan rounds that drop their columns, and the walk
+# that recomputes them a window at a time
+LONGSIM = FIX / "longsim"
+
+
+def _gam(path):
+    from graphaligner_tpu_torch.io import stream, vg
+
+    return stream.read_messages(str(path), vg.Alignment)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("graph_file,reads,seeds,golden,host_lanes", [
+    ("graph.vg", "giant/giant_reads.fastq", "giant/giant_seeds.gam",
+     "giant/giant_out.gam", 0),
+    ("huge/graph.vg", "huge/reads.fastq", "huge/seeds.gam", "huge/golden.gam",
+     2),
+], ids=["giant", "huge"])
+def test_long_reads_on_gpu_match_reference(cuda, tmp_path, monkeypatch,
+                                           graph_file, reads, seeds, golden,
+                                           host_lanes):
+    """30 kb (giant, ~468 slices) and 100 kb (huge, ~1,560 slices) reads
+    through align_reads in long mode against the reference binary's
+    alignments. giant takes no host fallback. huge's graph has 8-bp nodes:
+    2 of its 8 extension lanes project more than 32 band nodes at every
+    capacity tier (K1 packs 32 node slots), in the JAX package as here, and
+    exactly those 2 are realigned by the host oracle."""
+    from graphaligner_tpu_torch.core import batch_align as ba
+    from graphaligner_tpu_torch.core.params import AlignerParams
+    from graphaligner_tpu_torch.runtime.aligner import align_reads
+
+    if host_lanes == 0:
+        monkeypatch.setenv("GA_NO_FALLBACK", "1")
+    else:
+        monkeypatch.delenv("GA_NO_FALLBACK", raising=False)
+    params = AlignerParams(
+        graph_file=str(LONGSIM / graph_file),
+        fastq_file=str(LONGSIM / reads),
+        alignment_file=str(tmp_path / "out.gam"),
+        seed_file=str(LONGSIM / seeds),
+        initial_bandwidth=35,
+    )
+    fb0 = ba.host_fallback_count()
+    align_reads(params, log=lambda m: None, output_dir=str(tmp_path),
+                backend="cuda")
+    assert ba.host_fallback_count() - fb0 == host_lanes
+    assert ([repr(a) for a in _gam(LONGSIM / golden)]
+            == [repr(a) for a in _gam(tmp_path / "out.gam")])
+
+
+@pytest.mark.cuda
+def test_long_mode_redispatch_on_gpu_equals_the_originals(cuda, monkeypatch):
+    """Each round of a long-mode chunk on the card (sim, window of 2), run
+    again from its scan inputs: every output, the dropped ones included,
+    bit for bit equal to the original's."""
+    from graphaligner_tpu_torch.core import batch_align as ba
+
+    graph, reads, seeds = _sim(5, 20)
+    kept: dict = {}
+    drop = ba._Round.drop
+
+    def keep_then_drop(self, *keys):
+        for key in keys:
+            if key in self.out:
+                kept.setdefault(id(self), {})[key] = self.out[key].clone()
+        drop(self, *keys)
+
+    monkeypatch.setattr(ba._Round, "drop", keep_then_drop)
+    aligner = ba.BandedBatchAligner(graph, 5, 20, cuda)
+    aligner.LONG_WINDOW = 2
+    problems = [p for r in reads
+                for p in ba.seed_extension_problems(graph, r.sequence,
+                                                    seeds[r.seq_id][0])
+                if p is not None]
+    aligner._run(problems)
+    assert len(aligner._chunk_rounds) >= 4
+    for rnd in aligner._chunk_rounds:
+        again = aligner._redispatch_round(rnd)
+        orig = {**rnd.out, **kept.get(id(rnd), {})}
+        assert set(orig) == set(again)
+        for key, want in orig.items():
+            assert torch.equal(again[key], want), key
+
+
+@pytest.mark.cuda
+def test_long_mode_walk_windows_match_plain(cuda, monkeypatch):
+    """sim -b 5 -B 20 in long mode on the card (window of 4): the goldens
+    byte for byte, and every window's K2 call bit for bit equal to the
+    plain walk at Bb=1, its state chained from the newer window's."""
+    from graphaligner_tpu_torch.io import stream, vg
+
+    graph, reads, seeds = _sim()
+    res, walks = _recorded_walks(cuda, graph, reads, seeds, 5, 20,
+                                 monkeypatch, window=4)
+    gold = {a.name: a for a in stream.read_messages(
+        str(SIM / "golden_b5_B20" / "out.gam"), vg.Alignment)}
+    for r in reads:
+        aln = vg.Alignment.decode(res[r.seq_id].alignment.encode())
+        for m in aln.path.mapping:
+            m.position.node_id //= 2
+        assert aln == gold[r.seq_id]
+    chained = 0
+    prev = None
+    for args, kw, out in walks:
+        _k2_matches_per_lane_plain(args, kw, out)
+        if prev is not None:
+            # lanes that walk on from the newer window's state_out
+            carried = (args[10] == prev[2]).all(0) & (args[10][5] == 0)
+            chained += int(carried.sum())
+        prev = out
+    assert len(walks) >= 3 and chained > 0
+
+
+@pytest.mark.cuda
+@pytest.mark.slow
+@pytest.mark.parametrize("bw,ramp,golden,host_lanes", [
+    (35, 0, "golden_b35.gam", 2), (5, 20, "golden_b5B20.gam", 0)])
+def test_mega_reads_on_gpu_match_reference(cuda, monkeypatch, bw, ramp,
+                                           golden, host_lanes):
+    """1 Mbp reads (15,580 and 15,595 slices) on a 1.5 M-node graph of
+    8-bp nodes, at -b 35 and at -b 5 -B 20 (ramp rewinds across dropped
+    rounds), against the reference binary's alignments; prints the wall
+    and peak memory. At -b 35 both long lanes project more than 32 band
+    nodes (at slices 2 and 3,009) at every capacity tier, in the JAX
+    package as here: exactly those 2 go to the host oracle."""
+    import subprocess
+    import time
+
+    from graphaligner_tpu_torch.core import batch_align as ba
+    from graphaligner_tpu_torch.graph import load_alignment_graph
+    from graphaligner_tpu_torch.io import load_fastq, vg
+    from graphaligner_tpu_torch.runtime.aligner import load_seed_hits
+
+    if host_lanes == 0:
+        monkeypatch.setenv("GA_NO_FALLBACK", "1")
+    else:
+        monkeypatch.delenv("GA_NO_FALLBACK", raising=False)
+    M = LONGSIM / "mega"
+    graph = load_alignment_graph(str(M / "graph.vg"))
+    reads = load_fastq(str(M / "reads.fastq"))
+    seeds = load_seed_hits(str(M / "seeds.gam"), [r.seq_id for r in reads])
+    gold = {a.name: a for a in _gam(M / golden)}
+    torch.cuda.reset_peak_memory_stats(cuda)
+    t0 = time.time()
+    rw0 = ba.rewind_count()
+    fb0 = ba.host_fallback_count()
+    aligner = ba.BandedBatchAligner(graph, bw, ramp, cuda)
+    res = ba.align_reads_seeded_batch(graph, aligner, reads, seeds)
+    torch.cuda.synchronize(cuda)
+    wall = time.time() - t0
+    assert ba.host_fallback_count() - fb0 == host_lanes
+    card = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+    ).stdout.strip()
+    print(f"mega -b {bw} -B {ramp}: {len(reads)} reads in {wall:.1f} s "
+          f"(graph tables and {host_lanes} host-oracle lanes included), "
+          f"ramp rewinds {ba.rewind_count() - rw0}, peak device memory "
+          f"{torch.cuda.max_memory_allocated(cuda) / 2**30:.2f} GiB [{card}]")
+    if ramp:
+        assert ba.rewind_count() > rw0
+    for r in reads:
+        a = res[r.seq_id]
+        if a.alignment_failed or a.alignment.score == 2**31 - 1:
+            assert r.seq_id not in gold
+            continue
+        mine = vg.Alignment.decode(a.alignment.encode())
+        for m in mine.path.mapping:
+            m.position.node_id //= 2
+        assert mine == gold[r.seq_id]

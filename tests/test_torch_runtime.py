@@ -164,12 +164,3 @@ def test_unported_routes_raise(tmp_path):
     with pytest.raises(NotImplementedError, match="multi-host"):
         align_reads(params, backend="cpu", process_count=2)
 
-
-def test_long_reads_raise_not_yet_ported():
-    from graphaligner_tpu_torch.core.batch_align import BandedBatchAligner
-    from graphaligner_tpu_torch.graph import load_alignment_graph
-
-    graph = load_alignment_graph(str(FIX / "sim" / "bubbles.vg"))
-    aligner = BandedBatchAligner(graph, 35, 0, "cpu")
-    with pytest.raises(NotImplementedError, match="long-read mode"):
-        aligner.get_traces([("A" * 64 * 400, 0)])
