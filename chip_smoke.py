@@ -15,11 +15,16 @@ GA_NO_FALLBACK=1:
   alignment byte for byte against the reference binary's goldens;
 - its long-read mode (chained scan rounds that drop their columns, and a
   walk that recomputes them and chains K2 a window at a time): giant (3
-  reads of 30 kb), huge (4 reads of 100 kb on a 150,000-node graph) at
-  -b 35, and ONT at -b 5 -B 20 forced into it with LONG_WINDOW 48, against
-  the same goldens, with each corpus's wall split into set-up, scan rounds,
-  recompute, K2 windows and the rest, the windows a lane and the peak
-  device memory beside what one window of the whole read would hold;
+  reads of 30 kb) and the 2 of huge's 4 reads of 100 kb (on a
+  150,000-node graph) whose lanes fit 32 band nodes, at -b 35, and ONT at
+  -b 5 -B 20 forced into it with LONG_WINDOW 48, against the same goldens,
+  each corpus's wall split (from batch_align.LONG_STATS) into set-up, scan
+  rounds, their replay, the walk's recompute and K2 windows, and the rest,
+  with the windows a lane and the peak device memory above what the
+  aligner's set-up holds; giant again in one normal-mode scan
+  (LONG_WINDOW 640) and in rounds of 96, for their peaks; and huge's 4
+  reads, which must raise under GA_NO_FALLBACK=1 (2 of them pass 32 band
+  nodes at every capacity tier);
 - exhaustive mode, -i, through ``align_reads``: K3's slice wavefront on
   the acyclic graphs — smallexample, sim (20 reads on bubbles.vg) and the
   longsim graph x the sim reads tiled x8 (160 lanes) — and K3's cyclic
@@ -30,9 +35,11 @@ GA_NO_FALLBACK=1:
 
 Each path's kernel launches are counted over its run (each must be > 0,
 the long path's K1 and K2 launches in long mode too; host-fallback lanes
-must be 0). Two rounds of each long-mode corpus are recomputed and held
-bit for bit against their originals, and the widest long-mode K2 window of
-the ONT run against the plain walk at Bb=1. Then each kernel is held against its plain
+must be 0). In runs of their own, two rounds each of giant and of ONT at
+LONG_WINDOW 48 are recomputed and held bit for bit against their
+originals, the widest long-mode K2 window of the ONT run against the plain
+walk at Bb=1, and the last K1 call of huge's widest long-mode tier against
+K1's plain version. Then each kernel is held against its plain
 torch version on the card, on arguments recorded from that run: K1's eight
 outputs bit for bit on its widest longsim call; for every K2 call its
 moves, fail flags, state_out and used bit for bit against the plain walk at
@@ -72,6 +79,10 @@ FIX = os.path.join(ROOT, "tests", "fixtures")
 INT32_MAX = 2**31 - 1
 TILE = 10
 TILE_I = 8  # -i at the repo's scale: longsim graph x sim reads x8
+# huge's reads whose forward pieces project more than 32 band nodes at every
+# capacity tier (K1 packs 32 node slots; the graph has 8-bp nodes), at
+# slices 564 and 211: the JAX package sends them to its host oracle too
+HUGE_OVER_NM = ("read_1635367824", "read_604779437")
 
 # bound_ms: HBM rate of the H100 SXM (NVIDIA data sheet), and Hopper's 64
 # INT32 lanes per SM (the architecture white paper), times the SM count and
@@ -149,7 +160,12 @@ def check_golden(name, reads, names, results, golden_file):
     return n_ok
 
 
-def run_corpus(device, graph, reads, seeds, bw, ramp, window=None):
+def run_corpus(device, graph, reads, seeds, bw, ramp, window=None,
+               aligner_cls=None):
+    """(results, wall, cells, info) of one seeded run through
+    align_reads_seeded_batch: info holds the aligner's set-up seconds (graph
+    tables, reach table), its first tier's Cm, and the run's peak device
+    memory above what is held once the aligner is built ("peak")."""
     import torch
 
     from graphaligner_tpu_torch.core.batch_align import (
@@ -159,14 +175,21 @@ def run_corpus(device, graph, reads, seeds, bw, ramp, window=None):
 
     torch.cuda.synchronize(device)
     t0 = time.time()
-    aligner = BandedBatchAligner(graph, bw, ramp, device)
+    aligner = (aligner_cls or BandedBatchAligner)(graph, bw, ramp, device)
     if window is not None:
         aligner.LONG_WINDOW = window
+    torch.cuda.synchronize(device)
+    setup = time.time() - t0
+    held = torch.cuda.memory_allocated(device)
+    torch.cuda.reset_peak_memory_stats(device)
     results = align_reads_seeded_batch(graph, aligner, reads, seeds)
     torch.cuda.synchronize(device)
     wall = time.time() - t0
+    info = {"set-up": setup, "Cm": aligner.Cm, "held": held,
+            "window": aligner.LONG_WINDOW,
+            "peak": torch.cuda.max_memory_allocated(device) - held}
     cells = sum(results[r.seq_id].cells_processed for r in reads)
-    return results, wall, cells
+    return results, wall, cells, info
 
 
 class Recorder:
@@ -314,12 +337,14 @@ def k1_work(args, outs):
     return moved, ops
 
 
-def compare_k1(rec, rate):
+def compare_k1(call, rate, what):
+    """A recorded K1 call against slice_cells_plain: its eight outputs bit
+    for bit; timed, with its bound."""
     import torch
 
     from graphaligner_tpu_torch.ops import banded_cell as k1
 
-    args, kw = rec.k1
+    args, kw = call
     got = k1.slice_cells(*args, **kw)
     want, plain_ms = timed(lambda: k1.slice_cells_plain(*args, **kw))
     err = 0
@@ -328,16 +353,17 @@ def compare_k1(rec, rate):
         diff = int((g.to(torch.int64) - w.to(torch.int64)).abs().max())
         err = max(err, diff)
         if not torch.equal(g, w):
-            fail(f"K1 {name} differs from its plain version (max {diff})")
+            fail(f"K1 {name} differs from its plain version on {what} "
+                 f"(max {diff})")
     ms = cuda_ms(lambda: k1.slice_cells(*args, **kw), 20)
     Nm, B = args[0].shape
     Cm = args[5].shape[0]
     moved, ops = k1_work(args, got)
     bms, by = bound(moved, ops, rate)
-    print(f"K1 slice_cells (fused) vs plain at Cm={Cm} Nm={Nm} B={B}: eight "
-          f"outputs bit-identical; kernel {ms:.4f} ms, plain {plain_ms:.1f} "
-          f"ms; bound {bms:.5f} ms by {by} ({moved} B, {ops} int32 ops), "
-          f"share {bms / ms:.4f}", flush=True)
+    print(f"K1 slice_cells (fused) vs plain on {what} at Cm={Cm} Nm={Nm} "
+          f"B={B}: eight outputs bit-identical; kernel {ms:.4f} ms, plain "
+          f"{plain_ms:.1f} ms; bound {bms:.5f} ms by {by} ({moved} B, {ops} "
+          f"int32 ops), share {bms / ms:.4f}", flush=True)
     return err, ms, plain_ms, bms, by
 
 
@@ -567,130 +593,79 @@ def k2_top_tier(rec):
 
 
 class LongRecorder:
-    """Instruments the long-read path at its call sites in
-    core.batch_align: splits each corpus's wall on the host clock (with a
-    synchronize around each piece) into the aligner's set-up (graph tables,
-    reach table), the scan rounds, their recompute in the walk
-    (redispatch), the K2 windows, and the rest (walk starts, decode,
-    finalize); counts the K1 launches of long-mode rounds and redispatches
-    and the K2 launches of long-mode walks, and the windows a walked lane
-    takes, and times the host oracle on fallback lanes; keeps the first
-    two rounds' dropped outputs of each corpus for
-    the recompute check, and the widest long-mode K2 call of the corpus
-    named in ``keep_k2``."""
+    """What the long path's checks hold against the plain versions,
+    recorded in runs of their own (not the measured ones): at K1's and
+    K2's call sites, as Recorder records them, the last K1 call of the
+    widest capacity tier while ``k1_on`` is set, and the widest K2 window
+    of a long walk while ``k2_on`` is set; and through ``aligner`` (a
+    BandedBatchAligner that clones its long-mode rounds before the run
+    drops anything), the first two rounds of each ``corpus``."""
 
     NO_BASE = -(10**6)
 
-    def __init__(self, keep_k2):
-        import torch
-
+    def __init__(self):
         import graphaligner_tpu_torch.core.batch_align as ba
-        from graphaligner_tpu_torch.ops import banded_cell as k1
-        from graphaligner_tpu_torch.ops import walk_moves as k2
+        import graphaligner_tpu_torch.core.engine_banded as eb
 
         self.corpus = None
-        self.keep_k2 = keep_k2
-        self.split = {}  # corpus -> {piece: s}
-        self.count = {}  # corpus -> {"k1": n, "k2": n, "lanes": n, ...}
-        self.kept = []  # (aligner, round, {key: original output})
-        self.k2 = None  # [args, kwargs, outputs] of the widest kept call
-        self.first_b = {}  # corpus -> (scan lanes, Cm) of its first long round
-        from graphaligner_tpu_torch.core import align
+        self.k1_on = self.k2_on = False
+        self.kept = []  # (aligner, round, {key: original output}, corpus)
+        self.k1 = None  # (args, kwargs) of the recorded K1 call
+        self.k2 = None  # [args, kwargs, outputs] of the widest K2 window
+        self._walking = False
+        self._mods = (eb, ba)
+        self._orig = (eb.slice_cells, ba.walk_moves)
+        rec = self
 
-        self._ba, self._align = ba, align
-        A, R = ba.BandedBatchAligner, ba._Round
-        self._orig = (A.__init__, A._round, A._redispatch_round,
-                      A._walk_long, ba.walk_moves, R.drop,
-                      align.get_split_alignment)
-        init, rnd_, redo, walk_long_, wm, drop, oracle = self._orig
-        state = {"long_walk": False}
+        def rec_k1(*args, **kw):
+            if rec.k1_on and (rec.k1 is None or args[5].shape[0]
+                              >= rec.k1[0][5].shape[0]):
+                rec.k1 = ([a.clone() for a in args], kw)
+            return rec._orig[0](*args, **kw)
 
-        def piece(key, fn, counter=None, mod=None, when=None):
-            def run(*args, **kw):
-                torch.cuda.synchronize()
-                n0 = mod.LAUNCHES if mod else 0
-                t0 = time.time()
-                out = fn(*args, **kw)
-                torch.cuda.synchronize()
-                split = self.split.setdefault(self.corpus, {})
-                split[key] = split.get(key, 0.0) + time.time() - t0
-                if counter and (when is None or when(args)):
-                    c = self.count.setdefault(self.corpus, {})
-                    c[counter] = c.get(counter, 0) + mod.LAUNCHES - n0
-                return out
-            return run
-
-        def walk_long(aligner, problems, lanes, keeps, walk_idx, *rest):
-            c = self.count.setdefault(self.corpus, {})
-            c["lanes"] = c.get("lanes", 0) + len(walk_idx)
-            state["long_walk"] = True
-            try:
-                return walk_long_(aligner, problems, lanes, keeps, walk_idx,
-                                  *rest)
-            finally:
-                state["long_walk"] = False
-
-        def k2_call(*args, **kw):
-            out = wm(*args, **kw)
-            if state["long_walk"]:
-                c = self.count.setdefault(self.corpus, {})
-                c["pairs"] = c.get("pairs", 0) + int(
-                    (args[9][0] > self.NO_BASE).sum())
-                c["windows"] = c.get("windows", 0) + 1
-                if self.corpus == self.keep_k2 and (
-                        self.k2 is None
-                        or args[0].numel() > self.k2[0][0].numel()):
-                    self.k2 = [[a.clone() for a in args], kw,
-                               [o.clone() for o in out]]
+        def rec_k2(*args, **kw):
+            out = rec._orig[1](*args, **kw)
+            if rec.k2_on and rec._walking and (
+                    rec.k2 is None or args[0].numel() > rec.k2[0][0].numel()):
+                rec.k2 = [[a.clone() for a in args], kw,
+                          [o.clone() for o in out]]
             return out
 
-        def keep_then_drop(rnd, *keys):
-            mine = [k for k in self.kept if k[1] is rnd]
-            if mine or sum(1 for k in self.kept
-                           if k[3] == self.corpus) < 2:
-                if not mine:
-                    mine = [(self._aligner, rnd, {}, self.corpus)]
-                    self.kept.append(mine[0])
-                for key in keys:
-                    if key in rnd.out:
-                        mine[0][2][key] = rnd.out[key].clone()
-            return drop(rnd, *keys)
+        class Keeping(ba.BandedBatchAligner):
+            def _round(self, *args, **kw):
+                rnd = super()._round(*args, **kw)
+                if self._long_mode and sum(
+                        1 for k in rec.kept if k[3] == rec.corpus) < 2:
+                    rec.kept.append((self, rnd, {
+                        key: v.clone() for key, v in rnd.out.items()
+                    }, rec.corpus))
+                return rnd
 
-        def round_(aligner, *args, **kw):
-            self._aligner = aligner
-            out = timed_round(aligner, *args, **kw)
-            if aligner._long_mode:
-                self.first_b.setdefault(
-                    self.corpus, (out.out["cols"].shape[3], aligner.Cm))
-            return out
+            def _walk_long(self, *args, **kw):
+                rec._walking = True
+                try:
+                    return super()._walk_long(*args, **kw)
+                finally:
+                    rec._walking = False
 
-        timed_round = piece("scan rounds", rnd_, "k1", k1,
-                            when=lambda a: a[0]._long_mode)
-        A.__init__ = piece("set-up", init)
-        A._round = round_
-        A._redispatch_round = piece("redispatch", redo, "k1", k1)
-        A._walk_long = piece("walk", walk_long, "k2", k2)
-        ba.walk_moves = piece("K2 windows", k2_call)
-        R.drop = keep_then_drop
-        align.get_split_alignment = piece("host fallback", oracle)
+        self.aligner = Keeping
+        eb.slice_cells = rec_k1
+        ba.walk_moves = rec_k2
 
     def close(self):
-        ba, align = self._ba, self._align
-        A, R = ba.BandedBatchAligner, ba._Round
-        (A.__init__, A._round, A._redispatch_round, A._walk_long,
-         ba.walk_moves, R.drop, align.get_split_alignment) = self._orig
+        eb, ba = self._mods
+        eb.slice_cells, ba.walk_moves = self._orig
 
 
 def check_redispatch(lrec):
-    """The rounds kept during the long path, recomputed on the card: every
-    output, the dropped ones included, bit for bit equal to the
+    """The rounds kept during the recording runs, recomputed on the card:
+    every output, the dropped ones included, bit for bit equal to the
     original's."""
     import torch
 
     n = 0
-    for aligner, rnd, kept, corpus in lrec.kept:
+    for aligner, rnd, orig, corpus in lrec.kept:
         again = aligner._redispatch_round(rnd)
-        orig = {**rnd.out, **kept}
         if set(orig) != set(again):
             fail(f"{corpus}: a recomputed round has other outputs")
         for key, want in orig.items():
@@ -698,10 +673,9 @@ def check_redispatch(lrec):
                 fail(f"{corpus}: a recomputed round's {key} differs from "
                      "the original")
         n += 1
-    if n == 0 or not any("cols" in k[2] for k in lrec.kept):
-        fail("no long-mode round's columns were kept to recompute")
-    shapes = sorted({tuple(k[2]["cols"].shape) for k in lrec.kept
-                     if "cols" in k[2]})
+    if n == 0 or not any(rnd.dropped for _, rnd, _, _ in lrec.kept):
+        fail("no dropped long-mode round was kept to recompute")
+    shapes = sorted({tuple(k[2]["cols"].shape) for k in lrec.kept})
     print(f"long mode: {n} rounds recomputed from their scan inputs, every "
           f"output bit-identical to the original, dropped cols included "
           f"(cols {', '.join('x'.join(map(str, s)) for s in shapes)})",
@@ -709,7 +683,7 @@ def check_redispatch(lrec):
 
 
 def compare_k2_long(lrec, card):
-    """The widest long-mode K2 call kept, a window of a chained walk,
+    """The widest long-mode K2 window recorded, a window of a chained walk,
     against walk_moves_plain(Bb=1): its four outputs bit for bit; timed."""
     from graphaligner_tpu_torch.ops import walk_moves as k2
 
@@ -723,11 +697,11 @@ def compare_k2_long(lrec, card):
     ms = cuda_ms(lambda: k2.walk_moves(*args, **kw), 3)
     K1_, _, Cm, B = args[0].shape
     active = int((args[9][0] > LongRecorder.NO_BASE).sum())
-    print(f"K2 long-mode window ({lrec.keep_k2}) vs walk_moves_plain(Bb=1) "
-          f"at K={K1_ - 1} Cm={Cm} B={B} ({active} lanes in the window): "
-          f"moves, fail, state_out and used bit-identical (max abs err "
-          f"{err}); kernel {ms:.3f} ms, plain {plain_ms:.1f} ms [{card}]",
-          flush=True)
+    print(f"K2 long-mode window (ont -b 5 -B 20 LONG_WINDOW 48) vs "
+          f"walk_moves_plain(Bb=1) at K={K1_ - 1} Cm={Cm} B={B} ({active} "
+          f"lanes in the window): moves, fail, state_out and used "
+          f"bit-identical (max abs err {err}); kernel {ms:.3f} ms, plain "
+          f"{plain_ms:.1f} ms [{card}]", flush=True)
     return err
 
 
@@ -1068,7 +1042,7 @@ def profile_seeded(device, corpus, card):
     from graphaligner_tpu_torch.ops import banded_cell as k1
 
     graph, reads, seeds, _ = corpus
-    _, wall, _ = run_corpus(device, graph, reads, seeds, 35, 0)
+    _, wall, _, _ = run_corpus(device, graph, reads, seeds, 35, 0)
     n1 = k1.LAUNCHES
     t0 = time.time()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
@@ -1101,15 +1075,26 @@ def profile_seeded(device, corpus, card):
         print(f"  {t:9.3f} ms over {n:6d} x {name[:90]}", flush=True)
 
 
-def run_long_path(device, card, ont):
-    """The long-read path: giant (3 reads of 30 kb, ~468 slices) and huge
-    (4 reads of 100 kb, ~1,560 slices, on a 150,000-node graph) at -b 35,
-    and ONT at -b 5 -B 20 with LONG_WINDOW 48 (ramp rewinds across dropped
-    rounds), each against the reference binary's golden. Returns the
-    path's K1 and K2 launches (each must be > 0: long-mode rounds and
-    recomputes, long-mode walks) and the recorder."""
-    import torch
+def bucket(S):
+    """The scan-length bucket of a read of S slices, as BandedBatchAligner
+    buckets it (160 and then doubling, past 160)."""
+    b = 160
+    while b < S:
+        b *= 2
+    return b
 
+
+def run_long_path(device, card, ont):
+    """The long-read path under GA_NO_FALLBACK=1: giant (3 reads of 30 kb,
+    ~468 slices) and the 2 of huge's 4 reads of 100 kb (~1,560 slices, on a
+    150,000-node graph) whose lanes fit 32 band nodes at -b 35, and ONT at
+    -b 5 -B 20 with LONG_WINDOW 48 (ramp rewinds across dropped rounds),
+    each against the reference binary's golden, with each corpus's wall
+    split and its peak device memory. Then giant again at LONG_WINDOW 640
+    (one normal-mode scan of 640 slices) and 96 (rounds of 96) against the
+    same golden, for their peaks; huge's 4 reads, which must raise; and the
+    recording runs of the checks. Returns the measured runs' K1 and K2
+    launches and the recorder."""
     from graphaligner_tpu_torch.core import batch_align as ba
     from graphaligner_tpu_torch.ops import banded_cell as k1
     from graphaligner_tpu_torch.ops import walk_moves as k2
@@ -1120,92 +1105,119 @@ def run_long_path(device, card, ont):
     huge = load_corpus(f"{FIX}/longsim/huge/graph.vg",
                        f"{FIX}/longsim/huge/reads.fastq",
                        f"{FIX}/longsim/huge/seeds.gam")
-    # (name, corpus, bw, ramp, LONG_WINDOW, golden, host-fallback lanes):
-    # huge's graph has 8-bp nodes, and 2 of its 8 extension lanes (the
-    # forward pieces of read_1635367824 at slice 564 and of read_604779437
-    # at slice 211) project more than 32 band nodes at every capacity tier,
-    # in the JAX package as here (K1's pred-slot packing caps Nm at 32):
-    # both packages realign those two with the host oracle, and the count
-    # is held exact
+    hg, hreads, hseeds, hnames = huge
+    huge_fit = (hg, [r for r in hreads if r.seq_id not in HUGE_OVER_NM],
+                hseeds, hnames)
+    giant_gold = f"{FIX}/longsim/giant/giant_out.gam"
+    huge_gold = f"{FIX}/longsim/huge/golden.gam"
+    ont_gold = f"{FIX}/ont/golden_b5B20.gam"
     corpora = [
-        ("giant -b 35", giant, 35, 0, None,
-         f"{FIX}/longsim/giant/giant_out.gam", 0),
-        ("huge -b 35", huge, 35, 0, None, f"{FIX}/longsim/huge/golden.gam",
-         2),
-        ("ont -b 5 -B 20 LONG_WINDOW 48", ont, 5, 20, 48,
-         f"{FIX}/ont/golden_b5B20.gam", 0),
+        ("giant -b 35", giant, 35, 0, None, giant_gold),
+        ("huge -b 35 (its 2 reads within 32 band nodes)", huge_fit, 35, 0,
+         None, huge_gold),
+        ("ont -b 5 -B 20 LONG_WINDOW 48", ont, 5, 20, 48, ont_gold),
     ]
     k1.LAUNCHES = 0
     k2.LAUNCHES = 0
-    lrec = LongRecorder(keep_k2=corpora[2][0])
-    try:
-        for (name, (graph, reads, seeds, names), bw, ramp, window, golden,
-             expect_fb) in corpora:
-            lrec.corpus = name
-            rw0 = ba.rewind_count()
-            fb0 = ba.host_fallback_count()
-            if expect_fb:
-                os.environ.pop("GA_NO_FALLBACK")
-            torch.cuda.reset_peak_memory_stats(device)
-            held = torch.cuda.memory_allocated(device)
-            try:
-                results, wall, cells = run_corpus(device, graph, reads, seeds,
-                                                  bw, ramp, window)
-            finally:
-                os.environ["GA_NO_FALLBACK"] = "1"
-            # the run's own peak, above what earlier phases still hold
-            peak = torch.cuda.max_memory_allocated(device) - held
-            fallbacks = ba.host_fallback_count() - fb0
-            if fallbacks != expect_fb:
-                fail(f"{name}: {fallbacks} host-fallback lanes, expected "
-                     f"{expect_fb}")
-            n_ok = check_golden(name, reads, names, results, golden)
-            sp, c = lrec.split.get(name, {}), lrec.count.get(name, {})
-            if not c.get("k1") or not c.get("k2"):
-                fail(f"{name}: did not run in long mode ({c})")
-            walk = sp.get("walk", 0.0)
-            k2_s, redo = sp.get("K2 windows", 0.0), sp.get("redispatch", 0.0)
-            oracle_s = sp.get("host fallback", 0.0)
-            rest = (wall - sp.get("set-up", 0.0) - sp.get("scan rounds", 0.0)
-                    - walk - oracle_s)
-            S = max(len(r.sequence) for r in reads) // 64
-            S_bucket = 160
-            while S_bucket < S:
-                S_bucket *= 2
-            B0, Cm = lrec.first_b[name]
-            one = S_bucket * 7 * Cm * 4
-            print(f"{name}: {n_ok}/{len(reads)} aligned, byte-identical to "
-                  f"the golden; {len(reads) / wall:.3f} reads/s, "
-                  f"{cells / wall / 1e6:.1f} Mcells/s ({wall:.3f} s: set-up "
-                  f"{sp.get('set-up', 0.0):.3f} s, scan rounds "
-                  f"{sp.get('scan rounds', 0.0):.3f} s, walk {walk:.3f} s = "
-                  f"redispatch {redo:.3f} s + K2 windows {k2_s:.3f} s + its "
-                  f"host side {walk - redo - k2_s:.3f} s, host-fallback "
-                  f"lanes {oracle_s:.3f} s, the rest (finalize) {rest:.3f} "
-                  f"s); {c.get('windows', 0)} K2 windows, "
-                  f"{c.get('pairs', 0) / max(c.get('lanes', 1), 1):.2f} "
-                  f"windows a lane over {c.get('lanes', 0)} walked lanes; "
-                  f"ramp rewinds {ba.rewind_count() - rw0}; host-fallback "
-                  f"lanes {fallbacks}; long-mode "
-                  f"launches K1 {c['k1']}, K2 {c['k2']}; peak device memory "
-                  f"{peak / 2**20:.0f} MiB above the {held / 2**20:.0f} MiB "
-                  f"held before the run, where one window of the whole "
-                  f"read (S_bucket {S_bucket}) would hold "
-                  f"{one / 2**20:.1f} MiB a lane in columns alone, "
-                  f"{one * B0 / 2**20:.0f} MiB for the first round's {B0} "
-                  f"scan lanes at Cm={Cm} [{card}]", flush=True)
-    finally:
-        lrec.close()
-    launches = {"slice_cells": k1.LAUNCHES, "walk_moves": k2.LAUNCHES,
-                "recorder": lrec}
-    long_k1 = sum(c.get("k1", 0) for c in lrec.count.values())
-    long_k2 = sum(c.get("k2", 0) for c in lrec.count.values())
+    fb0 = ba.host_fallback_count()
+    long_k1 = long_k2 = 0
+    for name, (graph, reads, seeds, names), bw, ramp, window, golden in corpora:
+        ba.LONG_STATS.clear()
+        rw0 = ba.rewind_count()
+        results, wall, cells, info = run_corpus(device, graph, reads, seeds,
+                                                bw, ramp, window)
+        n_ok = check_golden(name, reads, names, results, golden)
+        st = dict(ba.LONG_STATS)
+        if not st.get("k1 rounds") or not st.get("k2"):
+            fail(f"{name}: did not run in long mode ({st})")
+        long_k1 += st["k1 rounds"] + st.get("k1 recompute", 0)
+        long_k2 += st["k2"]
+        g = lambda key: st.get(key, 0.0)  # noqa: E731
+        walk, redo, k2_s = g("walk"), g("recompute"), g("K2 windows")
+        rest = wall - info["set-up"] - g("scan rounds") - g("replay") - walk
+        S_b = bucket(max(len(r.sequence) for r in reads) // 64)
+        Cm = info["Cm"]
+        one = S_b * 7 * Cm * 4
+        # K2's window buffer: the window's slices and the one below it, at
+        # 128 lanes (every chunk here has fewer)
+        buf = (min(info["window"], ba.max_window_slices(Cm, 32)) + 1) * 7 \
+            * Cm * 128 * 4
+        mib = lambda key: (st.get(key, info["held"])  # noqa: E731
+                           - info["held"]) / 2**20
+        print(f"{name}: {n_ok}/{len(reads)} aligned, byte-identical to the "
+              f"golden; {len(reads) / wall:.3f} reads/s, "
+              f"{cells / wall / 1e6:.1f} Mcells/s ({wall:.3f} s: set-up "
+              f"{info['set-up']:.3f} s, scan rounds {g('scan rounds'):.3f} s,"
+              f" their replay {g('replay'):.3f} s, walk {walk:.3f} s = "
+              f"recompute {redo:.3f} s + K2 windows {k2_s:.3f} s (device "
+              f"time) + the rest {walk - redo - k2_s:.3f} s, finalize "
+              f"{rest:.3f} s); {g('lane windows') / max(g('lanes'), 1):.2f} "
+              f"windows a lane over {int(g('lanes'))} walked lanes; ramp "
+              f"rewinds {ba.rewind_count() - rw0}; long-mode launches K1 "
+              f"{st['k1 rounds']} in rounds + {st.get('k1 recompute', 0)} in "
+              f"recomputes, K2 {st['k2']}; peak device memory "
+              f"{info['peak'] / 2**20:.1f} MiB above what the aligner's "
+              f"set-up holds ({mib('peak scan'):.1f} MiB by the end of the "
+              f"scan rounds, {mib('peak walk'):.1f} MiB by the end of the "
+              f"walk, whose window buffer takes {buf / 2**20:.1f} MiB), "
+              f"where one scan of the whole read (S_bucket {S_b}) would "
+              f"hold {one / 2**20:.1f} MiB a lane in columns alone at "
+              f"Cm={Cm} [{card}]", flush=True)
+    launches = {"slice_cells": k1.LAUNCHES, "walk_moves": k2.LAUNCHES}
+    fallbacks = ba.host_fallback_count() - fb0
     print(f"long-read path launches: K1 slice_cells {k1.LAUNCHES} (long-mode "
           f"rounds and recomputes {long_k1}), K2 walk_moves {k2.LAUNCHES} "
-          f"(long-mode windows {long_k2})", flush=True)
+          f"(long-mode windows {long_k2}); host-fallback lanes {fallbacks}",
+          flush=True)
     if min(long_k1, long_k2) < 1:
         fail("a kernel never launched in long mode")
-    return launches
+    if fallbacks:
+        fail(f"{fallbacks} lanes fell back to the host oracle")
+
+    # the bound on memory: giant in one normal-mode scan of its bucket (640
+    # slices fit the Cm=288 tier's 1648) and in long-mode rounds of 96
+    graph, reads, seeds, names = giant
+    for window in (640, 96):
+        results, wall, _, info = run_corpus(device, graph, reads, seeds, 35,
+                                            0, window)
+        check_golden(f"giant LONG_WINDOW {window}", reads, names, results,
+                     giant_gold)
+        print(f"giant -b 35 at LONG_WINDOW {window} "
+              f"({'normal mode' if window >= 640 else 'long mode'}): "
+              f"byte-identical to the golden in {wall:.3f} s, peak device "
+              f"memory {info['peak'] / 2**20:.1f} MiB above what the "
+              f"aligner's set-up holds [{card}]", flush=True)
+
+    lrec = LongRecorder()
+    try:
+        # huge's other 2 reads project more than 32 band nodes at every
+        # tier: under GA_NO_FALLBACK=1 they must raise, not be realigned
+        # on the host (K1's widest tier recorded on the way)
+        lrec.k1_on = True
+        try:
+            run_corpus(device, hg, hreads, hseeds, 35, 0)
+        except RuntimeError as e:
+            if not (str(e).startswith("GA_NO_FALLBACK")
+                    and any(r in str(e) for r in HUGE_OVER_NM)):
+                raise
+            print(f"huge -b 35, all 4 reads: raised under GA_NO_FALLBACK=1 "
+                  f"({e}); reads {', '.join(HUGE_OVER_NM)} have no device "
+                  f"alignment until band nodes past 32 are supported",
+                  flush=True)
+        else:
+            fail("huge's lanes past 32 band nodes did not raise")
+        lrec.k1_on = False
+        for name, corpus, bw, ramp, window, golden in (corpora[0],
+                                                       corpora[2]):
+            graph, reads, seeds, names = corpus
+            lrec.corpus = name
+            lrec.k2_on = window is not None
+            results, _, _, _ = run_corpus(device, graph, reads, seeds, bw,
+                                          ramp, window, lrec.aligner)
+            check_golden(f"{name} (recorded)", reads, names, results, golden)
+    finally:
+        lrec.close()
+    return launches, lrec
 
 
 def main() -> int:
@@ -1279,17 +1291,16 @@ def main() -> int:
             # ONT's K2 calls take longsim's shapes: the plain walk, slow at
             # K=160, is held against the kernel on longsim's and sim's
             rec.on = not name.startswith("ont")
-            torch.cuda.reset_peak_memory_stats(device)
-            results, wall, cells = run_corpus(device, graph, reads, seeds,
-                                              bw, ramp)
+            results, wall, cells, info = run_corpus(device, graph, reads,
+                                                    seeds, bw, ramp)
             n_ok = check_golden(name, reads, names, results, golden)
             bp = sum(len(r.sequence) for r in reads)
-            peak = torch.cuda.max_memory_allocated(device)
             print(f"{name}: {n_ok}/{len(reads)} aligned, byte-identical to the "
                   f"golden; {len(reads) / wall:.1f} reads/s, "
                   f"{cells / wall / 1e6:.1f} Mcells/s, {bp / 1e6:.2f} Mbp in "
-                  f"{wall:.2f} s, peak device memory {peak / 2**20:.0f} MiB "
-                  f"[{card}]", flush=True)
+                  f"{wall:.2f} s, peak device memory {info['peak'] / 2**20:.0f}"
+                  f" MiB above what the aligner's set-up holds [{card}]",
+                  flush=True)
     finally:
         rec.close()
     launches = {"slice_cells": k1.LAUNCHES, "walk_moves": k2.LAUNCHES}
@@ -1303,7 +1314,7 @@ def main() -> int:
         fail(f"{fallbacks} lanes fell back to the host oracle")
     if rec.k1 is None or not rec.k2:
         fail("kernel arguments were not recorded")
-    long_launches = run_long_path(device, card, ont)
+    long_launches, lrec = run_long_path(device, card, ont)
     for name in ("slice_cells", "walk_moves"):
         launches[name] += long_launches[name]
 
@@ -1366,10 +1377,14 @@ def main() -> int:
     if fallbacks:
         fail(f"{fallbacks} lanes fell back to the host oracle")
 
-    check_redispatch(long_launches["recorder"])
-    k2_long_err = compare_k2_long(long_launches["recorder"], card)
+    check_redispatch(lrec)
+    k2_long_err = compare_k2_long(lrec, card)
+    if lrec.k1 is None:
+        fail("no long-mode K1 call of huge's widest tier was recorded")
+    k1_long_err = compare_k1(lrec.k1, rate, "the last call of huge's widest "
+                             "long-mode tier")[0]
     results = {
-        "slice_cells": compare_k1(rec, rate),
+        "slice_cells": compare_k1(rec.k1, rate, "its widest longsim call"),
         "walk_moves": compare_k2(rec, rate),
         "exhaustive_wavefront": compare_k3(rec3, rate),
         "exhaustive_serial": compare_k3_cyclic(rec3, rate, card),
@@ -1385,6 +1400,8 @@ def main() -> int:
     }
     err, *rest = results["walk_moves"]
     results["walk_moves"] = (max(err, k2_long_err), *rest)
+    err, *rest = results["slice_cells"]
+    results["slice_cells"] = (max(err, k1_long_err), *rest)
     kernels = []
     for name, (err, ms, plain_ms, bound_ms, by) in results.items():
         src, tpu = sources[name]

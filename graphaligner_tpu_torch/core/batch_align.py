@@ -31,6 +31,7 @@ Not ported (each raises NotImplementedError): the XLA walk for in-degree
 from __future__ import annotations
 
 import os as _os
+import time
 from dataclasses import dataclass, field
 
 import numpy as np
@@ -38,6 +39,8 @@ import torch
 
 from ..graph.alignment_graph import AlignmentGraph
 from ..io import native
+from ..ops import banded_cell as _k1
+from ..ops import walk_moves as _k2
 from ..ops.walk_moves import max_window_slices, moves_walk_fits, walk_moves
 from . import hmm as _hmm
 from .align import _pad_to_word
@@ -62,6 +65,44 @@ _REWIND_COUNT = 0
 # lanes that fell back to the host oracle (process-wide count)
 _HOST_FALLBACKS = 0
 _HOST_THREADS = 0
+# the long-read mode's work since a caller last cleared this: host seconds
+# of the scan rounds ("scan rounds"), their control replay ("replay") and
+# the whole walk ("walk"); seconds of the walk's recomputes ("recompute")
+# and K2 windows ("K2 windows"), from CUDA events read once the walk has
+# synchronized (the host clock on the CPU); the kernels' launches in the
+# scan rounds ("k1 rounds"), the recomputes ("k1 recompute") and the
+# windows ("k2"); the lanes walked ("lanes") and lane-windows ("lane
+# windows"); and on the card the allocator's peak since the caller last
+# reset it, read as the scan rounds end ("peak scan") and as the walk ends
+# ("peak walk")
+LONG_STATS: dict = {}
+
+
+def _long_add(key, value) -> None:
+    LONG_STATS[key] = LONG_STATS.get(key, 0) + value
+
+
+def _long_peak(key, dev) -> None:
+    if dev.type == "cuda":
+        LONG_STATS[key] = max(LONG_STATS.get(key, 0),
+                              torch.cuda.max_memory_allocated(dev))
+
+
+def _mark(dev):
+    """A point in time on ``dev``'s stream: a recorded CUDA event on the
+    card, the host clock elsewhere."""
+    if dev.type == "cuda":
+        ev = torch.cuda.Event(enable_timing=True)
+        ev.record()
+        return ev
+    return time.perf_counter()
+
+
+def _between(a, b) -> float:
+    """Seconds from mark ``a`` to mark ``b`` (both complete)."""
+    if isinstance(a, float):
+        return b - a
+    return a.elapsed_time(b) / 1e3
 
 
 def rewind_count() -> int:
@@ -400,8 +441,12 @@ class BandedBatchAligner:
         for round_no in range(rounds_cap):
             if not requests:
                 break
+            t0, n0 = time.perf_counter(), _k1.LAUNCHES
             rnd = self._round(problems, codes, seq_lens, requests, S_max)
+            t1 = time.perf_counter()
             if long_mode:
+                _long_add("scan rounds", t1 - t0)
+                _long_add("k1 rounds", _k1.LAUNCHES - n0)
                 # this round took its carries from the one before: that
                 # one's columns can go, and the round before it feeds no
                 # rewind any more (JAX :805-818)
@@ -443,6 +488,11 @@ class BandedBatchAligner:
                     if carry != "init" and carry.rnd is rnd
                 }
                 self._stash_round_boundary(rnd, overrides)
+                _long_add("replay", time.perf_counter() - t1)
+        if long_mode:
+            # the walk recomputes every round, the newest one too
+            self._chunk_rounds[-1].drop("cols", "codes")
+            _long_peak("peak scan", self.device)
         for lane in lanes:
             if not lane.done:
                 lane.failed = True
@@ -559,8 +609,10 @@ class BandedBatchAligner:
                 for i in walk_idx:
                     lanes[i].failed = True
                 return results
+            t0 = time.perf_counter()
             self._walk_long(problems, lanes, keeps, walk_idx,
                             list(self._chunk_rounds), results)
+            _long_add("walk", time.perf_counter() - t0)
             return results
         big_dev, st = self._gather_walk_inputs(lanes, keeps)
         starts_map: dict = {}
@@ -945,10 +997,12 @@ class BandedBatchAligner:
         dev = self.device
         Cm, Nm = self.Cm, self.Nm
         B = len(lanes)
-        # the plain walk's lockstep blocks are the TPU kernel's only at its
-        # lane padding (Bp >= 128); the CUDA kernel steps each lane alone
-        Bp = B if dev.type == "cuda" else max(128, -(-B // 128) * 128)
+        # lanes padded as _walk_block pads them, on every device: the plain
+        # walk's lockstep blocks are then the TPU kernel's, and on the card
+        # the pad lanes are idle warps (state[5] = 1)
+        Bp = max(128, -(-B // 128) * 128)
         NO_BASE = -(10**6)
+        marks: list = []  # (key, start, end) of each recompute and window
 
         # each lane's table as straight segments, one a round:
         # [rnd, first step, slices, first slice, lane_in_round]
@@ -984,6 +1038,7 @@ class BandedBatchAligner:
         live = [i for i in walk_idx if i in lane_segs]
         if not live:
             return
+        _long_add("lanes", len(live))
         rounds = [
             r for r in chunk_rounds
             if any(s_[0] is r for i in live for s_ in lane_segs[i])
@@ -1012,12 +1067,16 @@ class BandedBatchAligner:
             }
             if not segs_here:
                 continue
+            m0, n0 = _mark(dev), _k1.LAUNCHES
             out = self._redispatch_round(rnd)
+            marks.append(("recompute", m0, _mark(dev)))
+            _long_add("k1 recompute", _k1.LAUNCHES - n0)
+            _long_add("lane windows", len(segs_here))
             K_w = max(s_[2] for s_ in segs_here.values())
-            steps_map = np.zeros((K_w, Bp), np.int64)
-            valid_map = np.zeros((K_w, Bp), bool)
+            steps_map = np.zeros((K_w, B), np.int64)
+            valid_map = np.zeros((K_w, B), bool)
             base = np.full(B, NO_BASE, np.int32)
-            lr = np.zeros(Bp, np.int64)
+            lr = np.zeros(B, np.int64)
             for i, (_, step0, n, g0, lane_r) in segs_here.items():
                 base[i] = g0
                 lr[i] = lane_r
@@ -1027,21 +1086,24 @@ class BandedBatchAligner:
             lr_t = torch.as_tensor(lr, device=dev)[None, :]
             vm = torch.as_tensor(valid_map, device=dev)[:, None, :]
 
-            # the window's tables by (step, lane_in_round), lane-padded to
-            # Bp; entry 0, the slice below the window, is the lane's
-            # previous segment's last slice from that round's stash
+            # the window's tables by (step, lane_in_round), gathered for the
+            # B lanes into buffers of Bp; entry 0, the slice below the
+            # window, is the lane's previous segment's last slice from that
+            # round's stash
+            keys = ("band_ids", "lens_tab", "pred_tab", "pred_prev")
             tabs = []
-            prev0 = []
-            for key, fill in (("band_ids", int(EMPTY)), ("lens_tab", 0),
-                              ("pred_tab", 0), ("pred_prev", 0)):
+            for key, fill in zip(keys, (int(EMPTY), 0, 0, 0)):
+                t_ = torch.full((K_w + 1, Nm, Bp), fill, dtype=torch.int32,
+                                device=dev)
                 g_ = rnd.out[key][st_t, :, lr_t].permute(0, 2, 1)
-                tabs.append(torch.where(vm, g_, fill))
-                prev0.append(torch.full((Nm, Bp), fill, dtype=torch.int32,
-                                        device=dev))
-            cols_w = out["cols"][st_t, :, :, lr_t].permute(0, 2, 3, 1)
-            cols_w = torch.where(vm[:, None], cols_w, 0)
-            prev0_cols = torch.zeros((7, Cm, Bp), dtype=torch.int32,
-                                     device=dev)
+                t_[1:, :, :B] = torch.where(vm, g_, fill)
+                tabs.append(t_)
+            cols_w = torch.zeros((K_w + 1, 7, Cm, Bp), dtype=torch.int32,
+                                 device=dev)
+            cols_w[1:, :, :, :B] = torch.where(
+                vm[:, None], out["cols"][st_t, :, :, lr_t].permute(0, 2, 3, 1),
+                0,
+            )
             by_prev: dict = {}
             for i, s_ in segs_here.items():
                 segs = lane_segs[i]
@@ -1072,17 +1134,14 @@ class BandedBatchAligner:
                 plast = torch.as_tensor([p_[1] + p_[2] - 1 for _, p_ in good],
                                         device=dev)
                 plane = torch.as_tensor([p_[4] for _, p_ in good], device=dev)
-                prev0_cols[:, :, idx] = prnd.cols_last[
+                # (no name may keep a view of a buffer: each must go with
+                # its window)
+                cols_w[0][:, :, idx] = prnd.cols_last[
                     torch.as_tensor(reqpos, device=dev)
                 ].permute(1, 2, 0)
-                for tab, key in zip(prev0, ("band_ids", "lens_tab",
-                                            "pred_tab", "pred_prev")):
-                    tab[:, idx] = prnd.out[key][plast, :, plane].T
-            cols_w = torch.cat([prev0_cols[None], cols_w]).contiguous()
-            band_w, lens_w, pred_w, pprev_w = (
-                torch.cat([p0[None], t_]).contiguous()
-                for p0, t_ in zip(prev0, tabs)
-            )
+                for j, key in enumerate(keys):
+                    tabs[j][0][:, idx] = prnd.out[key][plast, :, plane].T
+            band_w, lens_w, pred_w, pprev_w = tabs
 
             # lanes whose table ends in this window start walking here
             starters = [
@@ -1139,14 +1198,17 @@ class BandedBatchAligner:
             codes8[:, :, :B] = codes_all[
                 np.arange(B)[:, None], codes_rows
             ].transpose(1, 2, 0)
+            codes8_t = torch.as_tensor(codes8, device=dev)
+            base_t = torch.as_tensor(base_row, device=dev)
+            state_t = torch.as_tensor(state, device=dev)
+            m0, n0 = _mark(dev), _k2.LAUNCHES
             moves_dev, fail_dev, state_dev, _ = walk_moves(
-                cols_w, band_w, lens_w, pred_w, pprev_w,
-                torch.as_tensor(codes8, device=dev),
-                self._dt.bt_bits_lut, seq_row, seed_row,
-                torch.as_tensor(base_row, device=dev),
-                torch.as_tensor(state, device=dev),
+                cols_w, band_w, lens_w, pred_w, pprev_w, codes8_t,
+                self._dt.bt_bits_lut, seq_row, seed_row, base_t, state_t,
                 K_in=self.tables.k_in,
             )
+            marks.append(("K2 windows", m0, _mark(dev)))
+            _long_add("k2", _k2.LAUNCHES - n0)
             state = state_dev.cpu().numpy().copy()
             fail = fail_dev.cpu().numpy()[0]
             for i in segs_here:
@@ -1154,6 +1216,12 @@ class BandedBatchAligner:
                     lanes[i].failed = True
                     state[5, i] = 1
             move_parts.append(moves_dev.cpu().numpy().view(np.uint32))
+            # the next round's recompute and window come after these go
+            del cols_w, tabs, t_, band_w, lens_w, pred_w, pprev_w
+        # the last window's copies above synchronized every mark
+        for key, a, b in marks:
+            _long_add(key, _between(a, b))
+        _long_peak("peak walk", dev)
 
         final_live = []
         for i in live:

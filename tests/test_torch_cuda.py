@@ -573,43 +573,78 @@ def _gam(path):
     return stream.read_messages(str(path), vg.Alignment)
 
 
+# huge's reads whose forward pieces project more than 32 band nodes at every
+# capacity tier (K1 packs 32 node slots; the graph has 8-bp nodes): the JAX
+# package realigns them with its host oracle, and the port, under
+# GA_NO_FALLBACK=1, raises
+HUGE_OVER_NM = ("read_1635367824", "read_604779437")
+
+
 @pytest.mark.cuda
-@pytest.mark.parametrize("graph_file,reads,seeds,golden,host_lanes", [
+@pytest.mark.parametrize("graph_file,reads,seeds,golden", [
     ("graph.vg", "giant/giant_reads.fastq", "giant/giant_seeds.gam",
-     "giant/giant_out.gam", 0),
-    ("huge/graph.vg", "huge/reads.fastq", "huge/seeds.gam", "huge/golden.gam",
-     2),
+     "giant/giant_out.gam"),
+    ("huge/graph.vg", "huge/reads.fastq", "huge/seeds.gam",
+     "huge/golden.gam"),
 ], ids=["giant", "huge"])
 def test_long_reads_on_gpu_match_reference(cuda, tmp_path, monkeypatch,
-                                           graph_file, reads, seeds, golden,
-                                           host_lanes):
+                                           graph_file, reads, seeds, golden):
     """30 kb (giant, ~468 slices) and 100 kb (huge, ~1,560 slices) reads
-    through align_reads in long mode against the reference binary's
-    alignments. giant takes no host fallback. huge's graph has 8-bp nodes:
-    2 of its 8 extension lanes project more than 32 band nodes at every
-    capacity tier (K1 packs 32 node slots), in the JAX package as here, and
-    exactly those 2 are realigned by the host oracle."""
-    from graphaligner_tpu_torch.core import batch_align as ba
+    through align_reads in long mode under GA_NO_FALLBACK=1, against the
+    reference binary's alignments: giant's 3 reads, and the 2 of huge's 4
+    whose lanes fit 32 band nodes (the other 2 raise, as the test below
+    shows)."""
     from graphaligner_tpu_torch.core.params import AlignerParams
+    from graphaligner_tpu_torch.io import load_fastq
     from graphaligner_tpu_torch.runtime.aligner import align_reads
 
-    if host_lanes == 0:
-        monkeypatch.setenv("GA_NO_FALLBACK", "1")
-    else:
-        monkeypatch.delenv("GA_NO_FALLBACK", raising=False)
+    monkeypatch.setenv("GA_NO_FALLBACK", "1")
+    keep = [r for r in load_fastq(str(LONGSIM / reads))
+            if r.seq_id not in HUGE_OVER_NM]
+    fastq = tmp_path / "reads.fastq"
+    fastq.write_text("".join(f"@{r.seq_id}\n{r.sequence}\n+\n{r.quality}\n"
+                             for r in keep))
     params = AlignerParams(
         graph_file=str(LONGSIM / graph_file),
-        fastq_file=str(LONGSIM / reads),
+        fastq_file=str(fastq),
         alignment_file=str(tmp_path / "out.gam"),
         seed_file=str(LONGSIM / seeds),
         initial_bandwidth=35,
     )
-    fb0 = ba.host_fallback_count()
     align_reads(params, log=lambda m: None, output_dir=str(tmp_path),
                 backend="cuda")
-    assert ba.host_fallback_count() - fb0 == host_lanes
-    assert ([repr(a) for a in _gam(LONGSIM / golden)]
+    names = {r.seq_id for r in keep}
+    assert ([repr(a) for a in _gam(LONGSIM / golden) if a.name in names]
             == [repr(a) for a in _gam(tmp_path / "out.gam")])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("corpus,bw,ramp,over", [
+    pytest.param("huge", 35, 0, HUGE_OVER_NM, id="huge-b35"),
+    pytest.param("mega", 35, 0, ("read_1047316782", "read_390242688"),
+                 id="mega-b35",
+                 marks=pytest.mark.slow),
+])
+def test_long_reads_past_32_band_nodes_raise_without_fallback(
+        cuda, monkeypatch, corpus, bw, ramp, over):
+    """Lanes that project more than 32 band nodes at every capacity tier
+    (huge's 2 reads, and both of mega's long lanes at -b 35, at slices 2
+    and 3,009) have no device alignment: under GA_NO_FALLBACK=1 the run
+    raises, naming one of them, instead of realigning it on the host."""
+    from graphaligner_tpu_torch.core import batch_align as ba
+    from graphaligner_tpu_torch.graph import load_alignment_graph
+    from graphaligner_tpu_torch.io import load_fastq
+    from graphaligner_tpu_torch.runtime.aligner import load_seed_hits
+
+    monkeypatch.setenv("GA_NO_FALLBACK", "1")
+    d = LONGSIM / corpus
+    graph = load_alignment_graph(str(d / "graph.vg"))
+    reads = load_fastq(str(d / "reads.fastq"))
+    seeds = load_seed_hits(str(d / "seeds.gam"), [r.seq_id for r in reads])
+    aligner = ba.BandedBatchAligner(graph, bw, ramp, cuda)
+    with pytest.raises(RuntimeError, match="GA_NO_FALLBACK") as err:
+        ba.align_reads_seeded_batch(graph, aligner, reads, seeds)
+    assert any(repr(r) in str(err.value) for r in over)
 
 
 @pytest.mark.cuda
@@ -677,16 +712,14 @@ def test_long_mode_walk_windows_match_plain(cuda, monkeypatch):
 
 @pytest.mark.cuda
 @pytest.mark.slow
-@pytest.mark.parametrize("bw,ramp,golden,host_lanes", [
-    (35, 0, "golden_b35.gam", 2), (5, 20, "golden_b5B20.gam", 0)])
+@pytest.mark.parametrize("bw,ramp,golden", [(5, 20, "golden_b5B20.gam")])
 def test_mega_reads_on_gpu_match_reference(cuda, monkeypatch, bw, ramp,
-                                           golden, host_lanes):
+                                           golden):
     """1 Mbp reads (15,580 and 15,595 slices) on a 1.5 M-node graph of
-    8-bp nodes, at -b 35 and at -b 5 -B 20 (ramp rewinds across dropped
-    rounds), against the reference binary's alignments; prints the wall
-    and peak memory. At -b 35 both long lanes project more than 32 band
-    nodes (at slices 2 and 3,009) at every capacity tier, in the JAX
-    package as here: exactly those 2 go to the host oracle."""
+    8-bp nodes at -b 5 -B 20 (ramp rewinds across dropped rounds), under
+    GA_NO_FALLBACK=1, against the reference binary's alignments; prints the
+    wall and the peak device memory above what the aligner's set-up holds.
+    (At -b 35 both long lanes pass 32 band nodes: the test above.)"""
     import subprocess
     import time
 
@@ -695,34 +728,32 @@ def test_mega_reads_on_gpu_match_reference(cuda, monkeypatch, bw, ramp,
     from graphaligner_tpu_torch.io import load_fastq, vg
     from graphaligner_tpu_torch.runtime.aligner import load_seed_hits
 
-    if host_lanes == 0:
-        monkeypatch.setenv("GA_NO_FALLBACK", "1")
-    else:
-        monkeypatch.delenv("GA_NO_FALLBACK", raising=False)
+    monkeypatch.setenv("GA_NO_FALLBACK", "1")
     M = LONGSIM / "mega"
     graph = load_alignment_graph(str(M / "graph.vg"))
     reads = load_fastq(str(M / "reads.fastq"))
     seeds = load_seed_hits(str(M / "seeds.gam"), [r.seq_id for r in reads])
     gold = {a.name: a for a in _gam(M / golden)}
-    torch.cuda.reset_peak_memory_stats(cuda)
     t0 = time.time()
     rw0 = ba.rewind_count()
-    fb0 = ba.host_fallback_count()
     aligner = ba.BandedBatchAligner(graph, bw, ramp, cuda)
+    torch.cuda.synchronize(cuda)
+    setup = time.time() - t0
+    held = torch.cuda.memory_allocated(cuda)
+    torch.cuda.reset_peak_memory_stats(cuda)
     res = ba.align_reads_seeded_batch(graph, aligner, reads, seeds)
     torch.cuda.synchronize(cuda)
     wall = time.time() - t0
-    assert ba.host_fallback_count() - fb0 == host_lanes
+    peak = torch.cuda.max_memory_allocated(cuda) - held
     card = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True,
     ).stdout.strip()
     print(f"mega -b {bw} -B {ramp}: {len(reads)} reads in {wall:.1f} s "
-          f"(graph tables and {host_lanes} host-oracle lanes included), "
-          f"ramp rewinds {ba.rewind_count() - rw0}, peak device memory "
-          f"{torch.cuda.max_memory_allocated(cuda) / 2**30:.2f} GiB [{card}]")
-    if ramp:
-        assert ba.rewind_count() > rw0
+          f"(set-up {setup:.1f} s), ramp rewinds {ba.rewind_count() - rw0}, "
+          f"peak device memory {peak / 2**20:.1f} MiB above the set-up's "
+          f"{held / 2**20:.1f} MiB [{card}]")
+    assert ba.rewind_count() > rw0
     for r in reads:
         a = res[r.seq_id]
         if a.alignment_failed or a.alignment.score == 2**31 - 1:

@@ -72,8 +72,13 @@ def test_long_mode_matches_jax_and_normal(corpus, config, window):
     if config not in _NORMAL:
         _NORMAL[config] = _port(tg, reads, seeds, bw, ramp)[0]
     fb0 = tba.host_fallback_count()
+    tba.LONG_STATS.clear()
     port, aligner = _port(tg, reads, seeds, bw, ramp, window)
     assert aligner._long_mode and len(aligner._chunk_rounds) >= 3
+    st = tba.LONG_STATS
+    assert st["lanes"] > 0 and st["lane windows"] > st["lanes"]
+    assert min(st[k] for k in ("scan rounds", "replay", "walk", "recompute",
+                               "K2 windows")) > 0
     assert tba.host_fallback_count() == fb0
     _same(reads, port, _jax(jg, reads, seeds, bw, ramp, window),
           "port long vs JAX long")
