@@ -25,6 +25,16 @@ GA_NO_FALLBACK=1:
   (LONG_WINDOW 640) and in rounds of 96, for their peaks; and huge's 4
   reads, which must raise under GA_NO_FALLBACK=1 (2 of them pass 32 band
   nodes at every capacity tier);
+- the same seeded path with its bands projected by the projection kernel
+  (``ops.project_band``, the JAX package's iterative ``pairwise`` mode):
+  longsim x10, sim and ONT at both configs, giant and huge's 2 reads
+  under GA_REACH_MAXN=0 (no graph gets a reach table) against the same
+  goldens, and the big-graph corpus (tests/fixtures/torch/biggraph_b35:
+  the synthetic variation graph at 2,625,000 digraph nodes, past the
+  2,097,150 from which no reach table is built, checked against its
+  stored checksum, and 100 reads of 10,048 bp at -b 35) against the JAX
+  package's golden, with its set-up split and align time; then sim from
+  a first tier of 8 node slots, and huge's 4 reads, which must raise;
 - exhaustive mode, -i, through ``align_reads``: K3's slice wavefront on
   the acyclic graphs — smallexample, sim (20 reads on bubbles.vg) and the
   longsim graph x the sim reads tiled x8 (160 lanes) — and K3's cyclic
@@ -45,7 +55,11 @@ outputs bit for bit on its widest longsim call; for every K2 call its
 moves, fail flags, state_out and used bit for bit against the plain walk at
 Bb=1 (per lane, as the kernel steps), and the plain walk's moves decoded to
 the main run's traces, then K2 on the widest call's table cut into a chain of two windows
-and on its first 128 lanes padded to Cm=2304; K3's wavefront six slabs bit
+and on its first 128 lanes padded to Cm=2304; the projection's ids and
+over flags bit for bit on every call of the sim corpora without a reach
+table, on the heaviest longsim x10 call, on the call with the most over
+lanes beside live ones and on the heaviest big-graph call; K3's wavefront
+six slabs bit
 for bit on its sim call, and K3's cyclic route on sim/cyclic.gfa at pass
 caps 1, 2 and 128 (one pass must flag every lane, 128 none), with its
 passes and recomputed nodes per pass there and on the circle.
@@ -54,8 +68,9 @@ integer operations over the card's int32 issue rate) is computed from the
 recorded arguments, K2's from the walk that ran, the cyclic route's on
 sim/cyclic.gfa from the positions the plain version's passes show the
 fixpoint needs. One more longsim x10 run
-under torch.profiler gives the device-kernel count, busy time and idle
-share of the seeded path, and K2's launches and summed time there.
+under torch.profiler, with reach tables and again under GA_REACH_MAXN=0,
+gives the device-kernel count, busy time and idle share of the seeded
+path, and K2's and the projection's launches and summed time there.
 
 Prints the card's name and power limit, versions, build time, per-corpus
 rates, one JSON line of kernel results, and last
@@ -83,6 +98,10 @@ TILE_I = 8  # -i at the repo's scale: longsim graph x sim reads x8
 # capacity tier (K1 packs 32 node slots; the graph has 8-bp nodes), at
 # slices 564 and 211: the JAX package sends them to its host oracle too
 HUGE_OVER_NM = ("read_1635367824", "read_604779437")
+# the big-graph corpus: bench_biggraph.py's graph (tests/biggraph_util.py),
+# past the 2,097,150 nodes from which the scan projects without reach
+BIG_SEGMENTS = 1_050_000
+BIG_MIN_NODES = 2_097_150
 
 # bound_ms: HBM rate of the H100 SXM (NVIDIA data sheet), and Hopper's 64
 # INT32 lanes per SM (the architecture white paper), times the SM count and
@@ -99,6 +118,8 @@ K1_OPS_PAIR = 2  # a compare and a select per (slot, slot) pair matched
 K2_OPS_STEP = 130  # one walk step: up to 3 candidate scores, K_in = 2
 K2_OPS_SLOT = 6  # per band slot per walked slice: offsets, slot search
 K3_OPS_CHAIN = 48  # one within-node Myers step, or a source's free start
+PB_OPS_ENTRY = 12  # one projection entry: three gathers, tests, compaction
+PB_OPS_SORT = 2  # a compare and a select per entry and sort merge level
 # a node start merging its in-neighbours costs one pred advance and merge
 # per in-neighbour, as K1 counts it (K1_OPS_PRED), whatever way the kernel
 # merges
@@ -253,6 +274,26 @@ def cuda_ms(fn, reps):
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / reps
+
+
+def device_ms(fn, reps):
+    """Device time a call of ``fn``, summed over every device event of
+    ``reps`` calls under torch.profiler (kernels and memsets), or None
+    when the profiler records no device event."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    events = [e for e in prof.events()
+              if e.device_type == torch.autograd.DeviceType.CUDA]
+    if not events:
+        return None
+    return sum(dev_us(e) for e in events) / 1e3 / reps
 
 
 def timed(fn):
@@ -1031,7 +1072,7 @@ def dev_us(event):
     return event.cuda_time_total if t is None else t
 
 
-def profile_seeded(device, corpus, card):
+def profile_seeded(device, corpus, card, label="with reach tables"):
     """longsim x10 once more unprofiled (its wall) and once under
     torch.profiler: device kernels (and copies) counted, their summed
     device time (one stream, so the busy time), the idle share of the
@@ -1057,16 +1098,19 @@ def profile_seeded(device, corpus, card):
     busy = sum(dev_us(e) for e in events) / 1e6
     k1_events = sum(1 for e in events if "slice_cells" in e.name)
     slices = k1.LAUNCHES - n1
-    print(f"profiled longsim x10 -b 35: {len(events)} device kernels and "
-          f"copies ({len(events) / max(slices, 1):.1f} a slice over {slices} "
-          f"fused K1 launches, {k1_events} seen by the profiler), device busy "
+    print(f"profiled longsim x10 -b 35 ({label}): {len(events)} device "
+          f"kernels and copies ({len(events) / max(slices, 1):.1f} a slice "
+          f"over {slices} fused K1 launches, {k1_events} seen by the "
+          f"profiler), device busy "
           f"{busy:.3f} s; unprofiled wall {wall:.3f} s, idle share "
           f"{1 - busy / wall:.3f} (profiled wall {wall_prof:.3f} s) [{card}]",
           flush=True)
-    k2_events = [e for e in events if "walk_moves" in e.name]
-    print(f"  K2 walk_moves_kernel: {len(k2_events)} launches, "
-          f"{sum(dev_us(e) for e in k2_events) / 1e3:.3f} ms summed device "
-          f"time [{card}]", flush=True)
+    for kernel in ("walk_moves", "project_band"):
+        ev = [e for e in events if kernel in e.name]
+        if ev:
+            print(f"  {kernel}_kernel: {len(ev)} launches, "
+                  f"{sum(dev_us(e) for e in ev) / 1e3:.3f} ms summed device "
+                  f"time [{card}]", flush=True)
     by_name = {}
     for e in events:
         n, t = by_name.get(e.name, (0, 0.0))
@@ -1220,6 +1264,318 @@ def run_long_path(device, card, ont):
     return launches, lrec
 
 
+class ProjRecorder:
+    """Keeps references (no copies, no device sync) to the arguments of
+    every project_band call of the scans, by corpus: the carries each call
+    reads are fresh tensors a slice, never written in place."""
+
+    def __init__(self):
+        import graphaligner_tpu_torch.core.engine_banded as eb
+
+        self.calls = {}  # corpus -> [args]
+        self.corpus = None
+        self._eb = eb
+        self._orig = eb.project_band
+
+        def rec(*args, **kw):
+            if self.corpus is not None:
+                self.calls.setdefault(self.corpus, []).append(args)
+            return self._orig(*args, **kw)
+
+        eb.project_band = rec
+
+    def close(self):
+        self._eb.project_band = self._orig
+
+
+def run_big_graph(device, card):
+    """The big-graph corpus (tests/fixtures/torch/biggraph_b35): the
+    synthetic variation graph at 1,050,000 segments (2,625,000 digraph
+    nodes, past 2,097,150, so no reach table is built and every band is
+    projected by the kernel), checked against its stored checksum, and its
+    100 reads of 10,048 bp at -b 35 against the JAX package's golden.
+    Returns (projection launches, K1 launches) of its run."""
+    import torch
+
+    from graphaligner_tpu_torch.core.batch_align import (
+        BandedBatchAligner,
+        align_reads_seeded_batch,
+    )
+    from graphaligner_tpu_torch.core.tables import build_graph_tables
+    from graphaligner_tpu_torch.graph.synthetic import (
+        graph_checksum,
+        make_big_graph,
+    )
+    from graphaligner_tpu_torch.ops import banded_cell as k1
+    from graphaligner_tpu_torch.ops import project_band as pb
+    from graphaligner_tpu_torch.runtime.aligner import (
+        load_fastq,
+        load_seed_hits,
+    )
+
+    d = f"{FIX}/torch/biggraph_b35"
+    t0 = time.time()
+    graph, _, _ = make_big_graph(BIG_SEGMENTS)
+    t_gen = time.time() - t0
+    t0 = time.time()
+    with open(f"{d}/graph.sha256") as f:
+        if graph_checksum(graph) != f.read().split()[0]:
+            fail("the big graph differs from the one its golden was made on")
+    t_sum = time.time() - t0
+    if graph.node_count < BIG_MIN_NODES:
+        fail(f"the big graph has {graph.node_count} nodes")
+    reads = load_fastq(f"{d}/reads.fastq")
+    seeds = load_seed_hits(f"{d}/seeds.gam", [r.seq_id for r in reads])
+    names = {r.seq_id: r.seq_id for r in reads}
+    t0 = time.time()
+    tables = build_graph_tables(graph)
+    t_tab = time.time() - t0
+    torch.cuda.synchronize(device)
+    t0 = time.time()
+    aligner = BandedBatchAligner(graph, 35, 0, device, _tables=tables)
+    torch.cuda.synchronize(device)
+    t_al = time.time() - t0
+    if aligner._dt.reach is not None or tables.reach_dmax != -1:
+        fail("a reach table was built for the big graph")
+    n_pb, n_k1 = pb.LAUNCHES, k1.LAUNCHES
+    t0 = time.time()
+    results = align_reads_seeded_batch(graph, aligner, reads, seeds)
+    torch.cuda.synchronize(device)
+    t_align = time.time() - t0
+    n_ok = check_golden("biggraph -b 35", reads, names, results,
+                        f"{d}/out.gam")
+    n_pb, n_k1 = pb.LAUNCHES - n_pb, k1.LAUNCHES - n_k1
+    cells = sum(results[r.seq_id].cells_processed for r in reads)
+    print(f"biggraph -b 35 ({graph.node_count:,} digraph nodes, "
+          f"{int(graph.node_end[-1]):,} bp, no reach table): {n_ok}/"
+          f"{len(reads)} aligned, byte-identical to the JAX golden; set-up "
+          f"{t_gen + t_sum + t_tab + t_al:.3f} s = generator {t_gen:.3f} s "
+          f"+ checksum {t_sum:.3f} s + graph tables {t_tab:.3f} s + aligner "
+          f"(reverse positions, device tables) {t_al:.3f} s; align "
+          f"{t_align:.3f} s ({len(reads) / t_align:.2f} reads/s, "
+          f"{cells / t_align / 1e6:.1f} Mcells/s); projection launches "
+          f"{n_pb} (two a slice) over {n_k1} slices [{card}]", flush=True)
+    if n_pb < 1:
+        fail("the projection kernel never launched on the big graph")
+    return n_pb, n_k1
+
+
+def run_no_reach_path(device, card, longsim, sim, ont):
+    """The seeded path with its bands projected by the projection kernel:
+    longsim x10, sim and ONT at both configs, giant and huge's 2 reads
+    within 32 band nodes under GA_REACH_MAXN=0 (no graph gets a reach
+    table) against the reference binary's goldens, then the big graph
+    (past 2,097,150 nodes: no reach table by its size) against its JAX
+    golden, all under GA_NO_FALLBACK=1; then, outside the launch count,
+    sim from a first tier of 8 node slots and huge's 4 reads, which must
+    raise. Returns the path's launches, the recorded projection calls and
+    the big graph's (projection launches, slices)."""
+    from graphaligner_tpu_torch.core import batch_align as ba
+    from graphaligner_tpu_torch.ops import banded_cell as k1
+    from graphaligner_tpu_torch.ops import project_band as pb
+    from graphaligner_tpu_torch.ops import walk_moves as k2
+
+    giant = load_corpus(f"{FIX}/longsim/graph.vg",
+                        f"{FIX}/longsim/giant/giant_reads.fastq",
+                        f"{FIX}/longsim/giant/giant_seeds.gam")
+    hg, hreads, hseeds, hnames = load_corpus(
+        f"{FIX}/longsim/huge/graph.vg", f"{FIX}/longsim/huge/reads.fastq",
+        f"{FIX}/longsim/huge/seeds.gam")
+    huge_fit = (hg, [r for r in hreads if r.seq_id not in HUGE_OVER_NM],
+                hseeds, hnames)
+    corpora = [
+        ("longsim x10 -b 35", longsim, 35, 0, f"{FIX}/longsim/golden_b35.gam"),
+        ("sim -b 35", sim, 35, 0, f"{FIX}/sim/golden_b35/out.gam"),
+        ("sim -b 5 -B 20", sim, 5, 20, f"{FIX}/sim/golden_b5_B20/out.gam"),
+        ("ont -b 35", ont, 35, 0, f"{FIX}/ont/golden_b35.gam"),
+        ("ont -b 5 -B 20", ont, 5, 20, f"{FIX}/ont/golden_b5B20.gam"),
+        ("giant -b 35", giant, 35, 0, f"{FIX}/longsim/giant/giant_out.gam"),
+        ("huge -b 35 (its 2 reads within 32 band nodes)", huge_fit, 35, 0,
+         f"{FIX}/longsim/huge/golden.gam"),
+    ]
+    rec = ProjRecorder()
+    try:
+        k1.LAUNCHES = k2.LAUNCHES = pb.LAUNCHES = 0
+        fb0 = ba.host_fallback_count()
+        os.environ["GA_REACH_MAXN"] = "0"
+        try:
+            for name, (graph, reads, seeds, names), bw, ramp, golden in corpora:
+                rec.corpus = name
+                results, wall, cells, info = run_corpus(device, graph, reads,
+                                                        seeds, bw, ramp)
+                n_ok = check_golden(f"{name} without a reach table", reads,
+                                    names, results, golden)
+                print(f"{name}, GA_REACH_MAXN=0: {n_ok}/{len(reads)} aligned,"
+                      f" byte-identical to the golden; {len(reads) / wall:.1f}"
+                      f" reads/s, {cells / wall / 1e6:.1f} Mcells/s ({wall:.2f}"
+                      f" s, set-up {info['set-up']:.3f} s) [{card}]",
+                      flush=True)
+        finally:
+            del os.environ["GA_REACH_MAXN"]
+        rec.corpus = "biggraph -b 35"
+        big = run_big_graph(device, card)
+        launches = {"slice_cells": k1.LAUNCHES, "walk_moves": k2.LAUNCHES,
+                    "project_band": pb.LAUNCHES}
+        fallbacks = ba.host_fallback_count() - fb0
+        print(f"no-reach path launches: projection {pb.LAUNCHES}, K1 "
+              f"slice_cells {k1.LAUNCHES}, K2 walk_moves {k2.LAUNCHES}; "
+              f"host-fallback lanes {fallbacks}", flush=True)
+        if min(launches.values()) < 1:
+            fail(f"a kernel of the no-reach path never launched: {launches}")
+        if fallbacks:
+            fail(f"{fallbacks} lanes fell back to the host oracle")
+        os.environ["GA_REACH_MAXN"] = "0"
+        try:
+            # sim from a first tier of 8 node slots, for over lanes beside
+            # live ones (they retry on the 16- and 32-slot tiers)
+            rec.corpus = "sim -b 35 from Nm=8"
+            graph, reads, seeds, names = sim
+            aligner = ba.BandedBatchAligner(graph, 35, 0, device, Nm=8)
+            check_golden(rec.corpus, reads, names, ba.align_reads_seeded_batch(
+                graph, aligner, reads, seeds), f"{FIX}/sim/golden_b35/out.gam")
+            # huge's other 2 reads pass 32 band nodes here too: they raise
+            rec.corpus = "huge -b 35, all 4 reads"
+            run_corpus(device, hg, hreads, hseeds, 35, 0)
+        except RuntimeError as e:
+            if not (str(e).startswith("GA_NO_FALLBACK")
+                    and any(r in str(e) for r in HUGE_OVER_NM)):
+                raise
+            print(f"huge -b 35, all 4 reads, GA_REACH_MAXN=0: raised under "
+                  f"GA_NO_FALLBACK=1 ({e})", flush=True)
+        else:
+            fail("huge's lanes past 32 band nodes did not raise without a "
+                 "reach table")
+        finally:
+            del os.environ["GA_REACH_MAXN"]
+    finally:
+        rec.close()
+    return launches, rec.calls, big
+
+
+def pb_work(args, outs, log):
+    """(bytes, int32 operations) of one project_band call, counted from the
+    trips its lanes need (the plain version's trip log: a live lane up to
+    its fixpoint, the others to the batch's count). Bytes: the band inputs
+    and per-lane scalars read once, for each lane the table entries of its
+    widest trip (an out-neighbour row, a length and a rank each), the
+    outputs written once. Operations: each entry of each needed trip formed
+    (PB_OPS_ENTRY), then deduplicated and rank-ordered as one sort
+    (PB_OPS_SORT per entry and merge level)."""
+    import torch
+
+    K_out = args[6].shape[1]
+    ops = 0
+    widest = torch.zeros_like(log[0][0])
+    for ev, need in log:
+        widest = torch.maximum(widest, ev)
+        e = ev.double()
+        levels = torch.ceil(torch.log2(e.clamp(min=2)))
+        ops += int((need * (PB_OPS_ENTRY * e + PB_OPS_SORT * e * levels))
+                   .sum())
+    moved = (nbytes(args[:6]) + int(widest.sum()) * (4 * K_out + 8)
+             + nbytes(outs))
+    return moved, ops
+
+
+def compare_pb(calls, rate, card):
+    """The projection kernel against project_band_plain on recorded calls:
+    every call of the sim corpora, then the heaviest longsim x10 call (the
+    most previous-band slots), the call with the most over lanes beside
+    live ones, and the heaviest big-graph call (its bands' ranks past
+    2,097,151), bit for bit; the last three timed, with their bounds."""
+    import torch
+
+    from graphaligner_tpu_torch.ops import project_band as pb
+
+    err = 0
+
+    def check(args, what):
+        nonlocal err
+        got = pb.project_band(*args)
+        log = []
+        want, plain_ms = timed(
+            lambda: pb.project_band_plain(*args, trip_log=log))
+        for g, w, name in zip(got, want, ("ids", "over")):
+            diff = int((g.long() - w.long()).abs().max())
+            err = max(err, diff)
+            if not torch.equal(g, w):
+                fail(f"project_band {name} differs from its plain version "
+                     f"on {what} (max {diff})")
+        return got, log, plain_ms
+
+    n = 0
+    for name in ("sim -b 35", "sim -b 5 -B 20"):
+        for args in calls[name]:
+            check(args, f"a {name} call")
+            n += 1
+    print(f"project_band vs plain: all {n} calls of sim -b 35 and -b 5 -B 20 "
+          f"without a reach table bit-identical", flush=True)
+    # the trip cap: a live lane still changing at the last trip is flagged
+    # over; cut to 1-3 trips, some lanes end over by the cap alone
+    for cap in (1, 2, 3):
+        capped = 0
+        for args in calls["sim -b 35"]:
+            pb.I_PROJ = cap
+            try:
+                (_, over), _, _ = check(
+                    args, f"a sim -b 35 call at a cap of {cap} trips")
+            finally:
+                pb.I_PROJ = 32
+            _, over_full = pb.project_band_plain(*args)
+            capped += int((over & ~over_full).sum())
+        if capped < 1:
+            fail(f"no lane ended over by a cap of {cap} trips")
+        print(f"project_band vs plain at a cap of {cap} trips: all "
+              f"{len(calls['sim -b 35'])} calls of sim -b 35 bit-identical, "
+              f"{capped} lanes over by the cap alone", flush=True)
+
+    def slots(a):
+        return int((a[0] < INT32_MAX).sum())
+
+    main = max(calls["longsim x10 -b 35"], key=slots)
+    best, best_n = None, 0
+    for cs in calls.values():
+        for a in cs:
+            _, over = pb.project_band(*a)
+            k = int(over.sum()) if bool((a[5] & ~over).any()) else 0
+            if k > best_n:
+                best, best_n = a, k
+    if best is None:
+        fail("no recorded projection call had over lanes beside live ones")
+    big = max(calls["biggraph -b 35"], key=slots)
+    ranks = big[8][big[0].clamp(0, big[8].shape[0] - 1)][big[0] < INT32_MAX]
+    if int(ranks.max()) <= INT32_MAX // 1024:
+        fail("the big-graph call's bands have no rank past 2,097,151")
+    out = {}
+    for key, args, what in (
+            ("main", main, "the heaviest longsim x10 call"),
+            ("over", best, f"the call with the most over lanes ({best_n}) "
+                           "beside live ones"),
+            ("big", big, "the heaviest big-graph call (ranks to "
+                         f"{int(ranks.max()):,})")):
+        got, log, plain_ms = check(args, what)
+        # back to back, the wrapper's host-side launch cost sets the events'
+        # interval: the kernels' own time is the profiler's device time
+        ev_ms = cuda_ms(lambda: pb.project_band(*args), 20)
+        ms = device_ms(lambda: pb.project_band(*args), 20) or ev_ms
+        moved, ops = pb_work(args, got, log)
+        bms, by = bound(moved, ops, rate)
+        B, Nm = args[0].shape
+        trips = max(i + 1 for i, (_, need) in enumerate(log)
+                    if bool(need.any()))
+        print(f"project_band vs plain on {what} at B={B} Nm={Nm} "
+              f"K_out={args[6].shape[1]}: ids and over bit-identical; "
+              f"{trips} trips, {int(got[1].sum())} over lanes; kernel "
+              f"{ms:.4f} ms of device time (two launches and a memset; "
+              f"{ev_ms:.4f} ms between CUDA events a call back to back), "
+              f"plain "
+              f"{plain_ms:.2f} ms; bound {bms:.5f} ms by {by} ({moved} B, "
+              f"{ops} int32 ops), share {bms / ms:.4f} [{card}]", flush=True)
+        out[key] = (ms, plain_ms, bms, by)
+    ms, plain_ms, bms, by = out["main"]
+    return (err, ms, plain_ms, bms, by), out["big"][0]
+
+
 def main() -> int:
     if not os.path.isdir(os.path.join(ROOT, "graphaligner_tpu_torch")):
         fail("graphaligner_tpu_torch/ is not beside this script")
@@ -1248,7 +1604,8 @@ def main() -> int:
     from graphaligner_tpu_torch.ops import walk_moves as k2
 
     t0 = time.time()
-    kernels_built = ("banded_cell", "walk_moves", "exhaustive")
+    kernels_built = ("banded_cell", "walk_moves", "exhaustive",
+                     "project_band")
     with ThreadPoolExecutor(len(kernels_built) + 1) as pool:
         jobs = [pool.submit(_build.library, n) for n in kernels_built]
         jobs.append(pool.submit(native.build_library))
@@ -1315,8 +1672,11 @@ def main() -> int:
     if rec.k1 is None or not rec.k2:
         fail("kernel arguments were not recorded")
     long_launches, lrec = run_long_path(device, card, ont)
+    nr_launches, pb_calls, big = run_no_reach_path(device, card, longsim,
+                                                   sim, ont)
     for name in ("slice_cells", "walk_moves"):
-        launches[name] += long_launches[name]
+        launches[name] += long_launches[name] + nr_launches[name]
+    launches["project_band"] = nr_launches["project_band"]
 
     # exhaustive mode (-i): K3's two routes, through align_reads
     k3.LAUNCHES_WAVEFRONT = 0
@@ -1389,14 +1749,29 @@ def main() -> int:
         "exhaustive_wavefront": compare_k3(rec3, rate),
         "exhaustive_serial": compare_k3_cyclic(rec3, rate, card),
     }
+    results["project_band"], big_ms = compare_pb(pb_calls, rate, card)
+    del pb_calls
+    print(f"biggraph -b 35: projection {big_ms:.4f} ms a slice at its "
+          f"heaviest call, {big[0]} launches (two a slice) over {big[1]} "
+          f"slices [{card}]",
+          flush=True)
     k2_window_chain(rec)
     k2_top_tier(rec)
     profile_seeded(device, longsim, card)
+    os.environ["GA_REACH_MAXN"] = "0"
+    try:
+        profile_seeded(device, longsim, card, "GA_REACH_MAXN=0")
+    finally:
+        del os.environ["GA_REACH_MAXN"]
+    pallas = "graphaligner_tpu/ops/pallas"
     sources = {
-        "slice_cells": ("banded_cell.cu", "banded_cell.py:44"),
-        "walk_moves": ("walk_moves.cu", "walk_moves.py:135"),
-        "exhaustive_wavefront": ("exhaustive.cu", "exhaustive.py:60"),
-        "exhaustive_serial": ("exhaustive.cu", "exhaustive.py:60"),
+        "slice_cells": ("banded_cell.cu", f"{pallas}/banded_cell.py:44"),
+        "walk_moves": ("walk_moves.cu", f"{pallas}/walk_moves.py:135"),
+        "exhaustive_wavefront": ("exhaustive.cu", f"{pallas}/exhaustive.py:60"),
+        "exhaustive_serial": ("exhaustive.cu", f"{pallas}/exhaustive.py:60"),
+        # XLA code in the JAX package (the pairwise projection)
+        "project_band": ("project_band.cu",
+                         "graphaligner_tpu/core/engine_banded.py:445"),
     }
     err, *rest = results["walk_moves"]
     results["walk_moves"] = (max(err, k2_long_err), *rest)
@@ -1408,7 +1783,7 @@ def main() -> int:
         kernels.append({
             "name": name, "route": "cuda",
             "source": f"graphaligner_tpu_torch/csrc/{src}",
-            "replaces": f"graphaligner_tpu/ops/pallas/{tpu}",
+            "replaces": tpu,
             "launches": launches[name], "max_abs_err": err, "ms": ms,
             "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": by,
             "library_ms": None,

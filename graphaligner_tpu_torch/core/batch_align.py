@@ -23,9 +23,14 @@ scan rounds of one window each, whose packed columns are dropped once the
 replay no longer needs them; the walk recomputes them a round at a time,
 newest first, and chains K2 across the windows (``_walk_long``).
 
+Bands are projected through the reach table where the graph has one and
+is below 2,097,150 digraph nodes, else by the iterative relaxation
+(``ops.project_band``); ``GA_REACH_MAXN`` and ``GA_REACH_K``
+(``core.reach``) force the latter on smaller graphs.
+
 Device tensors stay on ``device``; the host reads them with ``.cpu()``.
-Not ported (each raises NotImplementedError): the XLA walk for in-degree
-> 4, and the pairwise projection for graphs without a reach table.
+Not ported (it raises NotImplementedError): the XLA walk for in-degree
+> 4.
 """
 
 from __future__ import annotations
@@ -58,6 +63,7 @@ from .tables import (
     INF,
     build_graph_tables,
     device_tables,
+    reach_fits,
 )
 
 # bandwidth-ramp rewinds taken by the host replay
@@ -361,7 +367,10 @@ class BandedBatchAligner:
         # 8-bit tie-break deltas whenever every replay threshold fits
         self._tie8 = ew <= 254
         if _dt is None:
-            reach = ensure_reach(self.tables, ew - 1)
+            # past reach_fits the JAX package builds the table and then
+            # projects without it: it is not built here
+            reach = (ensure_reach(self.tables, ew - 1)
+                     if reach_fits(self.tables.num_nodes) else None)
             _dt = device_tables(self.tables, reach, self.device)
         self._dt = _dt
 

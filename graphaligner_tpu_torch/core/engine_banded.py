@@ -5,8 +5,11 @@ Port of ``graphaligner_tpu/core/engine_banded.py::banded_scan``: a batch of
 segmented lanes), advanced slice by slice with static capacities — an
 [Nm]-slot node band and a [Cm]-cell cell array per lane. Each slice:
 
-- projects the band from the previous slice through the precomputed reach
-  table (one gather, one stable sort, a first-of-run dedup);
+- projects the band from the previous slice: through the precomputed
+  reach table where the graph has one (one gather, one stable sort, a
+  first-of-run dedup), else through the iterative relaxation
+  (``ops.project_band``, a CUDA kernel on the card) with the batch's
+  shared stop rule, as the JAX ``pairwise`` mode does;
 - hands the band and the carries to kernel K1 (``ops.banded_cell.
   slice_cells``), which matches the new band against the previous one,
   packs the per-slot predecessor tables (``pred_tab``, ``pred_prev``),
@@ -21,8 +24,9 @@ and inactive lanes are masked, so every output equals the JAX one. All
 arrays keep the batch as the last axis ([Nm, B], [Cm, B], [7, Cm, B]).
 Nothing in the loop reads back to the host, so the host queues the slices
 ahead of the card.
-Not ported: the XLA cell pass (the port always takes layout_parallel + K1)
-and the pairwise projection (a graph needs a reach table).
+Not ported: the XLA cell pass (the port always takes layout_parallel + K1),
+and the JAX package's probe projections (``GA_PROJ`` = sort, sort2,
+pairwise2, unroll), which give the same bands as ``pairwise``.
 """
 
 from __future__ import annotations
@@ -30,6 +34,7 @@ from __future__ import annotations
 import torch
 
 from ..ops.banded_cell import slice_cells
+from ..ops.project_band import project_band
 from ..ops.wordops import M32, i32
 from .params import WORD_SIZE
 from .tables import EMPTY, INF, INF_PRI, I32MAX, DeviceTables
@@ -178,10 +183,16 @@ def banded_scan(
         else:
             seq_len_v = seq_len
 
-        ids_bn, proj_over = project_band_reach(
-            p_ids.T, p_node_min.T, p_node_end.T, p_min, bandwidth[t],
-            ew_all[t],
-        )
+        if dt.reach is not None:
+            ids_bn, proj_over = project_band_reach(
+                p_ids.T, p_node_min.T, p_node_end.T, p_min, bandwidth[t],
+                ew_all[t],
+            )
+        else:
+            ids_bn, proj_over = project_band(
+                p_ids.T, p_node_min.T, p_node_end.T, p_min, bandwidth[t],
+                active_all[t], dt.out_nbrs, dt.node_len, dt.topo_rank,
+            )
         cols, nm, ctrl, p_ids, p_cell_send, p_node_min, p_node_end, p_min = (
             slice_cells(
                 ids_bn.T.contiguous(), proj_over, p_ids, p_node_min,

@@ -3,8 +3,8 @@
 The numpy pieces below are copied from modules of ``graphaligner_tpu``
 that need jax at module level; each carries a note naming its source. The
 read alphabet and match table are those of ``core.engine``.
-``device_tables`` turns a ``BandedGraphTables`` plus the reach table into
-the port's tensors on one device.
+``device_tables`` turns a ``BandedGraphTables`` plus its reach table, if
+the graph has a usable one, into the port's tensors on one device.
 """
 
 from __future__ import annotations
@@ -137,15 +137,17 @@ def make_seed_carry(tables: BandedGraphTables, start_nodes, Nm: int, Cm: int):
 @dataclass
 class DeviceTables:
     """The graph state the banded scan reads, as int32 tensors on one
-    device: per-node tables, the packed reach sets and the read-code match
-    LUTs (``bits_lut`` for the DP Eq words, ``bt_bits_lut`` for the walk)."""
+    device: per-node tables, the packed reach sets (None where the scan
+    projects bands iteratively) and the read-code match LUTs (``bits_lut``
+    for the DP Eq words, ``bt_bits_lut`` for the walk)."""
 
     node_len: torch.Tensor  # [N]
     node_start: torch.Tensor  # [N]
     seq_codes: torch.Tensor  # [BP]
     in_nbrs: torch.Tensor  # [N, K_in]
+    out_nbrs: torch.Tensor  # [N, K_out]
     topo_rank: torch.Tensor  # [N]
-    reach: torch.Tensor  # [2, N, K]
+    reach: torch.Tensor | None  # [2, N, K]
     bits_lut: torch.Tensor  # [R] read code -> 5-bit graph-code match mask
     bt_bits_lut: torch.Tensor  # [R] the same under the backtrace's N rule
     k_in: int
@@ -161,22 +163,24 @@ def match_bits(table: np.ndarray) -> np.ndarray:
     return out
 
 
+def reach_fits(num_nodes: int) -> bool:
+    """Whether the banded scan may project through a reach table on a graph
+    of ``num_nodes`` digraph nodes (graphaligner_tpu/core/engine_banded.py
+    :199-201 projects iteratively from I32MAX // PRI_RANGE - 1 on)."""
+    return num_nodes < (int(I32MAX) // PRI_RANGE) - 1
+
+
 def device_tables(tables, reach: np.ndarray | None, device) -> DeviceTables:
     """``tables``: a BandedGraphTables of either package (numpy);
-    ``reach``: its [2, N, K] reach table from core.reach.ensure_reach.
-    The port projects bands only through the reach table: a graph without
-    one (``ensure_reach`` found it unfit) needs the pairwise projection,
-    which is not ported."""
-    if reach is None:
-        raise NotImplementedError(
-            "pairwise band projection (engine_banded.project_band) is not "
-            "yet ported: this graph has no reach table"
-        )
-    if tables.num_nodes >= (int(I32MAX) // PRI_RANGE) - 1:
-        raise NotImplementedError(
-            "pairwise band projection for graphs of >= 2M nodes is not yet "
-            "ported"
-        )
+    ``reach``: its [2, N, K] reach table from core.reach.ensure_reach, or
+    None. The scan projects through the table where there is one, and
+    through the iterative projection (``ops.project_band``) where there is
+    none: a graph that ``ensure_reach`` finds unfit, or one past
+    ``reach_fits``'s size, for which a table is refused."""
+    if reach is not None and not reach_fits(tables.num_nodes):
+        raise ValueError(
+            f"a reach table for a graph of {tables.num_nodes} nodes: past "
+            "reach_fits the scan projects iteratively; pass None")
 
     def t(a):
         return torch.as_tensor(
@@ -188,8 +192,9 @@ def device_tables(tables, reach: np.ndarray | None, device) -> DeviceTables:
         node_start=t(tables.node_start),
         seq_codes=t(tables.seq_codes),
         in_nbrs=t(tables.in_nbrs),
+        out_nbrs=t(tables.out_nbrs),
         topo_rank=t(tables.topo_rank),
-        reach=t(reach),
+        reach=None if reach is None else t(reach),
         bits_lut=t(match_bits(_MATCH_TABLE)),
         bt_bits_lut=t(match_bits(_BT_MATCH)),
         k_in=int(tables.k_in),

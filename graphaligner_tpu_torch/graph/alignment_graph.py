@@ -1,4 +1,4 @@
-# Copy of graphaligner_tpu/graph/alignment_graph.py for the torch port (imports point at graphaligner_tpu_torch).
+# Copy of graphaligner_tpu/graph/alignment_graph.py for the torch port (imports point at graphaligner_tpu_torch; finalize split into _index, from_arrays added).
 """The runtime graph index: flat arrays ready for device residency.
 
 TPU-first redesign of the reference's AlignmentGraph (AlignmentGraph.h:13-60,
@@ -101,14 +101,6 @@ class AlignmentGraph:
 
         n = len(self._node_ids)
         lens = np.array([len(s) for s in self._node_seqs], dtype=np.int64)
-        self.node_start = np.zeros(n, dtype=np.int64)
-        np.cumsum(lens[:-1], out=self.node_start[1:])
-        self.node_len = lens
-        self.node_end = self.node_start + lens
-        total_bp = int(self.node_end[-1])
-        self.node_ids = np.array(self._node_ids, dtype=np.int64)
-        self.reverse = np.array(self._reverse, dtype=bool)
-
         # one pass over the concatenated bytes via a 256-entry LUT
         # (a per-node Python loop took minutes at pangenome scale)
         joined = np.frombuffer(
@@ -117,11 +109,6 @@ class AlignmentGraph:
         lut = np.zeros(256, dtype=np.uint8)
         for ch, code in _CHAR_TO_CODE.items():
             lut[ord(ch)] = code
-        self.seq_codes = lut[joined]
-
-        self.pos_to_node = np.repeat(
-            np.arange(n, dtype=np.int32), lens
-        )
 
         def to_csr(neigh):
             counts = np.array([len(x) for x in neigh], dtype=np.int64)
@@ -132,9 +119,68 @@ class AlignmentGraph:
             ) if ptr[-1] else np.zeros(0, dtype=np.int32)
             return ptr, idx
 
-        self.in_ptr, self.in_idx = to_csr(self._in_neighbors)
-        self.out_ptr, self.out_idx = to_csr(self._out_neighbors)
-        self.node_lookup = dict(self._node_lookup)
+        stats = self._index(
+            np.array(self._node_ids, dtype=np.int64),
+            np.array(self._reverse, dtype=bool),
+            lens,
+            lut[joined],
+            *to_csr(self._in_neighbors),
+            *to_csr(self._out_neighbors),
+            dict(self._node_lookup),
+        )
+        # drop the construction-time sequences
+        del self._node_seqs
+        return stats
+
+    @classmethod
+    def from_arrays(cls, node_ids, reverse, node_len, seq_codes, edge_from,
+                    edge_to) -> "AlignmentGraph":
+        """A finalized graph from flat arrays: what add_node, add_edge and
+        finalize build from the nodes and the edges in the order given.
+        Node indices count from 1 (0 is the dummy start node; both dummy
+        nodes are added here); ``seq_codes`` holds the nodes' codes back to
+        back; edges (``edge_from[i]`` -> ``edge_to[i]``, node indices) must
+        not repeat."""
+        g = cls()
+        n = len(node_ids) + 2
+        lens = np.concatenate([[1], node_len, [1]]).astype(np.int64)
+        dummy = np.full(1, CODE_DUMMY, dtype=np.uint8)
+        codes = np.concatenate([dummy, seq_codes, dummy]).astype(np.uint8)
+        ids = np.concatenate([[0], node_ids, [0]]).astype(np.int64)
+        rev = np.concatenate([[False], reverse, [False]]).astype(bool)
+        edge_from = np.asarray(edge_from, dtype=np.int64)
+        edge_to = np.asarray(edge_to, dtype=np.int32)
+
+        def to_csr(key, val):
+            order = np.argsort(key, kind="stable")  # insertion order kept
+            ptr = np.zeros(n + 1, dtype=np.int64)
+            np.cumsum(np.bincount(key, minlength=n), out=ptr[1:])
+            return ptr, val[order].astype(np.int32)
+
+        g._node_lookup = dict(zip(ids[1:-1].tolist(), range(1, n - 1)))
+        g._index(ids, rev, lens, codes, *to_csr(edge_to, edge_from),
+                 *to_csr(edge_from, edge_to), g._node_lookup)
+        del g._node_seqs
+        return g
+
+    def _index(self, node_ids, reverse, lens, seq_codes, in_ptr, in_idx,
+               out_ptr, out_idx, node_lookup) -> GraphStats:
+        """The finalized arrays, the condensation and the stats."""
+        n = len(node_ids)
+        self.node_start = np.zeros(n, dtype=np.int64)
+        np.cumsum(lens[:-1], out=self.node_start[1:])
+        self.node_len = lens
+        self.node_end = self.node_start + lens
+        total_bp = int(self.node_end[-1])
+        self.node_ids = node_ids
+        self.reverse = reverse
+        self.seq_codes = seq_codes
+        self.pos_to_node = np.repeat(
+            np.arange(n, dtype=np.int32), lens
+        )
+        self.in_ptr, self.in_idx = in_ptr, in_idx
+        self.out_ptr, self.out_idx = out_ptr, out_idx
+        self.node_lookup = node_lookup
         self.dummy_node_start = 0
         self.dummy_node_end = n - 1
 
@@ -153,8 +199,6 @@ class AlignmentGraph:
             edges=int(self.in_ptr[-1]),
             high_in_degree_nodes=int((in_deg >= 2).sum()),
         )
-        # free builder state
-        del self._node_seqs
         return self.stats
 
     # -- queries (reference AlignmentGraph.cpp:199-364) ---------------------

@@ -1,0 +1,124 @@
+# Port of tests/biggraph_util.py (make_big_graph, make_reads) for the torch port: the same draws, vectorised.
+"""Synthetic pangenome-scale variation graph (chr20-class shapes: a linear
+backbone with SNP bubbles) and reads sampled from it.
+
+``make_big_graph`` gives the graph that ``tests/biggraph_util.py`` builds
+from the same seed, node for node and edge for edge, without a Python loop
+over segments: that generator draws one base at a time from one numpy
+``Generator``, which hands out each 64-bit word as two 32-bit halves, low
+half first, and a base is the top two bits of its half. The digraph is
+built directly as arrays (``AlignmentGraph.from_arrays``), in the order
+``graph.bigraph.graph_from_vg`` would add its nodes and edges.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+
+from .alignment_graph import AlignmentGraph
+
+BASES = np.array(list("ACGT"))
+# "ACGT" draw -> graph code (A=0, T=1, C=2, G=3); complement is code ^ 1
+_DRAW_CODE = np.array([0, 2, 3, 1], dtype=np.uint8)
+
+
+def _draws(n_segments, seg_len, bubble_every, seed):
+    """(segment draws [n, seg_len], bubble mask [n], alt draws [n_bub]),
+    each draw an index into BASES."""
+    i = np.arange(n_segments)
+    bubble = (i % bubble_every == bubble_every - 1) & (i + 1 < n_segments)
+    per = seg_len + bubble.astype(np.int64)
+    total = int(per.sum())
+    raw = np.random.default_rng(seed).bit_generator.random_raw(
+        (total + 1) // 2)
+    halves = np.stack([raw & 0xFFFFFFFF, raw >> 32], axis=1).reshape(-1)
+    draws = (halves[:total] >> 30).astype(np.int64)
+    off = np.concatenate([[0], np.cumsum(per)[:-1]])
+    return (draws[off[:, None] + np.arange(seg_len)], bubble,
+            draws[off[bubble] + seg_len])
+
+
+def make_big_graph(n_segments, seg_len=8, bubble_every=4, seed=11):
+    """Backbone of n_segments nodes (seg_len bp) with a 1-bp SNP bubble
+    node after every bubble_every-th segment, parallel to the next
+    segment's start. Returns (AlignmentGraph, backbone node ids [n] int64,
+    backbone sequence string). Bigraph nodes = n_segments + bubbles;
+    digraph nodes = 2x that + the two dummy nodes."""
+    seg, bubble, alt = _draws(n_segments, seg_len, bubble_every, seed)
+    n = n_segments
+    # bigraph ids: segments and their bubble nodes in creation order
+    seg_id = 1 + np.arange(n) + np.concatenate(
+        [[0], np.cumsum(bubble)[:-1]])
+    alt_id = seg_id[bubble] + 1
+    n_big = n + len(alt_id)
+    lens = np.ones(n_big, dtype=np.int64)
+    lens[seg_id - 1] = seg_len
+    # per bigraph node (id order): forward codes, then reverse complement
+    fw = np.zeros((n_big, seg_len), dtype=np.uint8)
+    fw[seg_id - 1] = _DRAW_CODE[seg]
+    fw[alt_id - 1, 0] = _DRAW_CODE[alt]
+    rc = np.zeros_like(fw)
+    rc[seg_id - 1] = fw[seg_id - 1, ::-1] ^ 1
+    rc[alt_id - 1, 0] = fw[alt_id - 1, 0] ^ 1
+    keep = np.arange(seg_len)[None, :] < lens[:, None]
+    codes = np.stack([fw, rc], axis=1)[
+        np.repeat(keep[:, None, :], 2, axis=1)]
+    node_ids = np.stack([2 * np.arange(1, n_big + 1),
+                         2 * np.arange(1, n_big + 1) + 1], 1).reshape(-1)
+    reverse = np.tile([False, True], n_big)
+    # vg edges in creation order: into segment i from its tails (the
+    # previous segment, then its bubble node), then segment -> bubble node
+    prev_bub = np.concatenate([[False], bubble[:-1]])
+    tails_a = seg_id[:-1]
+    into_a = seg_id[1:]
+    into_b = seg_id[1:][prev_bub[1:]]
+    src, dst, rank = [], [], []
+    k = np.arange(1, n)  # segment index of each "into" edge
+    src += [tails_a, alt_id, seg_id[bubble]]  # every bubble has a next
+    dst += [into_a, into_b, alt_id]
+    # ordering key: segment index, then 0 (from backbone), 1 (from the
+    # bubble node), 2 (segment -> its bubble node)
+    rank += [k * 3, k[prev_bub[1:]] * 3 + 1, np.nonzero(bubble)[0] * 3 + 2]
+    src, dst, rank = (np.concatenate(a) for a in (src, dst, rank))
+    order = np.argsort(rank, kind="stable")
+    a, b = src[order], dst[order]
+    # each vg edge a -> b: digraph a*2 -> b*2, then b*2+1 -> a*2+1; the
+    # digraph node index of bigraph id m is 2m - 1 (forward), 2m (reverse)
+    e_from = np.stack([2 * a - 1, 2 * b], 1).reshape(-1)
+    e_to = np.stack([2 * b - 1, 2 * a], 1).reshape(-1)
+    graph = AlignmentGraph.from_arrays(
+        node_ids, reverse, np.repeat(lens, 2), codes, e_from, e_to)
+    backbone_seq = "".join(BASES[seg.reshape(-1)])
+    return graph, seg_id.astype(np.int64), backbone_seq
+
+
+def graph_checksum(graph) -> str:
+    """sha256 over a digraph's sequence codes, out-edges and node ids, as
+    arrays of fixed dtypes (uint8, int64, int32, int64)."""
+    import hashlib
+
+    h = hashlib.sha256()
+    for a, dt in ((graph.seq_codes, np.uint8), (graph.out_ptr, np.int64),
+                  (graph.out_idx, np.int32), (graph.node_ids, np.int64)):
+        h.update(np.ascontiguousarray(a, dtype=dt).tobytes())
+    return h.hexdigest()
+
+
+def make_reads(backbone_seq, n_reads, read_len, graph, backbone,
+               seg_len=8, err=0.03, seed=5):
+    """Reads sampled from the backbone with substitution errors, and the
+    matching (name, sequence, seed node id) of each: the seed is the
+    backbone node the read starts at, at read position 0, forward."""
+    rng = np.random.default_rng(seed)
+    reads = []
+    for i in range(n_reads):
+        start = int(rng.integers(0, len(backbone_seq) - read_len - 1))
+        # snap to a segment boundary so the seed node/readpos pair is easy
+        start -= start % seg_len
+        sub = list(backbone_seq[start : start + read_len])
+        n_err = int(err * read_len)
+        for p in rng.integers(0, read_len, n_err):
+            sub[p] = str(rng.choice(BASES))
+        seed_node = int(backbone[start // seg_len])
+        reads.append((f"bigread{i}", "".join(sub), seed_node))
+    return reads

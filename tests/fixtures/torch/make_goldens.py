@@ -11,6 +11,18 @@ batched exhaustive engine) on the CPU. Each corpus writes
 wavefront backend does not finish that graph on a CPU in minutes, and
 ``tests/test_engine.py`` holds the two backends bit-identical.
 
+``biggraph_b35`` is a seeded corpus (``-b 35``) at ``bench_biggraph.py``'s
+shape: the synthetic variation graph of ``tests/biggraph_util.py`` at
+1,050,000 segments (about 2.6 M digraph nodes) and 100 reads of 10,048 bp,
+aligned by ``align_reads_seeded_batch``. It writes ``reads.fastq``,
+``seeds.gam``, ``out.gam`` (bigraph node ids, as the reference binary
+writes them) and ``graph.sha256`` (the graph's checksum, from
+``graphaligner_tpu_torch.graph.synthetic.graph_checksum``), and prints the
+reads the JAX package sent to its host oracle. The graph is past 2,097,150
+nodes, so the JAX package projects every band with its iterative
+``pairwise`` mode; ``GA_REACH_MAXN`` is set to 0 so that it does not build
+the reach table it would discard. It takes about 70 s.
+
 ``circular_i`` first writes its inputs (``write_circular``): the longsim
 graph closed into a circle by one link from its sink node to its source
 node (``graph.gfa``), and reads taken from one source-to-sink walk read as
@@ -111,6 +123,87 @@ def write_circular(out_dir: str) -> None:
             f.write(f"@circ{i}\n{seq}\n+\n{'I' * R}\n")
 
 
+BIG_SEGMENTS = 1_050_000
+BIG_READS = 100
+BIG_READ_LEN = 10_048
+
+
+def make_biggraph(out_dir: str, n_segments: int = BIG_SEGMENTS,
+                  n_reads: int = BIG_READS) -> None:
+    """The ``biggraph_b35`` corpus and its golden (see the module
+    docstring). Prints the split of its time."""
+    import time
+
+    os.environ["JAX_PLATFORMS"] = "cpu"
+    os.environ["GA_REACH_MAXN"] = "0"
+    import jax
+
+    jax.config.update("jax_platforms", "cpu")
+    sys.path.insert(0, os.path.join(ROOT, "tests"))
+    from biggraph_util import make_big_graph, make_reads
+
+    from graphaligner_tpu.core import align as _align
+    from graphaligner_tpu.core.batch_align import (
+        BandedBatchAligner,
+        align_reads_seeded_batch,
+    )
+    from graphaligner_tpu.core.engine_banded import build_graph_tables
+    from graphaligner_tpu.io import load_fastq, stream, vg
+    from graphaligner_tpu_torch.graph.synthetic import graph_checksum
+
+    t0 = time.time()
+    graph, backbone, seq = make_big_graph(n_segments)
+    t_graph = time.time() - t0
+    with open(os.path.join(out_dir, "graph.sha256"), "w") as f:
+        f.write(graph_checksum(graph) + "\n")
+    reads = make_reads(seq, n_reads, BIG_READ_LEN, graph, backbone)
+    fq = os.path.join(out_dir, "reads.fastq")
+    with open(fq, "w") as f:
+        for name, s, _ in reads:
+            f.write(f"@{name}\n{s}\n+\n{'I' * len(s)}\n")
+    stream.write_messages(os.path.join(out_dir, "seeds.gam"), [
+        vg.Alignment(name=name, query_position=0, path=vg.Path(mapping=[
+            vg.Mapping(position=vg.Position(node_id=node))]))
+        for name, _, node in reads
+    ])
+    fastqs = load_fastq(fq)
+    seed_map = {name: [(node, 0, False)] for name, _, node in reads}
+    t0 = time.time()
+    tables = build_graph_tables(graph)
+    aligner = BandedBatchAligner(graph, 35, 0, _tables=tables)
+    assert aligner._reach is None
+    t_setup = time.time() - t0
+    host = []
+    orig = _align.get_split_alignment
+    by_seq = {r.sequence: r.seq_id for r in fastqs}
+
+    def split(graph_, sequence, *a, **kw):
+        host.append(by_seq.get(sequence, "?"))
+        return orig(graph_, sequence, *a, **kw)
+
+    _align.get_split_alignment = split
+    try:
+        t0 = time.time()
+        results = align_reads_seeded_batch(graph, aligner, fastqs, seed_map)
+        t_align = time.time() - t0
+    finally:
+        _align.get_split_alignment = orig
+    out = []
+    for r in fastqs:
+        res = results[r.seq_id]
+        if res.alignment_failed or res.alignment.score == 2**31 - 1:
+            continue
+        a = vg.Alignment.decode(res.alignment.encode())
+        for m in a.path.mapping:
+            m.position.node_id //= 2
+        out.append(a)
+    stream.write_messages(os.path.join(out_dir, "out.gam"), out)
+    print(f"biggraph_b35: {graph.node_count} digraph nodes, {len(out)}/"
+          f"{len(fastqs)} aligned, host oracle for {sorted(set(host))}; "
+          f"graph {t_graph:.1f} s, tables and aligner {t_setup:.1f} s, "
+          f"align {t_align:.1f} s", flush=True)
+
+
 def make(name: str, out_gam: str) -> list:
     """Aligns corpus ``name`` in -i mode with the JAX package and writes
     the concatenated GAM to ``out_gam``; returns the alignments."""
@@ -147,10 +240,14 @@ def make(name: str, out_gam: str) -> list:
 def main(names) -> int:
     import time
 
-    for name in names or sorted(CORPORA):
+    for name in names or sorted(CORPORA) + ["biggraph_b35"]:
         out_dir = os.path.join(HERE, name)
         os.makedirs(out_dir, exist_ok=True)
         t0 = time.time()
+        if name == "biggraph_b35":
+            make_biggraph(out_dir)
+            print(f"{name}: {time.time() - t0:.1f} s", flush=True)
+            continue
         if name == "circular_i":
             write_circular(out_dir)
         alns = make(name, os.path.join(out_dir, "out.gam"))

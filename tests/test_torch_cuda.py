@@ -763,3 +763,157 @@ def test_mega_reads_on_gpu_match_reference(cuda, monkeypatch, bw, ramp,
         for m in mine.path.mapping:
             m.position.node_id //= 2
         assert mine == gold[r.seq_id]
+
+
+def _recorded_projections(cuda, graph, reads, seeds, monkeypatch, Nm=32,
+                          Cm=288, rank_offset=0, cut_lane0=2):
+    """Every project_band call of the port's scan without a reach table
+    over ``reads`` (one lane each, seeded at their first seed; lane 0
+    stops ``cut_lane0`` slices early, so it is inactive on the last ones)
+    on the card, with its arguments cloned."""
+    from graphaligner_tpu_torch.core import engine_banded as eb
+    from graphaligner_tpu_torch.core.align import _pad_to_word
+    from graphaligner_tpu_torch.core.engine import encode_read
+    from graphaligner_tpu_torch.core.tables import (
+        build_graph_tables, device_tables, make_seed_carry,
+    )
+
+    calls = []
+    orig = eb.project_band
+
+    def rec(*args, **kw):
+        calls.append([a.clone() for a in args])
+        return orig(*args, **kw)
+
+    monkeypatch.setattr(eb, "project_band", rec)
+    tables = build_graph_tables(graph)
+    tables.topo_rank = tables.topo_rank + np.int32(rank_offset)
+    probs = []
+    for r in reads:
+        node_id, pos, rev = seeds[r.seq_id][0]
+        probs.append((_pad_to_word(r.sequence[pos:]),
+                      graph.node_lookup[node_id * 2 + (1 if rev else 0)]))
+    B = len(probs)
+    S = max(len(p[0]) // 64 for p in probs)
+    codes = np.full((B, S * 64), 14, np.uint8)
+    seq_len, steps, starts = (np.zeros(B, np.int32) for _ in range(3))
+    for i, (seq, node) in enumerate(probs):
+        codes[i, : len(seq)] = encode_read(seq)
+        seq_len[i], steps[i], starts[i] = len(seq), len(seq) // 64, node
+    steps[0] = max(1, steps[0] - cut_lane0)
+    eb.banded_scan(
+        device_tables(tables, None, cuda), codes, seq_len, steps,
+        np.zeros(B, np.int32), np.full((S, B), 35, np.int32),
+        *make_seed_carry(tables, starts, Nm, Cm), S_max=S, Nm=Nm, Cm=Cm,
+    )
+    assert len(calls) == S
+    return calls
+
+
+def _big_corpus(n_segments=2000, n_reads=6, read_len=512):
+    from graphaligner_tpu_torch.graph.synthetic import (
+        make_big_graph, make_reads,
+    )
+    from graphaligner_tpu_torch.io.fastq import FastQ
+
+    graph, backbone, seq = make_big_graph(n_segments)
+    reads = make_reads(seq, n_reads, read_len, graph, backbone)
+    return (graph, [FastQ(seq_id=n, sequence=s, quality="!")
+                    for n, s, _ in reads],
+            {n: [(node, 0, False)] for n, _, node in reads})
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("corpus,Nm,rank_offset", [
+    ("sim", 32, 0), ("sim", 8, 0), ("big", 32, 2**31 // 1024 + 7),
+], ids=["sim", "sim-Nm8-over", "big-past-rank-2097151"])
+def test_project_band_kernel_matches_plain_on_recorded_calls(
+        cuda, monkeypatch, corpus, Nm, rank_offset):
+    """The projection kernel against project_band_plain, bit for bit, on
+    every call of a scan without a reach table: sim (an inactive lane on
+    the last slices), sim at Nm=8 (over lanes beside live ones) and
+    make_big_graph(2000) with its topo ranks past 2,097,151."""
+    from graphaligner_tpu_torch.ops import project_band as pb
+
+    graph, reads, seeds = _sim() if corpus == "sim" else _big_corpus()
+    calls = _recorded_projections(cuda, graph, reads, seeds, monkeypatch,
+                                  Nm=Nm, rank_offset=rank_offset)
+    over_beside_live = inactive = 0
+    for args in calls:
+        n0 = pb.LAUNCHES
+        ids, over = pb.project_band(*args)
+        torch.cuda.synchronize()
+        assert pb.LAUNCHES == n0 + 2  # mode 0 and mode 1
+        p_ids, p_over = pb.project_band_plain(*args)
+        assert torch.equal(ids, p_ids) and torch.equal(over, p_over)
+        over_beside_live += bool(over.any() and (~over & args[5]).any())
+        inactive += bool((~args[5]).any())
+        if rank_offset:
+            assert int(args[8].min()) > 2**31 // 1024
+    assert inactive
+    if Nm == 8:
+        assert over_beside_live
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("cap", [1, 2, 3])
+def test_project_band_kernel_matches_plain_at_a_low_trip_cap(cuda,
+                                                             monkeypatch,
+                                                             cap):
+    """The kernel's cap rule (a live lane still changing at the last trip
+    is flagged over, the other lanes run on to the batch's count) against
+    project_band_plain, bit for bit, on sim's recorded calls with the cap
+    cut to 1-3 trips; some lanes end over by the cap alone."""
+    from graphaligner_tpu_torch.ops import project_band as pb
+
+    graph, reads, seeds = _sim()
+    calls = _recorded_projections(cuda, graph, reads, seeds, monkeypatch,
+                                  Nm=32, rank_offset=0)
+    monkeypatch.setattr(pb, "I_PROJ", cap)
+    capped = 0
+    for args in calls:
+        ids, over = pb.project_band(*args)
+        p_ids, p_over = pb.project_band_plain(*args)
+        assert torch.equal(ids, p_ids) and torch.equal(over, p_over)
+        monkeypatch.setattr(pb, "I_PROJ", 32)
+        _, over_full = pb.project_band_plain(*args)
+        monkeypatch.setattr(pb, "I_PROJ", cap)
+        capped += int((over & ~over_full).sum())
+    assert capped
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("bw,ramp,golden", [(35, 0, "golden_b35.gam"),
+                                            (5, 20, "golden_b5B20.gam")])
+def test_longsim_without_reach_on_gpu_matches_golden(cuda, monkeypatch, bw,
+                                                     ramp, golden):
+    """GA_REACH_MAXN=0: longsim's 100 reads (ONT's 25 at -b 5 -B 20) with
+    every band projected by the kernel, under GA_NO_FALLBACK=1, against
+    the reference binary's alignments."""
+    from graphaligner_tpu_torch.core import batch_align as ba
+    from graphaligner_tpu_torch.graph import load_alignment_graph
+    from graphaligner_tpu_torch.io import load_fastq, vg
+    from graphaligner_tpu_torch.ops import project_band as pb
+    from graphaligner_tpu_torch.runtime.aligner import load_seed_hits
+
+    monkeypatch.setenv("GA_NO_FALLBACK", "1")
+    monkeypatch.setenv("GA_REACH_MAXN", "0")
+    d = LONGSIM if bw == 35 else FIX / "ont"
+    graph = load_alignment_graph(str(LONGSIM / "graph.vg"))
+    reads = load_fastq(str(d / "reads.fastq"))
+    seeds = load_seed_hits(str(d / "seeds.gam"), [r.seq_id for r in reads])
+    gold = {a.name: a for a in _gam(d / golden)}
+    n0 = pb.LAUNCHES
+    aligner = ba.BandedBatchAligner(graph, bw, ramp, cuda)
+    assert aligner._dt.reach is None
+    res = ba.align_reads_seeded_batch(graph, aligner, reads, seeds)
+    assert pb.LAUNCHES > n0
+    for r in reads:
+        a = res[r.seq_id]
+        if a.alignment_failed or a.alignment.score == 2**31 - 1:
+            assert r.seq_id not in gold
+            continue
+        mine = vg.Alignment.decode(a.alignment.encode())
+        for m in mine.path.mapping:
+            m.position.node_id //= 2
+        assert mine == gold[r.seq_id]

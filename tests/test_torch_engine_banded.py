@@ -227,9 +227,3 @@ def test_banded_scan_matches_jax(corpus, mode, monkeypatch):
         assert (np.asarray(ref["num_cells"]) > 0).any()
         assert max(passes) > 1
 
-
-def test_device_tables_refuse_graph_without_reach():
-    graph, _, _ = _sim()
-    tables = build_graph_tables(graph)
-    with pytest.raises(NotImplementedError, match="pairwise"):
-        device_tables(tables, None, "cpu")
