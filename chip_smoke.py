@@ -35,6 +35,14 @@ GA_NO_FALLBACK=1:
   stored checksum, and 100 reads of 10,048 bp at -b 35) against the JAX
   package's golden, with its set-up split and align time; then sim from
   a first tier of 8 node slots, and huge's 4 reads, which must raise;
+- the same seeded path on a graph of in-degree 8, through K1's and K2's
+  wide routes (the JAX package's XLA cell pass and XLA walk there):
+  multiallelic x10 (tests/fixtures/torch/multiallelic_b35: 1,000 reads of
+  about 10 kb on a variation graph of multi-allelic sites) at -b 35 and -b
+  5 -B 20, with reach tables and under GA_REACH_MAXN=0, against the JAX
+  package's goldens; its wide K1 call with the most lanes and its wide K2
+  calls are held bit for bit against their plain versions (K2 at Bb=1,
+  its plain moves decoded to the run's traces), and it is profiled once;
 - exhaustive mode, -i, through ``align_reads``: K3's slice wavefront on
   the acyclic graphs — smallexample, sim (20 reads on bubbles.vg) and the
   longsim graph x the sim reads tiled x8 (160 lanes) — and K3's cyclic
@@ -98,6 +106,10 @@ TILE_I = 8  # -i at the repo's scale: longsim graph x sim reads x8
 # capacity tier (K1 packs 32 node slots; the graph has 8-bp nodes), at
 # slices 564 and 211: the JAX package sends them to its host oracle too
 HUGE_OVER_NM = ("read_1635367824", "read_604779437")
+# the in-degree-8 corpus (a multi-allelic variation graph), tiled as longsim
+# is, against the JAX package's goldens at both configs
+MA_CORPORA = (("multiallelic x10 -b 35", 35, 0, "multiallelic_b35"),
+              ("multiallelic x10 -b 5 -B 20", 5, 20, "multiallelic_b5_B20"))
 # the big-graph corpus: bench_biggraph.py's graph (tests/biggraph_util.py),
 # past the 2,097,150 nodes from which the scan projects without reach
 BIG_SEGMENTS = 1_050_000
@@ -486,7 +498,8 @@ def k2_decode(moves, used, decode):
     from graphaligner_tpu_torch.core.batch_align import native
 
     dargs, dkw = decode
-    rows = min(moves.shape[0], int(used.max()) // 8 + 1)
+    per = 4 if dkw.get("byte_codes") else 8
+    rows = min(moves.shape[0], int(used.max()) // per + 1)
     return native.decode_moves_batch(
         np.ascontiguousarray(moves[:rows].cpu().numpy()).view(np.uint32),
         *dargs, **dkw,
@@ -507,7 +520,7 @@ def k2_traces_equal(got, want, what):
             fail(f"K2 decoded trace of lane {j} differs {what}")
 
 
-def compare_k2(rec, rate):
+def compare_k2(rec, rate, label="walk_moves"):
     """Every K2 call of the main path against walk_moves_plain at Bb=1 (per
     lane, as the kernel steps): moves, fail flags, state_out and used bit
     for bit, the largest difference kept as K2's error; the plain walk's
@@ -537,12 +550,13 @@ def compare_k2(rec, rate):
         fail("no lane of the widest K2 call was decoded")
     K1_, _, Cm, B = args[0].shape
     Nm, R = args[1].shape[1], args[6].shape[0]
-    smem = k2.smem_bytes(Cm, Nm, R)
+    smem = k2.smem_bytes(Cm, Nm, R, kw["K_in"])
     ms = cuda_ms(lambda: k2.walk_moves(*args, **kw), 3)
     moved, ops = k2_work(args, outs, decode, traces)
     bms, by = bound(moved, ops, rate)
     steps = int(outs[3].max())
-    print(f"K2 walk_moves vs walk_moves_plain(Bb=1) over {len(rec.k2)} "
+    print(f"K2 {label} (K_in {kw['K_in']}) vs walk_moves_plain(Bb=1) over "
+          f"{len(rec.k2)} "
           f"calls: moves, fail, state_out and used bit-identical on all "
           f"{n_lanes} lanes (max abs err {err}); the plain walk's moves decode "
           f"to the main run's {n_traces} traces; "
@@ -560,7 +574,7 @@ def compare_k2(rec, rate):
     m_sub, o_sub = k2_work(sub, k2_lanes(outs, n), sub_decode,
                            tuple(x[keep] for x in traces))
     b_sub, by_sub = bound(m_sub, o_sub, rate)
-    print(f"K2 at {n} of those lanes: kernel {ms_sub:.3f} ms; bound "
+    print(f"K2 {label} at {n} of those lanes: kernel {ms_sub:.3f} ms; bound "
           f"{b_sub:.5f} ms by {by_sub} ({m_sub} B, {o_sub} int32 ops), share "
           f"{b_sub / ms_sub:.4f}", flush=True)
     for line in _build.BUILD_LOG.get("walk_moves", (0, ""))[1].splitlines():
@@ -1072,11 +1086,13 @@ def dev_us(event):
     return event.cuda_time_total if t is None else t
 
 
-def profile_seeded(device, corpus, card, label="with reach tables"):
-    """longsim x10 once more unprofiled (its wall) and once under
-    torch.profiler: device kernels (and copies) counted, their summed
-    device time (one stream, so the busy time), the idle share of the
-    unprofiled wall, and the fused K1's launches."""
+def profile_seeded(device, corpus, card, label="with reach tables",
+                   name="longsim x10"):
+    """A corpus (longsim x10) once more unprofiled (its wall) and once
+    under torch.profiler at -b 35: device kernels (and copies) counted,
+    their summed device time (one stream, so the busy time), the idle share
+    of the unprofiled wall, the fused K1's launches (both routes), and K1's,
+    K2's and the projection's launches and summed device time."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -1084,7 +1100,7 @@ def profile_seeded(device, corpus, card, label="with reach tables"):
 
     graph, reads, seeds, _ = corpus
     _, wall, _, _ = run_corpus(device, graph, reads, seeds, 35, 0)
-    n1 = k1.LAUNCHES
+    n1 = k1.LAUNCHES + k1.LAUNCHES_WIDE
     t0 = time.time()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         run_corpus(device, graph, reads, seeds, 35, 0)
@@ -1092,20 +1108,20 @@ def profile_seeded(device, corpus, card, label="with reach tables"):
     events = [e for e in prof.events()
               if e.device_type == torch.autograd.DeviceType.CUDA]
     if not events:
-        print("profiled longsim x10: torch.profiler recorded no device "
+        print(f"profiled {name}: torch.profiler recorded no device "
               "events (device time not measured)", flush=True)
         return
     busy = sum(dev_us(e) for e in events) / 1e6
     k1_events = sum(1 for e in events if "slice_cells" in e.name)
-    slices = k1.LAUNCHES - n1
-    print(f"profiled longsim x10 -b 35 ({label}): {len(events)} device "
+    slices = k1.LAUNCHES + k1.LAUNCHES_WIDE - n1
+    print(f"profiled {name} -b 35 ({label}): {len(events)} device "
           f"kernels and copies ({len(events) / max(slices, 1):.1f} a slice "
           f"over {slices} fused K1 launches, {k1_events} seen by the "
           f"profiler), device busy "
           f"{busy:.3f} s; unprofiled wall {wall:.3f} s, idle share "
           f"{1 - busy / wall:.3f} (profiled wall {wall_prof:.3f} s) [{card}]",
           flush=True)
-    for kernel in ("walk_moves", "project_band"):
+    for kernel in ("slice_cells", "walk_moves", "project_band"):
         ev = [e for e in events if kernel in e.name]
         if ev:
             print(f"  {kernel}_kernel: {len(ev)} launches, "
@@ -1452,6 +1468,72 @@ def run_no_reach_path(device, card, longsim, sim, ont):
     return launches, rec.calls, big
 
 
+def run_wide_path(device, card):
+    """The seeded path on a graph of in-degree 8 (K1's and K2's wide
+    routes): multiallelic x10 at -b 35 and -b 5 -B 20, with reach tables and
+    then under GA_REACH_MAXN=0 (the projection kernel), against the JAX
+    package's goldens under GA_NO_FALLBACK=1, every count set to 0 before
+    and read after. Records the K1 and K2 calls of the first run. Returns
+    (launches, the Recorder, the tiled corpus)."""
+    from graphaligner_tpu_torch.core import batch_align as ba
+    from graphaligner_tpu_torch.ops import banded_cell as k1
+    from graphaligner_tpu_torch.ops import project_band as pb
+    from graphaligner_tpu_torch.ops import walk_moves as k2
+
+    d = f"{FIX}/torch/multiallelic_b35"
+    ma = load_corpus(f"{d}/graph.gfa", f"{d}/reads.fastq", f"{d}/seeds.gam",
+                     tile=TILE)
+    graph, reads, seeds, names = ma
+    k1.LAUNCHES = k1.LAUNCHES_WIDE = k2.LAUNCHES = k2.LAUNCHES_WIDE = 0
+    pb.LAUNCHES = 0
+    fb0 = ba.host_fallback_count()
+    rec = Recorder()
+    try:
+        for reach in (True, False):
+            if not reach:
+                os.environ["GA_REACH_MAXN"] = "0"
+            try:
+                for name, bw, ramp, golden in MA_CORPORA:
+                    rec.on = reach and bw == 35
+                    results, wall, cells, info = run_corpus(
+                        device, graph, reads, seeds, bw, ramp)
+                    tag = "" if reach else ", GA_REACH_MAXN=0"
+                    n_ok = check_golden(
+                        name + tag, reads, names, results,
+                        f"{FIX}/torch/{golden}/out.gam")
+                    bp = sum(len(r.sequence) for r in reads)
+                    print(f"{name}{tag}: {n_ok}/{len(reads)} aligned, "
+                          f"byte-identical to the JAX golden; "
+                          f"{len(reads) / wall:.1f} reads/s, "
+                          f"{cells / wall / 1e6:.1f} Mcells/s, {bp / 1e6:.2f} "
+                          f"Mbp in {wall:.2f} s (set-up {info['set-up']:.3f}"
+                          f" s), peak device memory {info['peak'] / 2**20:.0f}"
+                          f" MiB above the set-up [{card}]", flush=True)
+            finally:
+                os.environ.pop("GA_REACH_MAXN", None)
+    finally:
+        rec.close()
+    launches = {"slice_cells_wide": k1.LAUNCHES_WIDE,
+                "walk_moves_wide": k2.LAUNCHES_WIDE,
+                "project_band": pb.LAUNCHES, "slice_cells": k1.LAUNCHES,
+                "walk_moves": k2.LAUNCHES}
+    fallbacks = ba.host_fallback_count() - fb0
+    print(f"wide path launches (in-degree 8): K1 wide {launches['slice_cells_wide']}"
+          f", K2 wide {launches['walk_moves_wide']}, projection "
+          f"{launches['project_band']}, narrow K1 {k1.LAUNCHES} and K2 "
+          f"{k2.LAUNCHES}; host-fallback lanes {fallbacks}", flush=True)
+    if min(launches["slice_cells_wide"], launches["walk_moves_wide"],
+           launches["project_band"]) < 1:
+        fail(f"a kernel of the wide path never launched: {launches}")
+    if k1.LAUNCHES or k2.LAUNCHES:
+        fail(f"a narrow route ran on a graph of in-degree 8: {launches}")
+    if fallbacks:
+        fail(f"{fallbacks} lanes fell back to the host oracle")
+    if rec.k1 is None or not rec.k2:
+        fail("the wide kernels' arguments were not recorded")
+    return launches, rec, ma
+
+
 def pb_work(args, outs, log):
     """(bytes, int32 operations) of one project_band call, counted from the
     trips its lanes need (the plain version's trip log: a live lane up to
@@ -1577,6 +1659,7 @@ def compare_pb(calls, rate, card):
 
 
 def main() -> int:
+    t_start = time.time()
     if not os.path.isdir(os.path.join(ROOT, "graphaligner_tpu_torch")):
         fail("graphaligner_tpu_torch/ is not beside this script")
     sys.path.insert(0, ROOT)
@@ -1677,6 +1760,9 @@ def main() -> int:
     for name in ("slice_cells", "walk_moves"):
         launches[name] += long_launches[name] + nr_launches[name]
     launches["project_band"] = nr_launches["project_band"]
+    wide_launches, wrec, ma = run_wide_path(device, card)
+    for name in ("slice_cells_wide", "walk_moves_wide"):
+        launches[name] = wide_launches[name]
 
     # exhaustive mode (-i): K3's two routes, through align_reads
     k3.LAUNCHES_WAVEFRONT = 0
@@ -1749,6 +1835,9 @@ def main() -> int:
         "exhaustive_wavefront": compare_k3(rec3, rate),
         "exhaustive_serial": compare_k3_cyclic(rec3, rate, card),
     }
+    results["slice_cells_wide"] = compare_k1(
+        wrec.k1, rate, "the wide route's widest multiallelic call (K_in 8)")
+    results["walk_moves_wide"] = compare_k2(wrec, rate, "walk_moves (wide)")
     results["project_band"], big_ms = compare_pb(pb_calls, rate, card)
     del pb_calls
     print(f"biggraph -b 35: projection {big_ms:.4f} ms a slice at its "
@@ -1758,6 +1847,7 @@ def main() -> int:
     k2_window_chain(rec)
     k2_top_tier(rec)
     profile_seeded(device, longsim, card)
+    profile_seeded(device, ma, card, name="multiallelic x10")
     os.environ["GA_REACH_MAXN"] = "0"
     try:
         profile_seeded(device, longsim, card, "GA_REACH_MAXN=0")
@@ -1767,6 +1857,11 @@ def main() -> int:
     sources = {
         "slice_cells": ("banded_cell.cu", f"{pallas}/banded_cell.py:44"),
         "walk_moves": ("walk_moves.cu", f"{pallas}/walk_moves.py:135"),
+        # XLA code in the JAX package past 5 (K1) and 4 (K2) in-neighbours
+        "slice_cells_wide": ("banded_cell.cu",
+                             "graphaligner_tpu/core/engine_banded.py:883"),
+        "walk_moves_wide": ("walk_moves.cu",
+                            "graphaligner_tpu/core/backtrace_device.py:50"),
         "exhaustive_wavefront": ("exhaustive.cu", f"{pallas}/exhaustive.py:60"),
         "exhaustive_serial": ("exhaustive.cu", f"{pallas}/exhaustive.py:60"),
         # XLA code in the JAX package (the pairwise projection)
@@ -1788,6 +1883,8 @@ def main() -> int:
             "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": by,
             "library_ms": None,
         })
+    print(f"smoke wall {time.time() - t_start:.0f} s (kernel builds "
+          "included)", flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -14,7 +14,11 @@ getSqrtSlices control loop (GraphAligner.h:2571-2856) is split as there:
 The walk starts are decided on the device (unique minima and same-node
 ties) or by the native band-order replay (multi-node ties); the backtrace
 runs as kernel K2 (``ops.walk_moves``) and the native decoder turns its
-move codes back into traces. Lanes that overflow a capacity tier retry on
+move codes back into traces. On graphs of in-degree 5 to 32 the JAX
+package walks with its XLA walk (``backtrace_device.walk_batch``) and the
+port with K2's wide route (byte move codes), under walk_batch's budget:
+``_quantize_k`` of the longest walked table over the whole walk, times 80,
+plus 64 steps a lane. Lanes that overflow a capacity tier retry on
 the 2x tier; what still fails falls back to the host oracle per lane
 (``GA_NO_FALLBACK=1`` makes that an error; each use is counted).
 
@@ -29,8 +33,9 @@ is below 2,097,150 digraph nodes, else by the iterative relaxation
 (``core.reach``) force the latter on smaller graphs.
 
 Device tensors stay on ``device``; the host reads them with ``.cpu()``.
-Not ported (it raises NotImplementedError): the XLA walk for in-degree
-> 4.
+Not ported (it raises NotImplementedError): in-degree past 32, and the
+long-read walk at in-degree past 4, which the JAX package lacks too (its
+long walk is the Pallas kernel, which asserts K_in <= 4).
 """
 
 from __future__ import annotations
@@ -46,7 +51,14 @@ from ..graph.alignment_graph import AlignmentGraph
 from ..io import native
 from ..ops import banded_cell as _k1
 from ..ops import walk_moves as _k2
-from ..ops.walk_moves import max_window_slices, moves_walk_fits, walk_moves
+from ..ops.banded_cell import K_IN_MAX
+from ..ops.walk_moves import (
+    NIBBLE_K_IN,
+    codes_per_word,
+    max_window_slices,
+    moves_walk_fits,
+    walk_moves,
+)
 from . import hmm as _hmm
 from .align import _pad_to_word
 from .engine import _ENCODE_LUT, _READ_CODE
@@ -329,10 +341,10 @@ class BandedBatchAligner:
         self.graph = graph
         self.device = torch.device(device)
         self.tables = _tables if _tables is not None else build_graph_tables(graph)
-        if self.tables.k_in > 4:
+        if self.tables.k_in > K_IN_MAX:
             raise NotImplementedError(
-                "the XLA walk (backtrace_device.walk_batch) for graphs of "
-                f"in-degree {self.tables.k_in} > 4 is not yet ported"
+                f"graphs of in-degree {self.tables.k_in} > {K_IN_MAX} are "
+                "not yet ported"
             )
         self.initial_bandwidth = int(initial_bandwidth)
         self.ramp_bandwidth = int(ramp_bandwidth)
@@ -618,6 +630,13 @@ class BandedBatchAligner:
                 for i in walk_idx:
                     lanes[i].failed = True
                 return results
+            if self.tables.k_in > NIBBLE_K_IN:
+                # where the JAX package's long walk asserts K_in <= 4
+                raise NotImplementedError(
+                    f"the long-read walk takes in-degree <= {NIBBLE_K_IN} "
+                    f"(the JAX package's too); this graph's is "
+                    f"{self.tables.k_in}"
+                )
             t0 = time.perf_counter()
             self._walk_long(problems, lanes, keeps, walk_idx,
                             list(self._chunk_rounds), results)
@@ -670,8 +689,14 @@ class BandedBatchAligner:
         ``get_traces``/``get_traces_stream`` hand the walk bound its size),
         and a block of 256 lanes a call on the CPU: the JAX package's walk
         block, so the plain version's lockstep blocks are the JAX
-        kernel's."""
+        kernel's. Past in-degree 4 every lane gets the JAX XLA walk's
+        budget, from the longest table of the whole walk (JAX
+        ``_walk_xla``)."""
         starts_map = dict(zip(walk_idx, starts))
+        steps = None
+        if self.tables.k_in > NIBBLE_K_IN:
+            steps = _quantize_k(int(max(keeps[i] for i in walk_idx))) * 80
+            steps += WORD_SIZE
         groups: dict = {}
         for i in walk_idx:
             groups.setdefault(_quantize_k(int(keeps[i])), []).append(i)
@@ -685,13 +710,14 @@ class BandedBatchAligner:
             for j in range(0, len(g), step):
                 self._walk_block(
                     problems, lanes, keeps, g[j : j + step], starts_map, kq,
-                    results,
+                    results, steps,
                 )
 
     def _walk_block(self, problems, lanes, keeps, blk, starts_map, K_max,
-                    results):
+                    results, steps=None):
         """One K2 call over lane subset ``blk`` (table length quantized to
-        K_max slices), then the native decode of every live lane."""
+        K_max slices; ``steps`` a lane's budget, None for the TPU kernel's),
+        then the native decode of every live lane."""
         dev = self.device
         n = len(blk)
         Bp = max(128, -(-n // 128) * 128)
@@ -732,9 +758,11 @@ class BandedBatchAligner:
             torch.zeros((1, Bp), dtype=torch.int32, device=dev),
             torch.as_tensor(init_state, device=dev),
             K_in=self.tables.k_in,
+            **({} if steps is None else {"steps": steps, "W_cap": steps}),
         )
         T_w = moves_dev.shape[0]
-        rows = min(T_w, int(used_dev.max()) // 8 + 1)
+        per = codes_per_word(self.tables.k_in)
+        rows = min(T_w, int(used_dev.max()) // per + 1)
         moves = np.ascontiguousarray(moves_dev[:rows].cpu().numpy()).view(
             np.uint32
         )
@@ -745,6 +773,8 @@ class BandedBatchAligner:
         pos2node = np.ascontiguousarray(t.pos_to_node)
         in_nbrs = np.ascontiguousarray(t.in_nbrs)
         cap = K_max * WORD_SIZE * 3 + 64
+        if steps is not None:
+            cap = max(cap, steps + 1)
         live = [(col, i) for col, i in enumerate(blk) if not fail[col]]
         for col, i in enumerate(blk):
             if fail[col]:
@@ -759,10 +789,13 @@ class BandedBatchAligner:
         out_w, out_r, n_out = native.decode_moves_batch(
             moves, cols_a, sw_a, sr_a, node_start64, node_end64, pos2node,
             in_nbrs, cap, _host_threads(),
+            byte_codes=self.tables.k_in > NIBBLE_K_IN,
         )
         for j, (_, i) in enumerate(live):
             m = int(n_out[j])
             lane = lanes[i]
+            # JAX _walk_xla's post-check: the trace ends at row 0, then the
+            # row -1 terminator (the decoder drops it, forward order)
             if m < 1 or out_r[j, 0] != 0:
                 lane.failed = True
                 continue

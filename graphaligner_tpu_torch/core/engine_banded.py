@@ -24,16 +24,21 @@ and inactive lanes are masked, so every output equals the JAX one. All
 arrays keep the batch as the last axis ([Nm, B], [Cm, B], [7, Cm, B]).
 Nothing in the loop reads back to the host, so the host queues the slices
 ahead of the card.
-Not ported: the XLA cell pass (the port always takes layout_parallel + K1),
-and the JAX package's probe projections (``GA_PROJ`` = sort, sort2,
-pairwise2, unroll), which give the same bands as ``pairwise``.
+The JAX package's XLA cell pass (``cell_pass_xla``, what it runs past 5
+in-neighbours) is K1's wide route here: K1 takes graphs of in-degree up to
+32 and returns each slot's predecessor tables as ``pred_words(K_in)``
+int32 planes (``ops.banded_cell``), so ``pred_tab`` and ``pred_prev`` are
+[S, P * Nm, B], plane p at rows p * Nm to (p + 1) * Nm; at P = 1 they are
+the JAX package's. Not ported: the JAX package's probe projections
+(``GA_PROJ`` = sort, sort2, pairwise2, unroll), which give the same bands
+as ``pairwise``.
 """
 
 from __future__ import annotations
 
 import torch
 
-from ..ops.banded_cell import slice_cells
+from ..ops.banded_cell import K_IN_MAX, slice_cells
 from ..ops.project_band import project_band
 from ..ops.wordops import M32, i32
 from .params import WORD_SIZE
@@ -80,10 +85,10 @@ def banded_scan(
     read_codes[:, t*64:(t+1)*64]."""
     dev = dt.device
     K_in = dt.in_nbrs.shape[1]
-    if Nm > 32 or K_in > 5:
+    if Nm > 32 or K_in > K_IN_MAX:
         raise NotImplementedError(
             "banded scan beyond the cell kernel's packing (Nm <= 32, "
-            "K_in <= 5) is not yet ported"
+            f"K_in <= {K_IN_MAX}) is not yet ported"
         )
     N_nodes = dt.num_nodes
     read_codes = torch.as_tensor(read_codes, device=dev)
@@ -204,7 +209,7 @@ def banded_scan(
         ctrl_steps.append(ctrl)
         cols_steps.append(cols)
 
-    nm_pack = torch.stack(nm_steps)  # [S, 6, Nm, B]
+    nm_pack = torch.stack(nm_steps)  # [S, 4 + 2P, Nm, B]
     ctrl_pack = torch.stack(ctrl_steps)  # [S, B]
     cols_out = torch.stack(cols_steps)  # [S, 7, Cm, B]
     return _finish_outputs(
@@ -217,6 +222,7 @@ def _finish_outputs(nm_pack, ctrl_pack, cols, read_codes, init_min,
                     num_steps, seg, tie8, Nm):
     S, B = ctrl_pack.shape
     dev = ctrl_pack.device
+    NP = (nm_pack.shape[1] - 4) // 2  # pred planes
     band_ids = nm_pack[:, 0]
     node_min = nm_pack[:, 1]
     node_end = nm_pack[:, 2]
@@ -278,8 +284,8 @@ def _finish_outputs(nm_pack, ctrl_pack, cols, read_codes, init_min,
         "cols": cols,  # [S, 7, Cm, B]: vp_lo vp_hi vn_lo vn_hi sbs send e
         "sends": cols[:, 5],
         "lens_tab": nm_pack[:, 3],
-        "pred_tab": nm_pack[:, 4],
-        "pred_prev": nm_pack[:, 5],
+        "pred_tab": nm_pack[:, 4:4 + NP].reshape(S, NP * Nm, B),
+        "pred_prev": nm_pack[:, 4 + NP:].reshape(S, NP * Nm, B),
         "codes": read_codes.to(torch.uint8)
         .reshape(B, -1, WORD_SIZE)
         .permute(1, 2, 0)

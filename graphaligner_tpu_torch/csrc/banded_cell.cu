@@ -56,6 +56,16 @@
 // beforehand by all threads), and blocks of 8 lanes spread a round's lanes
 // over many SMs and keep the divergence between start and chain cells to 8
 // lanes a warp.
+//
+// The wide route (slice_cells_kernel<true>, 6 to 32 in-neighbours) is the
+// JAX package's XLA cell pass (graphaligner_tpu/core/engine_banded.py::
+// cell_pass_xla), which it runs past 5 in-neighbours and which merges the
+// same predecessors in the same order. Its only change is the width of
+// the per-slot predecessor tables: NP = ceil(K_in / 5) int32 planes each of
+// pred_tab and pred_prev (plane p holds in-neighbours 5p to 5p + 4, 6 bits
+// each), kept as 2 (NP - 1) more shared slot tables after the node-end
+// buffer and written out as nm rows 4 .. 4 + 2 NP - 1. At NP = 1 the
+// template is the narrow route, whose plane loops run once.
 #include <cuda_runtime.h>
 
 #include "wordops.cuh"
@@ -68,9 +78,18 @@
 enum {
   T_IDS, T_PIDS, T_PEND, T_LEN, T_CUM, T_START, T_INPREV, T_PBASE, T_PSEUDO,
   T_PTAB, T_PPREV, T_SRC, T_POFF, T_NMIN, T_BUF,  // T_BUF: 7 tables
-  T_SLOTS = T_BUF + 7
+  T_SLOTS = T_BUF + 7  // then, wide: pred_tab planes 1.., pred_prev 1..
 };
 
+// the shared table of pred_tab's (pred_prev's) plane p
+__device__ __forceinline__ int t_ptab(int p) {
+  return p == 0 ? T_PTAB : T_SLOTS + p - 1;
+}
+__device__ __forceinline__ int t_pprev(int p, int NP) {
+  return p == 0 ? T_PPREV : T_SLOTS + NP - 1 + p - 1;
+}
+
+template <bool WIDE>
 __global__ void slice_cells_kernel(
     const int32_t *__restrict__ ids,         // [Nm, B]
     const uint8_t *__restrict__ proj_over,   // [B]
@@ -90,7 +109,7 @@ __global__ void slice_cells_kernel(
     const int32_t *__restrict__ seq_codes,   // [BP]
     const int32_t *__restrict__ bits_lut,    // [R]
     int32_t *__restrict__ cols,              // [7, Cm, B]
-    int32_t *__restrict__ nm,                // [6, Nm, B]
+    int32_t *__restrict__ nm,                // [4 + 2 NP, Nm, B]
     int32_t *__restrict__ ctrl,              // [B]
     int32_t *__restrict__ o_ids,             // [Nm, B]
     int32_t *__restrict__ o_cell_send,       // [Cm, B]
@@ -100,7 +119,8 @@ __global__ void slice_cells_kernel(
     int Nm, int Cm, int B, int N, int K_in, int BP, int Lc, int P_fix,
     int LB) {
   extern __shared__ int32_t sm[];
-  int32_t *sm_m1 = sm + T_SLOTS * Nm * LB;  // [Cm][LB]
+  const int NP = WIDE ? (K_in + 4) / 5 : 1;  // pred planes
+  int32_t *sm_m1 = sm + (T_SLOTS + 2 * (NP - 1)) * Nm * LB;  // [Cm][LB]
   int32_t *sm_oe = sm_m1 + Cm * LB;         // [Cm][LB]
   int32_t *sm_lane = sm_oe + Cm * LB;       // [12][LB]: eq lo/hi x 5, c_used, fail
   const size_t sB = (size_t)B;
@@ -169,40 +189,48 @@ __global__ void slice_cells_kernel(
         }
         SLOT(T_INPREV, j) = inprev;
         SLOT(T_PBASE, j) = SLOT(T_POFF, prev_slot);
-        // in-neighbour classification
+        // in-neighbour classification, five in-neighbours a plane
         bool any_banded = false;
-        int32_t pseudo = GA_INF, ptab = 0, pprev = 0;
-        for (int k = 0; k < K_in; ++k) {
-          const int32_t nb = valid ? in_nbrs[(size_t)safe * K_in + k] : -1;
-          const bool nbv = nb >= 0 && valid;
-          bool in_cur = false, in_prev = false;
-          int cur_slot = 0, pslot = 0;
-          if (nbv) {
-            for (int i = 0; i < Nm; ++i)
-              if (SLOT(T_IDS, i) == nb) {
-                in_cur = true;
-                cur_slot = i;
-                break;
-              }
-            for (int i = 0; i < Nm; ++i) {
-              const int32_t q = SLOT(T_PIDS, i);
-              if (q < SC_EMPTY && q == nb) {
-                in_prev = true;
-                pslot = i;
-                break;
+        int32_t pseudo = GA_INF;
+        const bool act = active[b];
+        for (int p = 0; p < NP; ++p) {
+          int32_t ptab = 0, pprev = 0;
+          for (int kk = 0; kk < 5; ++kk) {
+            const int k = 5 * p + kk;
+            if (k >= K_in) break;
+            const int32_t nb = valid ? in_nbrs[(size_t)safe * K_in + k] : -1;
+            const bool nbv = nb >= 0 && valid;
+            bool in_cur = false, in_prev = false;
+            int cur_slot = 0, pslot = 0;
+            if (nbv) {
+              for (int i = 0; i < Nm; ++i)
+                if (SLOT(T_IDS, i) == nb) {
+                  in_cur = true;
+                  cur_slot = i;
+                  break;
+                }
+              for (int i = 0; i < Nm; ++i) {
+                const int32_t q = SLOT(T_PIDS, i);
+                if (q < SC_EMPTY && q == nb) {
+                  in_prev = true;
+                  pslot = i;
+                  break;
+                }
               }
             }
+            const int32_t pe = in_prev ? SLOT(T_PEND, pslot) : GA_INF;
+            if (in_prev && !in_cur) pseudo = min(pseudo, pe);
+            any_banded |= in_cur || in_prev;
+            ptab |= (cur_slot | ((int32_t)in_cur << 5)) << (6 * kk);
+            pprev |= (pslot | ((int32_t)in_prev << 5)) << (6 * kk);
           }
-          const int32_t pe = in_prev ? SLOT(T_PEND, pslot) : GA_INF;
-          if (in_prev && !in_cur) pseudo = min(pseudo, pe);
-          any_banded |= in_cur || in_prev;
-          ptab |= (cur_slot | ((int32_t)in_cur << 5)) << (6 * k);
-          pprev |= (pslot | ((int32_t)in_prev << 5)) << (6 * k);
+          SLOT(t_ptab(p), j) = ptab;
+          SLOT(t_pprev(p, NP), j) = pprev;
+          nm[((4 + p) * Nm + j) * sB + b] = act ? ptab : 0;
+          nm[((4 + NP + p) * Nm + j) * sB + b] = act ? pprev : 0;
         }
         const bool band_source = !any_banded && valid;
         SLOT(T_PSEUDO, j) = pseudo;
-        SLOT(T_PTAB, j) = ptab;
-        SLOT(T_PPREV, j) = pprev;
         SLOT(T_SRC, j) = (int32_t)(band_source && !inprev) |
                          ((int32_t)(band_source && inprev && first_slice[b])
                           << 1);
@@ -215,11 +243,8 @@ __global__ void slice_cells_kernel(
         SLOT(T_BUF + 5, j) = GA_INF + 64;
         SLOT(T_BUF + 6, j) = 0;
         // outputs that do not depend on the cell pass
-        const bool act = active[b];
         nm[(0 * Nm + j) * sB + b] = act ? id : SC_EMPTY;
         nm[(3 * Nm + j) * sB + b] = act ? len : 0;
-        nm[(4 * Nm + j) * sB + b] = act ? ptab : 0;
-        nm[(5 * Nm + j) * sB + b] = act ? pprev : 0;
         o_ids[j * sB + b] = act ? id : pid;
       }
     }
@@ -313,24 +338,28 @@ __global__ void slice_cells_kernel(
             merged.sbs = sbs_f;
             merged.send = a_f + 63;
             merged.e = 0;
-            // in-band predecessor columns (getNodeStartSlice)
-            const int32_t rp = SLOT(T_PTAB, slot);
-            for (int k = 0; k < K_in; ++k) {
-              if (!((rp >> (6 * k + 5)) & 1)) continue;
-              const int pslot = (rp >> (6 * k)) & 31;
-              if (pslot >= slot) back_edge = true;
-              int32_t g[7] = {0, 0, 0, 0, 0, 0, 0};
-              if (pslot < Nm)
-                for (int f = 0; f < 7; ++f) g[f] = SLOT(T_BUF + f, pslot);
-              Col adv;
-              int32_t a_send;
-              myers_advance((g[6] & 1) ? eq : (eq & ~1ull), ga_u64(g[0], g[1]),
-                            ga_u64(g[2], g[3]), g[5], 1, adv.vp, adv.vn,
-                            a_send);
-              adv.sbs = g[4] + 1;
-              adv.send = a_send;
-              adv.e = g[6];
-              merged = merge_slices(merged, adv);
+            // in-band predecessor columns (getNodeStartSlice), a plane of
+            // five at a time
+            for (int p = 0; p < NP; ++p) {
+              const int32_t rp = SLOT(t_ptab(p), slot);
+              for (int kk = 0; kk < 5; ++kk) {
+                if (5 * p + kk >= K_in) break;
+                if (!((rp >> (6 * kk + 5)) & 1)) continue;
+                const int pslot = (rp >> (6 * kk)) & 31;
+                if (pslot >= slot) back_edge = true;
+                int32_t g[7] = {0, 0, 0, 0, 0, 0, 0};
+                if (pslot < Nm)
+                  for (int f = 0; f < 7; ++f) g[f] = SLOT(T_BUF + f, pslot);
+                Col adv;
+                int32_t a_send;
+                myers_advance((g[6] & 1) ? eq : (eq & ~1ull),
+                              ga_u64(g[0], g[1]), ga_u64(g[2], g[3]), g[5], 1,
+                              adv.vp, adv.vn, a_send);
+                adv.sbs = g[4] + 1;
+                adv.send = a_send;
+                adv.e = g[6];
+                merged = merge_slices(merged, adv);
+              }
             }
             n.vp = merged.vp;
             n.vn = merged.vn;
@@ -405,7 +434,8 @@ __global__ void slice_cells_kernel(
   }
 }
 
-extern "C" int ga_slice_cells(
+template <bool WIDE>
+static int launch_slice_cells(
     const int32_t *ids, const uint8_t *proj_over, const int32_t *p_ids,
     const int32_t *p_node_min, const int32_t *p_node_end,
     const int32_t *p_cell_send, const int32_t *p_min, const uint8_t *active,
@@ -417,17 +447,49 @@ extern "C" int ga_slice_cells(
     int32_t *o_node_min, int32_t *o_node_end, int32_t *o_min, int Nm, int Cm,
     int B, int N, int K_in, int BP, int Lc, int P_fix, int LB, int smem,
     void *stream) {
-  if (Nm < 1 || Nm > 32 || K_in < 1 || K_in > 5 || LB < 1 || LB > 32 ||
-      Lc < 64)
-    return (int)cudaErrorInvalidValue;
   cudaError_t err = cudaFuncSetAttribute(
-      slice_cells_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+      slice_cells_kernel<WIDE>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      smem);
   if (err != cudaSuccess) return (int)err;
   const int blocks = (B + LB - 1) / LB;
-  slice_cells_kernel<<<blocks, LB * 32, smem, (cudaStream_t)stream>>>(
+  slice_cells_kernel<WIDE><<<blocks, LB * 32, smem, (cudaStream_t)stream>>>(
       ids, proj_over, p_ids, p_node_min, p_node_end, p_cell_send, p_min,
       active, first_slice, seq_len, read_codes, win, node_len, node_start,
       in_nbrs, seq_codes, bits_lut, cols, nm, ctrl, o_ids, o_cell_send,
       o_node_min, o_node_end, o_min, Nm, Cm, B, N, K_in, BP, Lc, P_fix, LB);
   return (int)cudaGetLastError();
+}
+
+#define SLICE_CELLS_PARAMS                                                    \
+  const int32_t *ids, const uint8_t *proj_over, const int32_t *p_ids,        \
+      const int32_t *p_node_min, const int32_t *p_node_end,                   \
+      const int32_t *p_cell_send, const int32_t *p_min,                       \
+      const uint8_t *active, const uint8_t *first_slice,                      \
+      const int32_t *seq_len, const uint8_t *read_codes, const int32_t *win,  \
+      const int32_t *node_len, const int32_t *node_start,                     \
+      const int32_t *in_nbrs, const int32_t *seq_codes,                       \
+      const int32_t *bits_lut, int32_t *cols, int32_t *nm, int32_t *ctrl,     \
+      int32_t *o_ids, int32_t *o_cell_send, int32_t *o_node_min,              \
+      int32_t *o_node_end, int32_t *o_min, int Nm, int Cm, int B, int N,      \
+      int K_in, int BP, int Lc, int P_fix, int LB, int smem, void *stream
+#define SLICE_CELLS_ARGS                                                      \
+  ids, proj_over, p_ids, p_node_min, p_node_end, p_cell_send, p_min, active, \
+      first_slice, seq_len, read_codes, win, node_len, node_start, in_nbrs,   \
+      seq_codes, bits_lut, cols, nm, ctrl, o_ids, o_cell_send, o_node_min,    \
+      o_node_end, o_min, Nm, Cm, B, N, K_in, BP, Lc, P_fix, LB, smem, stream
+
+// the narrow route: up to 5 in-neighbours, one pred word a slot
+extern "C" int ga_slice_cells(SLICE_CELLS_PARAMS) {
+  if (Nm < 1 || Nm > 32 || K_in < 1 || K_in > 5 || LB < 1 || LB > 32 ||
+      Lc < 64)
+    return (int)cudaErrorInvalidValue;
+  return launch_slice_cells<false>(SLICE_CELLS_ARGS);
+}
+
+// the wide route: 6 to 32 in-neighbours, ceil(K_in / 5) pred planes
+extern "C" int ga_slice_cells_wide(SLICE_CELLS_PARAMS) {
+  if (Nm < 1 || Nm > 32 || K_in < 6 || K_in > 32 || LB < 1 || LB > 32 ||
+      Lc < 64)
+    return (int)cudaErrorInvalidValue;
+  return launch_slice_cells<true>(SLICE_CELLS_ARGS);
 }

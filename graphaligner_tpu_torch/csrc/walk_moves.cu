@@ -55,6 +55,19 @@
 // 256 lanes, 4.416 ms for the widest main-path call's 384, about 420 ns a
 // step of the longest lane (first design: 7.915 and 9.006 ms), 9.902 ms for
 // 128 lanes at Cm=2304; NVIDIA H100 80GB HBM3, 700 W, chip_smoke.py.
+//
+// The wide route (walk_moves_kernel<true>, 5 to 32 in-neighbours) computes
+// what the JAX package runs there, its XLA walk (graphaligner_tpu/core/
+// backtrace_device.py::walk_batch), with the same priority: thread k of the
+// warp weighs in-neighbour k, two ballots over the whole warp give every
+// in-neighbour's H and D, and the winner is the lowest set bit of H | D
+// (lowest k, H before D); its slot, offset and column come from its thread
+// by shuffles. Its moves are byte codes, four an int32 word (0 PAD, 1 STOP,
+// 2 V, 3 H, 4 D, 64+k Hk, 128+k Dk), and its pred tables NP = ceil(K_in /
+// 5) planes a slot ([K+1, NP * Nm, B], plane p holding in-neighbours 5p to
+// 5p + 4), staged as NP (Nm + 1) shared words each. The caller gives it
+// walk_batch's budget (T_total - 1 steps, W_cap no tighter). The fast path
+// inside a node and the staging are the narrow route's.
 #include <cuda_runtime.h>
 
 #include <cstdint>
@@ -85,13 +98,15 @@ struct Args {
   int32_t *moves;  // [T_w, B], zero on entry
   int32_t *fail, *state_out, *used;  // [1, B], [16, B], [1, B]
   int K, Cm, Nm, B, K_in, W_cap, T_total, T_w, R;
+  int NP;  // pred planes: 1 on the narrow route
 };
 
 // The block's lane's tables of one slice.
 struct Buf {
   int32_t *cols;  // [Cm][6]: fields 0-4 of cur's cells, then e (field 6)
   int32_t *send;  // [Cm]: field 5 of the previous slice
-  int32_t *band_c, *lens_c, *pred_c, *pprev_c, *band_p, *lens_p;  // [Nm+1]
+  int32_t *band_c, *lens_c, *band_p, *lens_p;  // [Nm+1]
+  int32_t *pred_c, *pprev_c;  // [NP][Nm+1]
   int32_t *offs_c, *offs_p, *map;  // [Nm+1]
   int32_t *mrow;  // [64]: staged code words, then match masks
 };
@@ -104,8 +119,8 @@ __device__ __forceinline__ Buf buf_at(int32_t *base, const Args &A) {
   S.band_c = S.send + A.Cm;
   S.lens_c = S.band_c + n;
   S.pred_c = S.lens_c + n;
-  S.pprev_c = S.pred_c + n;
-  S.band_p = S.pprev_c + n;
+  S.pprev_c = S.pred_c + A.NP * n;
+  S.band_p = S.pprev_c + A.NP * n;
   S.lens_p = S.band_p + n;
   S.offs_c = S.lens_p + n;
   S.offs_p = S.offs_c + n;
@@ -137,17 +152,22 @@ __device__ void stage(const Args &A, const Buf &S, int c, int b, int tid) {
     for (int x = tid; x < Cm; x += 32, src += 32 * sB)
       cp_async4(S.send + x, src);
   }
-  const int32_t *tab_src[6] = {A.band, A.lens, A.pred, A.pprev, A.band,
-                               A.lens};
-  int32_t *tab_dst[6] = {S.band_c, S.lens_c, S.pred_c, S.pprev_c, S.band_p,
-                         S.lens_p};
+  const int32_t *tab_src[4] = {A.band, A.lens, A.band, A.lens};
+  int32_t *tab_dst[4] = {S.band_c, S.lens_c, S.band_p, S.lens_p};
 #pragma unroll
-  for (int a = 0; a < 6; ++a) {
-    const int sl = a < 4 ? c : c - 1;
+  for (int a = 0; a < 4; ++a) {
+    const int sl = a < 2 ? c : c - 1;
     if (tid < Nm)
       cp_async4(tab_dst[a] + tid,
                 tab_src[a] + ((size_t)sl * Nm + tid) * sB + b);
   }
+  // pred and pred_prev, plane by plane ([K+1, NP * Nm, B])
+  for (int p = 0; p < A.NP; ++p)
+    if (tid < Nm) {
+      const size_t row = (size_t)c * A.NP * Nm + p * Nm + tid;
+      cp_async4(S.pred_c + p * (Nm + 1) + tid, A.pred + row * sB + b);
+      cp_async4(S.pprev_c + p * (Nm + 1) + tid, A.pprev + row * sB + b);
+    }
   // codes: the aligned word that holds the lane's byte, one a row
   for (int r = tid; r < 64; r += 32)
     cp_async4(S.mrow + r,
@@ -229,15 +249,21 @@ __device__ __forceinline__ int32_t masked_value(const int32_t (&w)[5],
 
 }  // namespace
 
-// One lane a block (one warp): threads 0-3 walk it, the whole warp stages
-// and derives its slices. Threads 4-31 step with the lane's tables on an
-// idle state (done), so every warp collective has all 32 threads.
+// One lane a block (one warp): threads 0-3 walk it (narrow) or all 32
+// (wide, thread k weighing in-neighbour k), and the whole warp stages and
+// derives its slices. On the narrow route threads 4-31 step with the lane's
+// tables on an idle state (done), so every warp collective has all 32
+// threads.
+template <bool WIDE>
 __global__ void __launch_bounds__(32) walk_moves_kernel(Args A) {
   extern __shared__ __align__(16) int32_t smem[];
-  const int tid = threadIdx.x, k = tid & 3;
+  const int tid = threadIdx.x, k = WIDE ? tid : tid & 3;
   const int Cm = A.Cm, Nm = A.Nm;
   const int b = blockIdx.x;
-  const bool valid = tid < 4;
+  const bool valid = WIDE || tid < 4;
+  // move codes of H and D through in-neighbour k, and the code width
+  constexpr int C_HK = WIDE ? 64 : 8, C_DK = WIDE ? 128 : 12;
+  constexpr int PER = WIDE ? 4 : 8, BITS = 32 / PER;
   const size_t sB = (size_t)A.B;
   auto sidx = [&](int32_t slot) { return (slot >= 0 && slot < Nm) ? slot : Nm; };
 
@@ -247,9 +273,11 @@ __global__ void __launch_bounds__(32) walk_moves_kernel(Args A) {
   if (tid == 0) {  // the out-of-range slot reads 0
     S.band_c[Nm] = 0;
     S.lens_c[Nm] = 0;
-    S.pred_c[Nm] = 0;
-    S.pprev_c[Nm] = 0;
     S.lens_p[Nm] = 0;
+    for (int p = 0; p < A.NP; ++p) {
+      S.pred_c[p * (Nm + 1) + Nm] = 0;
+      S.pprev_c[p * (Nm + 1) + Nm] = 0;
+    }
   }
 
   // lane state: 0 sk, 1 row_in, 2 slot, 3 off, 4 here, 5 done, 6 fail,
@@ -326,8 +354,16 @@ __global__ void __launch_bounds__(32) walk_moves_kernel(Args A) {
       const bool slow = is_start || row_in == 0 || grow == 0;
       if (__any_sync(FULL, act && slow)) {
         const int32_t node_id = S.band_c[si];
-        const int32_t predw = S.pred_c[si];
-        const int32_t predprevw = S.pprev_c[si];
+        // this thread's in-neighbour's pred words, shifted to its field
+        int32_t pw, ppw;
+        if constexpr (WIDE) {
+          const int pi = (k / 5) * (Nm + 1) + si;
+          pw = k < A.K_in ? S.pred_c[pi] >> (6 * (k % 5)) : 0;
+          ppw = k < A.K_in ? S.pprev_c[pi] >> (6 * (k % 5)) : 0;
+        } else {
+          pw = S.pred_c[si] >> (6 * k);
+          ppw = S.pprev_c[si] >> (6 * k);
+        }
         const bool spec_s =
             grow == 0 && node_id == seed_v && here >= 0 && here <= 1;
 
@@ -348,7 +384,6 @@ __global__ void __launch_bounds__(32) walk_moves_kernel(Args A) {
         }
 
         // in-neighbour k of this thread
-        const int32_t pw = predw >> (6 * k), ppw = predprevw >> (6 * k);
         const int32_t pslot = pw & 31, psp = ppw & 31;
         const bool pvalid = (pw >> 5) & 1, ppv = (ppw >> 5) & 1;
         const int32_t u_off =
@@ -375,22 +410,24 @@ __global__ void __launch_bounds__(32) walk_moves_kernel(Args A) {
         const bool d_ok =
             cand && (matched ? diag == here : diag == here - 1);
 
-        // the winner among the lane's four threads: lowest k, H before
-        // D; its slot and prev-only flag follow from the lane's pred
-        // words, its offset and column come from its thread
-        const int lsh = tid & ~3;
-        const unsigned h4 = (__ballot_sync(FULL, h_ok) >> lsh) & 15u;
-        const unsigned d4 = (__ballot_sync(FULL, d_ok) >> lsh) & 15u;
+        // the winner among the lane's threads (four, or the warp): lowest
+        // k, H before D; its pred fields, offset and column come from its
+        // thread
+        const int lsh = WIDE ? 0 : tid & ~3;
+        const unsigned lmask = WIDE ? FULL : 15u;
+        const unsigned h4 = (__ballot_sync(FULL, h_ok) >> lsh) & lmask;
+        const unsigned d4 = (__ballot_sync(FULL, d_ok) >> lsh) & lmask;
         const unsigned any4 = h4 | d4;
         const int kw = any4 ? __ffs(any4) - 1 : k;
         const int src = lsh + kw;
         const int32_t w_off = __shfl_sync(FULL, u_off, src);
         const int32_t w_po_off = __shfl_sync(FULL, po_off, src);
+        const int32_t wpw = __shfl_sync(FULL, pw, src);
+        const int32_t wppw = __shfl_sync(FULL, ppw, src);
         int32_t w_col[5];
 #pragma unroll
         for (int f = 0; f < 5; ++f) w_col[f] = __shfl_sync(FULL, us[f], src);
         if (slow) {
-          const int32_t wpw = predw >> (6 * kw), wppw = predprevw >> (6 * kw);
           const bool s_h = any4 && ((h4 >> kw) & 1);
           const bool s_d = any4 && !s_h;
           const bool s_v = !spec_s && !any4 && vert_s == here - 1;
@@ -400,8 +437,9 @@ __global__ void __launch_bounds__(32) walk_moves_kernel(Args A) {
           take_w = any4;
           decided = spec_s || any4 || s_v;
           move = spec_s ? 1
-                        : s_h ? (is_start ? 8 + kw : 3)
-                              : s_d ? (is_start ? 12 + kw : 4) : s_v ? 2 : 0;
+                        : s_h ? (is_start ? C_HK + kw : 3)
+                              : s_d ? (is_start ? C_DK + kw : 4)
+                                    : s_v ? 2 : 0;
           n_slot = any4 && is_start ? (wpw & 31) : slot;
           n_off = any4 ? w_off : off;
           n_row = spec_s || s_d || s_v ? row_in - 1 : row_in;
@@ -436,9 +474,10 @@ __global__ void __launch_bounds__(32) walk_moves_kernel(Args A) {
         s[7] = moved_down ? 1 : 0;
 #pragma unroll
         for (int f = 0; f < 5; ++f) s[8 + f] = take_w ? u[f] : col[f];
-        word |= (uint32_t)move << (4 * (t % 8));
-        if (t % 8 == 7) {
-          if (k == 0) A.moves[min(t / 8, A.T_w - 1) * sB + b] = (int32_t)word;
+        word |= (uint32_t)move << (BITS * (t % PER));
+        if (t % PER == PER - 1) {
+          if (k == 0)
+            A.moves[min(t / PER, A.T_w - 1) * sB + b] = (int32_t)word;
           word = 0;
         }
         ++t;
@@ -446,7 +485,7 @@ __global__ void __launch_bounds__(32) walk_moves_kernel(Args A) {
     }
   }
   if (tid == 0) {
-    A.moves[min(t / 8, A.T_w - 1) * sB + b] = (int32_t)word;
+    A.moves[min(t / PER, A.T_w - 1) * sB + b] = (int32_t)word;
     A.used[b] = t;
     // a lane still inside this window that is not done got stuck -> fail;
     // lanes with sk <= base continue in the next (earlier) window
@@ -456,20 +495,39 @@ __global__ void __launch_bounds__(32) walk_moves_kernel(Args A) {
   }
 }
 
-extern "C" int ga_walk_moves(
-    const int32_t *cols, const int32_t *band, const int32_t *lens,
-    const int32_t *pred, const int32_t *pprev, const uint8_t *codes,
-    const int32_t *lut, const int32_t *seq_len, const int32_t *seed,
-    const int32_t *win_base, const int32_t *init_state, int32_t *moves,
-    int32_t *fail, int32_t *state_out, int32_t *used, int K, int Cm, int Nm,
-    int B, int K_in, int W_cap, int T_total, int T_w, int R, int smem,
-    void *stream) {
+template <bool WIDE>
+static int launch_walk_moves(const Args &A, int smem, void *stream) {
+  cudaError_t err = cudaFuncSetAttribute(
+      walk_moves_kernel<WIDE>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      smem);
+  if (err != cudaSuccess) return (int)err;
+  walk_moves_kernel<WIDE><<<A.B, 32, smem, (cudaStream_t)stream>>>(A);
+  return (int)cudaGetLastError();
+}
+
+#define WALK_MOVES_PARAMS                                                     \
+  const int32_t *cols, const int32_t *band, const int32_t *lens,             \
+      const int32_t *pred, const int32_t *pprev, const uint8_t *codes,        \
+      const int32_t *lut, const int32_t *seq_len, const int32_t *seed,        \
+      const int32_t *win_base, const int32_t *init_state, int32_t *moves,     \
+      int32_t *fail, int32_t *state_out, int32_t *used, int K, int Cm,        \
+      int Nm, int B, int K_in, int W_cap, int T_total, int T_w, int R,        \
+      int smem, void *stream
+
+// the narrow route: up to 4 in-neighbours, 4-bit move codes
+extern "C" int ga_walk_moves(WALK_MOVES_PARAMS) {
+  if (K_in < 1 || K_in > 4) return (int)cudaErrorInvalidValue;
   const Args A{cols, band, lens, pred, pprev, codes, lut, seq_len, seed,
                win_base, init_state, moves, fail, state_out, used, K, Cm, Nm,
-               B, K_in, W_cap, T_total, T_w, R};
-  cudaError_t err = cudaFuncSetAttribute(
-      walk_moves_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-  if (err != cudaSuccess) return (int)err;
-  walk_moves_kernel<<<B, 32, smem, (cudaStream_t)stream>>>(A);
-  return (int)cudaGetLastError();
+               B, K_in, W_cap, T_total, T_w, R, 1};
+  return launch_walk_moves<false>(A, smem, stream);
+}
+
+// the wide route: 5 to 32 in-neighbours, byte move codes
+extern "C" int ga_walk_moves_wide(WALK_MOVES_PARAMS) {
+  if (K_in < 5 || K_in > 32) return (int)cudaErrorInvalidValue;
+  const Args A{cols, band, lens, pred, pprev, codes, lut, seq_len, seed,
+               win_base, init_state, moves, fail, state_out, used, K, Cm, Nm,
+               B, K_in, W_cap, T_total, T_w, R, (K_in + 4) / 5};
+  return launch_walk_moves<true>(A, smem, stream);
 }

@@ -122,3 +122,99 @@ def make_reads(backbone_seq, n_reads, read_len, graph, backbone,
         seed_node = int(backbone[start // seg_len])
         reads.append((f"bigread{i}", "".join(sub), seed_node))
     return reads
+
+
+# allele counts of a multi-allelic site and their shares (ALLELE_COUNTS)
+ALLELE_COUNTS = (2, 3, 4, 5, 6, 8)
+ALLELE_SHARES = (0.60, 0.15, 0.10, 0.06, 0.05, 0.04)
+
+
+def make_multiallelic(n_segments, n_reads, read_len, seed, seg_len=(32, 96),
+                      max_allele=12, sub=0.03, indel=0.005,
+                      counts=ALLELE_COUNTS, shares=ALLELE_SHARES):
+    """A variation graph of short-tandem-repeat-like multi-allelic sites, as
+    ``vg construct`` builds from a VCF with multi-allelic records, and reads
+    along random allele paths through it.
+
+    The backbone is n_segments random segments of seg_len bp (inclusive);
+    between two consecutive segments sits a site of n alleles, n drawn from
+    ``counts`` with ``shares`` (ALLELE_COUNTS, ALLELE_SHARES), the alleles
+    distinct random sequences
+    of 0 to max_allele bp, an empty one a direct edge between the segments.
+    The segment after a site of n alleles has in-degree n (and so does the
+    reverse strand of the segment before it). Node ids count up in path
+    order: a segment, its site's alleles, the next segment.
+
+    Each read starts at the first base of a random segment, follows a
+    uniformly drawn allele at every site for read_len bp, and is mutated
+    base by base: a substitution with probability ``sub``, a 1-bp deletion
+    or insertion with ``indel / 2`` each. Everything is drawn from
+    ``np.random.default_rng(seed)``.
+
+    Returns (gfa text, reads), reads a list of (name, sequence, seed node
+    id): the read's first segment, at read position 0, forward."""
+    rng = np.random.default_rng(seed)
+
+    def rand_seq(n):
+        return "".join(BASES[rng.integers(0, 4, n)])
+
+    seqs: list[str] = []
+    links: list[tuple[int, int]] = []
+    segs: list[int] = []
+    sites: list[list[int]] = []  # per site, allele node ids (0: empty)
+    for i in range(n_segments):
+        seqs.append(rand_seq(int(rng.integers(seg_len[0], seg_len[1] + 1))))
+        node = len(seqs)
+        segs.append(node)
+        if i:
+            for a in sites[-1]:
+                links.append((a or segs[-2], node))
+        if i + 1 == n_segments:
+            break
+        n = int(rng.choice(counts, p=shares))
+        alleles: list[str] = []
+        while len(alleles) < n:
+            s = rand_seq(int(rng.integers(0, max_allele + 1)))
+            if s not in alleles:
+                alleles.append(s)
+        ids = []
+        for s in alleles:
+            if s:
+                seqs.append(s)
+                ids.append(len(seqs))
+                links.append((node, len(seqs)))
+            else:
+                ids.append(0)
+        sites.append(ids)
+    gfa = "".join(f"S\t{i + 1}\t{s}\n" for i, s in enumerate(seqs))
+    gfa += "".join(f"L\t{a}\t+\t{b}\t+\t0M\n" for a, b in links)
+
+    seg_lens = np.array([len(seqs[s - 1]) for s in segs])
+    rest = np.cumsum(seg_lens[::-1])[::-1]  # backbone bp from each segment
+    starts = np.nonzero(rest >= read_len + 64)[0]
+    reads = []
+    for r in range(n_reads):
+        first = int(rng.choice(starts))
+        parts, length, i = [], 0, first
+        while length < read_len:
+            parts.append(seqs[segs[i] - 1])
+            a = sites[i][int(rng.integers(0, len(sites[i])))] if i < len(
+                sites) else 0
+            if a:
+                parts.append(seqs[a - 1])
+            length += len(parts[-1]) + (len(parts[-2]) if a else 0)
+            i += 1
+        truth = "".join(parts)[:read_len]
+        out = []
+        for c in truth:
+            x = rng.random()
+            if x < sub:
+                out.append(str(rng.choice([b for b in "ACGT" if b != c])))
+            elif x < sub + indel / 2:
+                continue
+            else:
+                out.append(c)
+                if x < sub + indel:
+                    out.append(str(BASES[rng.integers(0, 4)]))
+        reads.append((f"ma{r}", "".join(out), segs[first]))
+    return gfa, reads

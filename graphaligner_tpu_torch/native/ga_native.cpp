@@ -397,20 +397,26 @@ void ga_gfa_destroy(void* h) { delete (GaGfa*)h; }
 // order; the implicit row -1 terminator is dropped (getTraceFromTable,
 // GraphAligner.h:894-1021). Returns the number of steps, or -1 on a
 // malformed stream / capacity overflow.
-//   moves:   packed words, nibble t = lockstep step t
+//   moves:   packed words, nibble t = lockstep step t (byte_codes = 0), or
+//            byte t (byte_codes = 1: the walk of in-degree 5 to 32, codes
+//            0 PAD, 1 STOP, 2 V, 3 H, 4 D, 64+k Hk, 128+k Dk)
 //   in_nbrs: [num_nodes * k_in], -1 padded, adjacency order
 // ---------------------------------------------------------------------------
 static int64_t ga_decode_moves_impl(
     const uint32_t* moves, int64_t n_words, int64_t start_w,
     int64_t start_row, const int64_t* node_start, const int64_t* node_end,
     const int32_t* pos_to_node, const int32_t* in_nbrs, int32_t k_in,
-    int64_t cap, int64_t* out_w, int64_t* out_r) {
+    int32_t byte_codes, int64_t cap, int64_t* out_w, int64_t* out_r) {
   int64_t w = start_w, row = start_row, n = 0;
   if (n < cap) { out_w[n] = w; out_r[n] = row; n++; } else return -1;
-  for (int64_t t = 0; t < n_words * 8; t++) {
-    uint32_t code = (moves[t >> 3] >> (4 * (t & 7))) & 0xF;
+  const int per = byte_codes ? 4 : 8, bits = byte_codes ? 8 : 4;
+  const uint32_t cmask = byte_codes ? 0xFFu : 0xFu;
+  for (int64_t t = 0; t < n_words * per; t++) {
+    uint32_t code = (moves[t / per] >> (bits * (t % per))) & cmask;
     if (code == 0) continue;  // PAD
     int64_t node = pos_to_node[w];
+    int k = -1;                // the in-neighbour of an Hk / Dk move
+    bool diag = false;
     if (code == 1) {           // STOP: (w, row-1), then terminate
       row -= 1;
     } else if (code == 2) {    // V
@@ -419,14 +425,23 @@ static int64_t ga_decode_moves_impl(
       w -= 1;
     } else if (code == 4) {    // D within node
       w -= 1; row -= 1;
-    } else if (code >= 8 && code < 16) {
-      int k = (code & 3);
+    } else if (!byte_codes && code >= 8 && code < 16) {
+      k = code & 3;
+      diag = code >= 12;
+    } else if (byte_codes && code >= 64 && code < 96) {
+      k = code - 64;
+    } else if (byte_codes && code >= 128 && code < 160) {
+      k = code - 128;
+      diag = true;
+    } else {
+      return -1;
+    }
+    if (k >= 0) {
+      if (k >= k_in) return -1;
       int32_t nb = in_nbrs[node * k_in + k];
       if (nb < 0) return -1;
       w = node_end[nb] - 1;
-      if (code >= 12) row -= 1;  // Dk else Hk
-    } else {
-      return -1;
+      if (diag) row -= 1;  // Dk else Hk
     }
     if (row < 0) break;        // the -1-row entry is dropped
     if (n >= cap) return -1;
@@ -566,8 +581,8 @@ int ga_trace_piece2(
 // copy per lane. This decodes every lane with an internal std::thread pool (same
 // work-stealing pattern as ga_tie_batch), reading each lane's word
 // column straight out of the [n_words, B] device-fetch layout.
-//   moves:   [n_words * B] row-major, nibble stream of lane i is
-//            moves[t*B + cols[i]] over t
+//   moves:   [n_words * B] row-major, code stream of lane i is
+//            moves[t*B + cols[i]] over t (byte codes when byte_codes)
 //   n_out:   [W] decoded step counts; -1 malformed stream, -2 crash
 //   out_w/out_r: [W * cap] per-lane slabs (lane i at offset i*cap)
 // ---------------------------------------------------------------------------
@@ -575,9 +590,10 @@ int ga_decode_batch(const uint32_t* moves, int64_t n_words, int64_t B,
                     const int32_t* cols, const int64_t* start_w,
                     const int64_t* start_row, const int64_t* node_start,
                     const int64_t* node_end, const int32_t* pos_to_node,
-                    const int32_t* in_nbrs, int32_t k_in, int64_t W,
-                    int64_t cap, int32_t nthreads, int64_t* out_w,
-                    int64_t* out_r, int64_t* n_out) {
+                    const int32_t* in_nbrs, int32_t k_in,
+                    int32_t byte_codes, int64_t W, int64_t cap,
+                    int32_t nthreads, int64_t* out_w, int64_t* out_r,
+                    int64_t* n_out) {
   std::atomic<int64_t> next(0);
   auto worker = [&]() {
     std::vector<uint32_t> lane_words((size_t)n_words);
@@ -595,8 +611,8 @@ int ga_decode_batch(const uint32_t* moves, int64_t n_words, int64_t B,
         lane_words[(size_t)t] = moves[t * B + c];
       n_out[i] = ga_decode_moves_impl(
           lane_words.data(), n_words, start_w[i], start_row[i], node_start,
-          node_end, pos_to_node, in_nbrs, k_in, cap, out_w + i * cap,
-          out_r + i * cap);
+          node_end, pos_to_node, in_nbrs, k_in, byte_codes, cap,
+          out_w + i * cap, out_r + i * cap);
       GA_UNGUARD();
     }
   };

@@ -15,6 +15,17 @@ A CUDA tensor launches ``csrc/banded_cell.cu`` (one launch a slice, the
 metadata and every cell pass on chip); a CPU tensor runs
 ``slice_cells_plain``, the same computation in plain torch ops, whose cell
 pass is ``banded_cell_plain``, the twin of the Pallas kernel.
+
+In-degree: up to 5 in-neighbours the kernel is the Pallas kernel's twin;
+from 6 to 32 (``K_IN_MAX``) it computes what the JAX package runs there,
+the XLA cell pass (``engine_banded.py::cell_pass_xla``), which reads each
+in-neighbour's slot directly. The per-slot predecessor tables then take
+``pred_words(K_in)`` int32 planes: plane p holds in-neighbours 5p to 5p + 4,
+each in a 6-bit field (slot | valid << 5) at bit 6 (k - 5p), bits 30-31
+clear. One plane is the JAX package's word; past 5 in-neighbours the JAX
+word keeps only the first five and two bits of the sixth, and nothing
+reads it there (its walk reads bands and columns). A 6-bit slot (Nm = 64)
+would take 7-bit fields, 4 a plane, in the same plane layout.
 """
 
 from __future__ import annotations
@@ -29,9 +40,26 @@ from .wordops import M32, i32, merge_slices, myers_advance, u32
 INF = 1 << 20
 EMPTY = 2**31 - 1  # empty band slot
 WORD = 64
+K_IN_MAX = 32  # in-neighbours a slot's tables hold
+PRED_PER_WORD = 5  # 6-bit (slot | valid << 5) fields in an int32 pred plane
 
-# kernel launches since the last reset (a plain count, read by the smoke run)
+
+def pred_words(K_in: int) -> int:
+    """int32 planes of a slot's predecessor table at in-degree K_in."""
+    return -(-K_in // PRED_PER_WORD)
+
+
+def pred_field(planes, k):
+    """In-neighbour k's 6-bit field of a pred table given as a sequence of
+    planes (slot in bits 0-4, valid in bit 5)."""
+    return (planes[k // PRED_PER_WORD] >> (6 * (k % PRED_PER_WORD))) & 63
+
+
+# kernel launches since the last reset (plain counts, read by the smoke
+# run): the narrow route (K_in <= 5) and the wide one (6 to K_IN_MAX)
 LAUNCHES = 0
+LAUNCHES_WIDE = 0
+NARROW_K_IN = PRED_PER_WORD  # the widest in-degree of one pred word
 
 # read lanes a block carries (one warp of slot threads each); fewer when a
 # block's tables would not fit in shared memory
@@ -58,8 +86,9 @@ def slice_cells(ids, proj_over, p_ids, p_node_min, p_node_end, p_cell_send,
     graph tables node_len, node_start [N], in_nbrs [N, K_in], seq_codes
     [BP] and bits_lut [R]. int32 unless noted.
 
-    Returns new tensors: cols [7, Cm, B], nm [6, Nm, B] (ids, nmin,
-    node_end, lens, pred_tab, pred_prev, each masked by active), ctrl [B]
+    Returns new tensors: cols [7, Cm, B], nm [4 + 2P, Nm, B] (ids, nmin,
+    node_end, lens, the P = pred_words(K_in) planes of pred_tab, then those
+    of pred_prev, each masked by active), ctrl [B]
     (min-score delta | cells << 7 | overflow << 30), and the next carries
     p_ids, p_cell_send, p_node_min, p_node_end, p_min."""
     args = (ids, proj_over, p_ids, p_node_min, p_node_end, p_cell_send,
@@ -82,10 +111,10 @@ def slice_cells(ids, proj_over, p_ids, p_node_min, p_node_end, p_cell_send,
                              f"got {a.dtype} {tuple(a.shape)}")
         if a.device != ids.device:
             raise ValueError("slice_cells: inputs on different devices")
-    if not 1 <= K_in <= 5 or Nm > 32 or read_codes.shape[1] < WORD:
+    if not 1 <= K_in <= K_IN_MAX or Nm > 32 or read_codes.shape[1] < WORD:
         raise NotImplementedError(
-            "slice_cells packs Nm <= 32 slots and K_in <= 5 predecessors, "
-            "over at least one slice of read codes"
+            f"slice_cells packs Nm <= 32 slots and K_in <= {K_IN_MAX} "
+            "predecessors, over at least one slice of read codes"
         )
     if ids.device.type == "cpu":
         return slice_cells_plain(*args, P_fix=P_fix)
@@ -94,30 +123,34 @@ def slice_cells(ids, proj_over, p_ids, p_node_min, p_node_end, p_cell_send,
     return _launch(*[a.contiguous() for a in args], P_fix=P_fix)
 
 
-def slice_smem(Nm: int, Cm: int, lanes: int) -> int:
+def slice_smem(Nm: int, Cm: int, lanes: int, K_in: int = 1) -> int:
     """Shared bytes of a ``slice_cells`` block of ``lanes`` lanes: 21
-    [Nm] slot tables (the node-end buffer's 7 among them), 2 [Cm] cell
-    tables and 12 words a lane (csrc/banded_cell.cu)."""
-    return 4 * lanes * (21 * Nm + 2 * Cm + 12)
+    [Nm] slot tables (the node-end buffer's 7 and one plane each of
+    pred_tab and pred_prev among them), the further pred planes, 2 [Cm]
+    cell tables and 12 words a lane (csrc/banded_cell.cu)."""
+    extra = 2 * (pred_words(K_in) - 1)
+    return 4 * lanes * ((21 + extra) * Nm + 2 * Cm + 12)
 
 
 def _launch(ids, proj_over, p_ids, p_node_min, p_node_end, p_cell_send,
             p_min, active, first_slice, seq_len, read_codes, win, node_len,
             node_start, in_nbrs, seq_codes, bits_lut, *, P_fix):
-    global LAUNCHES
+    global LAUNCHES, LAUNCHES_WIDE
     Nm, B = ids.shape
     Cm = p_cell_send.shape[0]
     N, K_in = in_nbrs.shape
+    wide = K_in > NARROW_K_IN
     LB = SLICE_LANES
-    while LB > 1 and slice_smem(Nm, Cm, LB) > SMEM_LIMIT:
+    while LB > 1 and slice_smem(Nm, Cm, LB, K_in) > SMEM_LIMIT:
         LB //= 2
-    if slice_smem(Nm, Cm, LB) > SMEM_LIMIT:
+    if slice_smem(Nm, Cm, LB, K_in) > SMEM_LIMIT:
         raise NotImplementedError(
             f"slice_cells at Cm={Cm} does not fit in shared memory")
     dev = ids.device
     i32_ = torch.int32
     cols = torch.empty((7, Cm, B), dtype=i32_, device=dev)
-    nm = torch.empty((6, Nm, B), dtype=i32_, device=dev)
+    nm = torch.empty((4 + 2 * pred_words(K_in), Nm, B), dtype=i32_,
+                     device=dev)
     ctrl = torch.empty((B,), dtype=i32_, device=dev)
     o_ids = torch.empty((Nm, B), dtype=i32_, device=dev)
     o_cell_send = torch.empty((Cm, B), dtype=i32_, device=dev)
@@ -129,7 +162,7 @@ def _launch(ids, proj_over, p_ids, p_node_min, p_node_end, p_cell_send,
             node_start, in_nbrs, seq_codes, bits_lut, cols, nm, ctrl, o_ids,
             o_cell_send, o_node_min, o_node_end, o_min)
     lib = _build.library("banded_cell")
-    fn = lib.ga_slice_cells
+    fn = lib.ga_slice_cells_wide if wide else lib.ga_slice_cells
     fn.restype = ctypes.c_int
     fn.argtypes = [ctypes.c_void_p] * len(ptrs) + [ctypes.c_int] * 10 + [
         ctypes.c_void_p
@@ -137,10 +170,13 @@ def _launch(ids, proj_over, p_ids, p_node_min, p_node_end, p_cell_send,
     err = fn(
         *[a.data_ptr() for a in ptrs],
         Nm, Cm, B, N, K_in, seq_codes.shape[0], read_codes.shape[1], P_fix,
-        LB, slice_smem(Nm, Cm, LB), _build.stream_handle(dev),
+        LB, slice_smem(Nm, Cm, LB, K_in), _build.stream_handle(dev),
     )
     _build.check(err, "slice_cells")
-    LAUNCHES += 1
+    if wide:
+        LAUNCHES_WIDE += 1
+    else:
+        LAUNCHES += 1
     return cols, nm, ctrl, o_ids, o_cell_send, o_node_min, o_node_end, o_min
 
 
@@ -185,10 +221,13 @@ def slice_cells_plain(ids, proj_over, p_ids, p_node_min, p_node_end,
     prev_base = p_offsets.gather(0, prev_slot)
 
     # ---- in-neighbor classification per slot
+    NP = pred_words(K_in)
     any_banded = torch.zeros((Nm, B), dtype=torch.bool, device=dev)
     slot_pseudo = torch.full((Nm, B), INF, dtype=torch.int32, device=dev)
-    pred_tab = torch.zeros((Nm, B), dtype=torch.int32, device=dev)
-    pred_prev = torch.zeros((Nm, B), dtype=torch.int32, device=dev)
+    pred_tab = [torch.zeros((Nm, B), dtype=torch.int32, device=dev)
+                for _ in range(NP)]
+    pred_prev = [torch.zeros((Nm, B), dtype=torch.int32, device=dev)
+                 for _ in range(NP)]
     for k in range(K_in):
         nb_k = torch.where(valid_slot, nbs[:, :, k], -1)
         nbv = (nb_k >= 0) & valid_slot
@@ -207,14 +246,15 @@ def slice_cells_plain(ids, proj_over, p_ids, p_node_min, p_node_end,
             slot_pseudo, torch.where(in_prev_k & ~in_cur_k, pe_k, INF)
         )
         any_banded = any_banded | in_cur_k | in_prev_k
-        pred_tab = pred_tab | (
-            (cur_slot_k | (in_cur_k.to(torch.int32) << 5)) << (6 * k)
+        p, sh = divmod(k, PRED_PER_WORD)
+        pred_tab[p] = pred_tab[p] | (
+            (cur_slot_k | (in_cur_k.to(torch.int32) << 5)) << (6 * sh)
         )
         # PREVIOUS-band slot per pred: the walk's boundary diagonal reads
         # preds that fell out of the current band
-        pred_prev = pred_prev | (
+        pred_prev[p] = pred_prev[p] | (
             (prev_slot_k.to(torch.int32) | (in_prev_k.to(torch.int32) << 5))
-            << (6 * k)
+            << (6 * sh)
         )
     band_source = ~any_banded & valid_slot
     src_noprev_slot = band_source & ~node_in_prev
@@ -267,16 +307,20 @@ def slice_cells_plain(ids, proj_over, p_ids, p_node_min, p_node_end,
         | (srcnp.to(torch.int32) << 15)
         | (srcsm.to(torch.int32) << 16)
     )
-    vb = 0
+    # meta2: each plane's valid bits gated by st, its slot bits not (as
+    # the JAX package builds its word)
+    m2, back_edge = [], torch.zeros(B, dtype=torch.bool, device=dev)
+    rp = [rd(t) for t in pred_tab]
+    for p in range(NP):
+        vb = 0
+        for k in range(p * PRED_PER_WORD, min(K_in, (p + 1) * PRED_PER_WORD)):
+            vb |= 1 << (5 + 6 * (k % PRED_PER_WORD))
+        m2.append(torch.where(st, rp[p], rp[p] & ~vb))
+    m2 = torch.cat(m2)  # [NP * Cm, B]
     for k in range(K_in):
-        vb |= 1 << (5 + 6 * k)
-    rp = rd(pred_tab)
-    m2 = torch.where(st, rp, rp & ~vb)
-    back_edge = torch.zeros(B, dtype=torch.bool, device=dev)
-    for k in range(K_in):
-        pslot_k = (rp >> (6 * k)) & 31
-        pvalid_k = st & (((rp >> (5 + 6 * k)) & 1) == 1)
-        back_edge = back_edge | (pvalid_k & (pslot_k >= slot)).any(0)
+        f = pred_field(rp, k)
+        pvalid_k = st & ((f >> 5) == 1)
+        back_edge = back_edge | (pvalid_k & ((f & 31) >= slot)).any(0)
 
     def cell_pass(buf_init):
         return banded_cell_plain(
@@ -315,8 +359,7 @@ def slice_cells_plain(ids, proj_over, p_ids, p_node_min, p_node_end,
         torch.where(am2, nmin, INF),
         torch.where(am2, node_end, INF),
         torch.where(am2, lens, 0),
-        torch.where(am2, pred_tab, 0),
-        torch.where(am2, pred_prev, 0),
+        *[torch.where(am2, t, 0) for t in pred_tab + pred_prev],
     ])
     # packed control word: min-score delta (bits 0-6), band cells (bits
     # 7-29), overflow (bit 30)
@@ -340,10 +383,15 @@ def banded_cell_plain(meta1, meta2, old_end, pseudo, eq_lo, eq_hi, seq_len,
     """One cell pass in plain torch ops (any device), with the signature
     and outputs of ``graphaligner_tpu``'s ``banded_cell_kernel``: meta1
     [Cm, B]: slot|st<<8|en<<9|vc<<10|inprev<<11|code<<12|srcnp<<15|
-    srcsm<<16; meta2 [Cm, B]: per-pred (slot|valid<<5)<<6k; old_end,
+    srcsm<<16; meta2 [P * Cm, B], P = pred_words(K_in) planes of [Cm, B]
+    (one up to K_in = 5, the kernel's word): in-neighbour k's (slot |
+    valid << 5) at bit 6 (k % 5) of plane k // 5; old_end,
     pseudo [Cm, B]; eq_lo, eq_hi [5, B] (uint32 bit patterns); seq_len
     [1, B]; buf_init [7, Nm, B]. All int32. Returns (cols [7, Cm, B], buf
     [7, Nm, B], nmin [Nm, B]).
+
+    Past K_in = 5 it is the JAX package's XLA cell pass (``cell_pass_xla``),
+    which merges the same predecessors in the same order.
 
     Everything that does not depend on the previous cell is computed for
     all cells at once; the loop carries the column, the node-end buffer
@@ -352,8 +400,15 @@ def banded_cell_plain(meta1, meta2, old_end, pseudo, eq_lo, eq_hi, seq_len,
     cell is skipped: both are exact."""
     Cm, B = meta1.shape
     Nm = buf_init.shape[1]
+    if not 1 <= K_in <= K_IN_MAX or Nm > 32:
+        raise NotImplementedError(
+            f"banded_cell packs Nm <= 32 slots and K_in <= {K_IN_MAX} "
+            "predecessors"
+        )
+    NP = pred_words(K_in)
     args = (meta1, meta2, old_end, pseudo, eq_lo, eq_hi, seq_len, buf_init)
-    shapes = ((Cm, B),) * 4 + ((5, B), (5, B), (1, B), (7, Nm, B))
+    shapes = ((Cm, B), (NP * Cm, B), (Cm, B), (Cm, B), (5, B), (5, B),
+              (1, B), (7, Nm, B))
     for name, a, shape in zip(
         ("meta1", "meta2", "old_end", "pseudo", "eq_lo", "eq_hi", "seq_len",
          "buf_init"), args, shapes,
@@ -363,10 +418,6 @@ def banded_cell_plain(meta1, meta2, old_end, pseudo, eq_lo, eq_hi, seq_len,
                              f"got {a.dtype} {tuple(a.shape)}")
         if a.device != meta1.device:
             raise ValueError("banded_cell: inputs on different devices")
-    if not 1 <= K_in <= 5 or Nm > 32:
-        raise NotImplementedError(
-            "banded_cell packs Nm <= 32 slots and K_in <= 5 predecessors"
-        )
     dev = meta1.device
     lanes = torch.arange(B, device=dev)
     m1 = meta1.to(torch.int64)
@@ -408,9 +459,10 @@ def banded_cell_plain(meta1, meta2, old_end, pseudo, eq_lo, eq_hi, seq_len,
         torch.zeros_like(delta),
     ])  # [7, Cm, B]
 
-    m2 = meta2.to(torch.int64)
-    pslot = [(m2 >> (6 * k)) & 31 for k in range(K_in)]
-    pvalid = [(((m2 >> (6 * k + 5)) & 1) == 1) & st for k in range(K_in)]
+    m2 = meta2.to(torch.int64).reshape(NP, Cm, B)
+    fields = [pred_field(m2, k) for k in range(K_in)]
+    pslot = [f & 31 for f in fields]
+    pvalid = [((f >> 5) == 1) & st for f in fields]
     # host-side schedule: the last valid cell and the merges any lane needs
     vc_any = vc.any(1).cpu()
     c_hi = int(torch.nonzero(vc_any).max()) + 1 if bool(vc_any.any()) else 0

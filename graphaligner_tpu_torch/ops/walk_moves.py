@@ -3,10 +3,20 @@ version.
 
 ``walk_moves`` takes the arguments of
 ``graphaligner_tpu.ops.pallas.walk_moves.walk_moves_kernel`` and returns
-(moves [T_w, B], fail [1, B], state_out [16, B], used [1, B]), all int32,
-with T_w = ceil((112 K + 512) / 8). Move codes (K_in <= 4): 0 PAD, 1 STOP,
-2 V, 3 H within the node, 4 D within the node, 8+k H via in-neighbour k,
-12+k D via in-neighbour k; nibble t of a lane's stream is its t-th move.
+(moves [T_w, B], fail [1, B], state_out [16, B], used [1, B]), all int32.
+A lane takes at most ``steps`` moves (the TPU kernel's 112 K + 511 unless
+the caller gives another) and W_cap a slice. Move codes, K_in <= 4: 0 PAD,
+1 STOP, 2 V, 3 H within the node, 4 D within the node, 8+k H via
+in-neighbour k, 12+k D via in-neighbour k, nibble t of a lane's stream its
+t-th move, T_w = ceil((steps + 1) / 8). K_in from 5 to 32 (the wide route)
+takes byte codes, four an int32: 0 PAD, 1 STOP, 2 V, 3 H, 4 D, 64+k Hk,
+128+k Dk, T_w = ceil((steps + 1) / 4); the pred tables then hold
+``banded_cell.pred_words(K_in)`` planes stacked on the slot axis ([K+1, P
+* Nm, B]). The wide route computes what the JAX package runs there, the
+XLA walk (``core/backtrace_device.py::walk_batch``), which steps every
+lane on its own: its plain version always has per-lane semantics
+(``Bb=1``), and the JAX caller's budget comes in as ``steps`` with
+``W_cap = steps``.
 
 A CUDA tensor launches ``csrc/walk_moves.cu``: one lane a one-warp block,
 four threads weighing its in-neighbours, each slice's walk tables staged
@@ -28,12 +38,26 @@ import ctypes
 import torch
 
 from . import _build
+from .banded_cell import K_IN_MAX, PRED_PER_WORD, pred_words
 from .wordops import M32, col_value, i32
 
 INF = 1 << 20
 _EMPTY = 2**31 - 1
 
-LAUNCHES = 0
+LAUNCHES = 0  # the 4-bit route's launches (K_in <= 4)
+LAUNCHES_WIDE = 0  # the byte-code route's launches (K_in 5 to 32)
+NIBBLE_K_IN = 4  # the widest in-degree of the 4-bit move code
+
+
+def codes_per_word(K_in: int) -> int:
+    """Move codes an int32 word holds: 8 nibbles, or 4 bytes past
+    NIBBLE_K_IN."""
+    return 8 if K_in <= NIBBLE_K_IN else 4
+
+
+def default_steps(K: int) -> int:
+    """The TPU kernel's step budget of a K-slice window."""
+    return K * 112 + 511
 
 # The TPU kernel's window limits, copied from
 # graphaligner_tpu/ops/pallas/walk_moves.py:45-107 so that long-read mode
@@ -88,12 +112,12 @@ def _check(cols_tab, band_tab, lens_tab, pred_tab, pred_prev_tab, codes8,
            bits_lut, seq_len, seed_node, win_base, init_state, K_in):
     K1, F, Cm, B = cols_tab.shape
     Nm = band_tab.shape[1]
+    PN = pred_words(K_in) * Nm
     if F != 7:
         raise ValueError("walk_moves: cols_tab must be [K+1, 7, Cm, B]")
-    if K_in > 4:
+    if not 1 <= K_in <= K_IN_MAX:
         raise NotImplementedError(
-            "the 4-bit move code encodes k_in <= 4; the XLA walk for wider "
-            "in-degree (backtrace_device.walk_batch) is not yet ported"
+            f"walk_moves encodes k_in <= {K_IN_MAX} in-neighbours"
         )
     if Nm > 32:
         raise NotImplementedError("walk_moves packs pred slots in 5 bits")
@@ -101,8 +125,8 @@ def _check(cols_tab, band_tab, lens_tab, pred_tab, pred_prev_tab, codes8,
         "cols_tab": (cols_tab, (K1, 7, Cm, B), torch.int32),
         "band_tab": (band_tab, (K1, Nm, B), torch.int32),
         "lens_tab": (lens_tab, (K1, Nm, B), torch.int32),
-        "pred_tab": (pred_tab, (K1, Nm, B), torch.int32),
-        "pred_prev_tab": (pred_prev_tab, (K1, Nm, B), torch.int32),
+        "pred_tab": (pred_tab, (K1, PN, B), torch.int32),
+        "pred_prev_tab": (pred_prev_tab, (K1, PN, B), torch.int32),
         "codes8": (codes8, (K1, 64, B), torch.uint8),
         "seq_len": (seq_len, (1, B), torch.int32),
         "seed_node": (seed_node, (1, B), torch.int32),
@@ -123,54 +147,64 @@ def _check(cols_tab, band_tab, lens_tab, pred_tab, pred_prev_tab, codes8,
 
 def walk_moves(cols_tab, band_tab, lens_tab, pred_tab, pred_prev_tab, codes8,
                bits_lut, seq_len, seed_node, win_base, init_state, *,
-               K_in: int, W_cap: int = 448):
+               K_in: int, W_cap: int = 448, steps: int | None = None):
     """cols_tab [K+1, 7, Cm, B] (entry 0 = the slice below the window),
-    band/lens/pred/pred_prev [K+1, Nm, B], codes8 [K+1, 64, B] uint8,
-    bits_lut [R], seq_len/seed_node/win_base [1, B], init_state [16, B]."""
+    band/lens [K+1, Nm, B], pred/pred_prev [K+1, P * Nm, B], codes8 [K+1,
+    64, B] uint8, bits_lut [R], seq_len/seed_node/win_base [1, B],
+    init_state [16, B]."""
     args = (cols_tab, band_tab, lens_tab, pred_tab, pred_prev_tab, codes8,
             bits_lut, seq_len, seed_node, win_base, init_state)
     _check(*args, K_in)
+    if steps is None:
+        steps = default_steps(cols_tab.shape[0] - 1)
     if cols_tab.device.type == "cpu":
-        return walk_moves_plain(*args, K_in=K_in, W_cap=W_cap)
+        return walk_moves_plain(*args, K_in=K_in, W_cap=W_cap, steps=steps,
+                                Bb=256 if K_in <= NIBBLE_K_IN else 1)
     if cols_tab.device.type != "cuda":
         raise ValueError(f"walk_moves: unsupported device {cols_tab.device}")
-    return _launch(*[a.contiguous() for a in args], K_in=K_in, W_cap=W_cap)
+    return _launch(*[a.contiguous() for a in args], K_in=K_in, W_cap=W_cap,
+                   steps=steps)
 
 
 SMEM_LIMIT = 232448  # dynamic shared memory a Hopper block can opt into
 
 
-def smem_bytes(Cm: int, Nm: int, R: int) -> int:
+def smem_bytes(Cm: int, Nm: int, R: int, K_in: int = 1) -> int:
     """Shared memory of a launch (one lane a block): bits_lut, then the
     lane's tables of one slice, 7 Cm column words, 9 (Nm + 1) band-table
-    words and 64 code words."""
-    return 4 * (-(-R // 4) * 4 + 7 * Cm + 9 * (Nm + 1) + 64)
+    words with one plane each of pred and pred_prev, their further planes
+    (Nm + 1 words each) and 64 code words."""
+    extra = 2 * (pred_words(K_in) - 1) * (Nm + 1)
+    return 4 * (-(-R // 4) * 4 + 7 * Cm + 9 * (Nm + 1) + extra + 64)
 
 
 def _launch(cols_tab, band_tab, lens_tab, pred_tab, pred_prev_tab, codes8,
             bits_lut, seq_len, seed_node, win_base, init_state, *, K_in,
-            W_cap):
-    global LAUNCHES
+            W_cap, steps):
+    global LAUNCHES, LAUNCHES_WIDE
     K1, _, Cm, B = cols_tab.shape
     K = K1 - 1
     Nm = band_tab.shape[1]
     R = bits_lut.shape[0]
     if R > 256:
         raise ValueError("walk_moves: bits_lut has more than 256 entries")
-    smem = smem_bytes(Cm, Nm, R)
+    smem = smem_bytes(Cm, Nm, R, K_in)
     if smem > SMEM_LIMIT:
         raise NotImplementedError(
             f"walk_moves: a slice of Cm={Cm}, Nm={Nm} does not fit in shared "
             "memory"
         )
-    T_total = K * 112 + 512
-    T_w = (T_total + 7) // 8
+    T_total = steps + 1
+    per = codes_per_word(K_in)
+    T_w = (T_total + per - 1) // per
     dev = cols_tab.device
     moves = torch.zeros((T_w, B), dtype=torch.int32, device=dev)
     fail = torch.empty((1, B), dtype=torch.int32, device=dev)
     state_out = torch.empty((16, B), dtype=torch.int32, device=dev)
     used = torch.empty((1, B), dtype=torch.int32, device=dev)
-    fn = _build.library("walk_moves").ga_walk_moves
+    wide = K_in > NIBBLE_K_IN
+    lib = _build.library("walk_moves")
+    fn = lib.ga_walk_moves_wide if wide else lib.ga_walk_moves
     fn.restype = ctypes.c_int
     fn.argtypes = [ctypes.c_void_p] * 15 + [ctypes.c_int] * 10 + [
         ctypes.c_void_p
@@ -184,7 +218,10 @@ def _launch(cols_tab, band_tab, lens_tab, pred_tab, pred_prev_tab, codes8,
         _build.stream_handle(dev),
     )
     _build.check(err, "walk_moves")
-    LAUNCHES += 1
+    if wide:
+        LAUNCHES_WIDE += 1
+    else:
+        LAUNCHES += 1
     return moves, fail, state_out, used
 
 
@@ -199,17 +236,25 @@ def block_width(B: int, Bb: int = 256) -> int:
 def walk_moves_plain(cols_tab, band_tab, lens_tab, pred_tab, pred_prev_tab,
                      codes8, bits_lut, seq_len, seed_node, win_base,
                      init_state, *, K_in: int, W_cap: int = 448,
-                     Bb: int = 256):
+                     steps: int | None = None, Bb: int = 256):
     """Plain torch version of K2 (any device) with the TPU kernel's
     lockstep semantics: the lanes of each Bb-wide block step together,
     slice by slice from the top of the window, sharing one step counter
-    (the move stream position) and one budget; an idle lane emits PAD."""
+    (the move stream position) and one budget; an idle lane emits PAD.
+    At Bb=1 every lane steps on its own, as the CUDA kernel and the JAX
+    package's XLA walk do."""
     K1, _, Cm, B = cols_tab.shape
     K = K1 - 1
     Nm = band_tab.shape[1]
     dev = cols_tab.device
-    T_total = K * 112 + 512
-    T_w = (T_total + 7) // 8
+    T_total = (default_steps(K) if steps is None else steps) + 1
+    per = codes_per_word(K_in)
+    bits = 32 // per
+    T_w = (T_total + per - 1) // per
+    wide = K_in > NIBBLE_K_IN
+    # move codes: H and D within the node, and via in-neighbour k
+    c_h, c_d = 3, 4
+    c_hk, c_dk = (64, 128) if wide else (8, 12)
     Bb = block_width(B, Bb)
     nb = B // Bb
     blk = torch.arange(B, device=dev) // Bb
@@ -220,8 +265,9 @@ def walk_moves_plain(cols_tab, band_tab, lens_tab, pred_tab, pred_prev_tab,
     cols6 = cols6.to(torch.int64)
     band = band_tab.to(torch.int64)
     lens = lens_tab.to(torch.int64)
-    pred = pred_tab.to(torch.int64)
-    pprev = pred_prev_tab.to(torch.int64)
+    NP = pred_words(K_in)
+    pred = pred_tab.to(torch.int64).reshape(K1, NP, Nm, B)
+    pprev = pred_prev_tab.to(torch.int64).reshape(K1, NP, Nm, B)
     dflt = seq_len[0].to(torch.int64)
     seed = seed_node[0].to(torch.int64)
     base = win_base[0].to(torch.int64)
@@ -231,6 +277,8 @@ def walk_moves_plain(cols_tab, band_tab, lens_tab, pred_tab, pred_prev_tab,
     ctr = torch.zeros(nb, dtype=torch.int64, device=dev)
 
     ks = torch.arange(K_in, device=dev)[:, None]
+    k_plane = ks // PRED_PER_WORD
+    k_shift = 6 * (ks % PRED_PER_WORD)
 
     def rd_nm(tab, idx):
         """One-hot read over the Nm slots (out-of-range slots read 0);
@@ -238,6 +286,14 @@ def walk_moves_plain(cols_tab, band_tab, lens_tab, pred_tab, pred_prev_tab,
         ok = (idx >= 0) & (idx < Nm)
         v = tab.gather(0, idx.clamp(0, Nm - 1).reshape(-1, B))
         return torch.where(ok, v.reshape(idx.shape), 0)
+
+    def rd_pred(planes, slot):
+        """[K_in, B]: each in-neighbour's pred word of slot [B], shifted
+        to its field (an out-of-range slot reads 0)."""
+        ok = (slot >= 0) & (slot < Nm)
+        idx = k_plane * Nm + slot.clamp(0, Nm - 1)
+        v = planes.flatten(0, 1).gather(0, idx)
+        return torch.where(ok, v, 0) >> k_shift
 
     def blk_any(mask):
         return torch.zeros(nb, dtype=torch.int64, device=dev).index_add_(
@@ -310,8 +366,8 @@ def walk_moves_plain(cols_tab, band_tab, lens_tab, pred_tab, pred_prev_tab,
             n_col = colp
             # per in-neighbour k ([K_in, B]): its slots in this band and in
             # the previous one, and the column a move through it lands on
-            pw = rd_nm(pred_c, slot)[None] >> (6 * ks)
-            ppw = rd_nm(pprev_c, slot)[None] >> (6 * ks)
+            pw = rd_pred(pred_c, slot)
+            ppw = rd_pred(pprev_c, slot)
             pslots, pvalid = pw & 31, ((pw >> 5) & 1) == 1
             pslots_prev, pprev_valid = ppw & 31, ((ppw >> 5) & 1) == 1
             u_slot = torch.where(is_start, pslots, slot)
@@ -352,10 +408,10 @@ def walk_moves_plain(cols_tab, band_tab, lens_tab, pred_tab, pred_prev_tab,
                 take_h = h_ok[k] & ~decided
                 take_d = d_ok[k] & ~decided & ~take_h
                 take = take_h | take_d
-                move = torch.where(take_h, torch.where(is_start, 8 + k, 3),
-                                   move)
-                move = torch.where(take_d, torch.where(is_start, 12 + k, 4),
-                                   move)
+                move = torch.where(take_h, torch.where(is_start, c_hk + k,
+                                                       c_h), move)
+                move = torch.where(take_d, torch.where(is_start, c_dk + k,
+                                                       c_d), move)
                 n_slot = torch.where(take, u_slot[k], n_slot)
                 n_off = torch.where(take, u_off[k], n_off)
                 n_row = torch.where(take_d, row_in - 1, n_row)
@@ -395,10 +451,10 @@ def walk_moves_plain(cols_tab, band_tab, lens_tab, pred_tab, pred_prev_tab,
             # nibble (PAD when idle) at the block's step counter
             move = torch.where(active, move, 0)
             t = ctr[blk]
-            w = word | (move << (4 * (t % 8)))
-            last = (t % 8) == 7
+            w = word | (move << (bits * (t % per)))
+            last = (t % per) == per - 1
             flush = run_l & last
-            tgt = (t // 8).clamp(max=T_w - 1) * B + lanes
+            tgt = (t // per).clamp(max=T_w - 1) * B + lanes
             moves.scatter_(0, tgt, torch.where(flush, w, moves.gather(0, tgt)))
             word = torch.where(run_l, torch.where(last, 0, w), word)
             ctr = ctr + running.to(torch.int64)
@@ -407,7 +463,7 @@ def walk_moves_plain(cols_tab, band_tab, lens_tab, pred_tab, pred_prev_tab,
             )
             it += 1
     t = ctr[blk]
-    tgt = (t // 8).clamp(max=T_w - 1) * B + lanes
+    tgt = (t // per).clamp(max=T_w - 1) * B + lanes
     moves.scatter_(0, tgt, word)
     fail = (st[6] == 1) | ((st[5] == 0) & (st[0] > base))
     return (

@@ -23,6 +23,24 @@ nodes, so the JAX package projects every band with its iterative
 ``pairwise`` mode; ``GA_REACH_MAXN`` is set to 0 so that it does not build
 the reach table it would discard. It takes about 70 s.
 
+``multiallelic`` is a seeded corpus on a graph of in-degree 8 (a
+variation graph of short-tandem-repeat-like multi-allelic sites, from
+``graphaligner_tpu_torch.graph.synthetic.make_multiallelic`` at
+MA_SEGMENTS segments and numpy seed MA_SEED) with 100 reads of about 10 kb
+along random allele paths, aligned by ``align_reads_seeded_batch`` at
+``-b 35`` and at ``-b 5 -B 20``: it writes ``graph.gfa``,
+``reads.fastq``, ``seeds.gam`` and ``out.gam`` into ``multiallelic_b35``
+and ``multiallelic_b5_B20``, and prints the reads the JAX package sent to
+its host oracle at each config. ``multiallelic_small`` writes the CPU
+tests' corpus (MA_SMALL: 40 segments, 6 reads of 1,500 bp) and its two
+goldens into ``multiallelic_small``. On the CPU the JAX package runs its XLA
+cell pass and XLA walk there (past 5 in-neighbours). XLA's CPU fusion
+emitters make that cell pass exponentially slow in the in-degree (one
+fused loop body recomputes each merge's inputs), so this corpus runs with
+``XLA_FLAGS=--xla_cpu_use_fusion_emitters=false``, which changes only how
+XLA generates CPU code: the computation is integer and its results the
+same.
+
 ``circular_i`` first writes its inputs (``write_circular``): the longsim
 graph closed into a circle by one link from its sink node to its source
 node (``graph.gfa``), and reads taken from one source-to-sink walk read as
@@ -128,6 +146,39 @@ BIG_READS = 100
 BIG_READ_LEN = 10_048
 
 
+def run_jax_seeded(graph, aligner, reads, seeds):
+    """The JAX package's ``align_reads_seeded_batch``: (the GAM records
+    with bigraph node ids, as the reference binary writes them, in read
+    order; the names of the reads it sent to its host oracle)."""
+    from graphaligner_tpu.core import align as _align
+    from graphaligner_tpu.core.batch_align import align_reads_seeded_batch
+    from graphaligner_tpu.io import vg
+
+    host = []
+    orig = _align.get_split_alignment
+    by_seq = {r.sequence: r.seq_id for r in reads}
+
+    def split(graph_, sequence, *a, **kw):
+        host.append(by_seq.get(sequence, "?"))
+        return orig(graph_, sequence, *a, **kw)
+
+    _align.get_split_alignment = split
+    try:
+        results = align_reads_seeded_batch(graph, aligner, reads, seeds)
+    finally:
+        _align.get_split_alignment = orig
+    out = []
+    for r in reads:
+        res = results[r.seq_id]
+        if res.alignment_failed or res.alignment.score == 2**31 - 1:
+            continue
+        a = vg.Alignment.decode(res.alignment.encode())
+        for m in a.path.mapping:
+            m.position.node_id //= 2
+        out.append(a)
+    return out, sorted(set(host))
+
+
 def make_biggraph(out_dir: str, n_segments: int = BIG_SEGMENTS,
                   n_reads: int = BIG_READS) -> None:
     """The ``biggraph_b35`` corpus and its golden (see the module
@@ -142,11 +193,7 @@ def make_biggraph(out_dir: str, n_segments: int = BIG_SEGMENTS,
     sys.path.insert(0, os.path.join(ROOT, "tests"))
     from biggraph_util import make_big_graph, make_reads
 
-    from graphaligner_tpu.core import align as _align
-    from graphaligner_tpu.core.batch_align import (
-        BandedBatchAligner,
-        align_reads_seeded_batch,
-    )
+    from graphaligner_tpu.core.batch_align import BandedBatchAligner
     from graphaligner_tpu.core.engine_banded import build_graph_tables
     from graphaligner_tpu.io import load_fastq, stream, vg
     from graphaligner_tpu_torch.graph.synthetic import graph_checksum
@@ -173,35 +220,118 @@ def make_biggraph(out_dir: str, n_segments: int = BIG_SEGMENTS,
     aligner = BandedBatchAligner(graph, 35, 0, _tables=tables)
     assert aligner._reach is None
     t_setup = time.time() - t0
-    host = []
-    orig = _align.get_split_alignment
-    by_seq = {r.sequence: r.seq_id for r in fastqs}
-
-    def split(graph_, sequence, *a, **kw):
-        host.append(by_seq.get(sequence, "?"))
-        return orig(graph_, sequence, *a, **kw)
-
-    _align.get_split_alignment = split
-    try:
-        t0 = time.time()
-        results = align_reads_seeded_batch(graph, aligner, fastqs, seed_map)
-        t_align = time.time() - t0
-    finally:
-        _align.get_split_alignment = orig
-    out = []
-    for r in fastqs:
-        res = results[r.seq_id]
-        if res.alignment_failed or res.alignment.score == 2**31 - 1:
-            continue
-        a = vg.Alignment.decode(res.alignment.encode())
-        for m in a.path.mapping:
-            m.position.node_id //= 2
-        out.append(a)
+    t0 = time.time()
+    out, host = run_jax_seeded(graph, aligner, fastqs, seed_map)
+    t_align = time.time() - t0
     stream.write_messages(os.path.join(out_dir, "out.gam"), out)
     print(f"biggraph_b35: {graph.node_count} digraph nodes, {len(out)}/"
-          f"{len(fastqs)} aligned, host oracle for {sorted(set(host))}; "
+          f"{len(fastqs)} aligned, host oracle for {host}; "
           f"graph {t_graph:.1f} s, tables and aligner {t_setup:.1f} s, "
           f"align {t_align:.1f} s", flush=True)
+
+
+MA_SEGMENTS = 1000
+MA_READS = 100
+MA_READ_LEN = 10_000
+MA_SEED = 17
+MA_CONFIGS = {"multiallelic_b35": (35, 0), "multiallelic_b5_B20": (5, 20)}
+# the small multi-allelic corpus of the CPU tests: 40 segments (k_in 8 at
+# this seed), 6 reads of 1,500 bp, both configs' goldens in one directory
+MA_SMALL = (40, 6, 1500, 3)
+# XLA's CPU code generation without its fusion emitters (module docstring)
+XLA_CPU_FLAG = "--xla_cpu_use_fusion_emitters=false"
+
+
+def write_multiallelic(out_dir: str, n_segments=MA_SEGMENTS,
+                       n_reads=MA_READS, read_len=MA_READ_LEN,
+                       seed=MA_SEED) -> None:
+    """The multiallelic corpus's inputs into ``out_dir``: graph.gfa,
+    reads.fastq and seeds.gam (one forward seed a read, at its first
+    segment, read position 0)."""
+    sys.path.insert(0, ROOT)
+    from graphaligner_tpu_torch.graph.synthetic import make_multiallelic
+    from graphaligner_tpu_torch.io import stream, vg
+
+    gfa, reads = make_multiallelic(n_segments, n_reads, read_len, seed)
+    with open(os.path.join(out_dir, "graph.gfa"), "w") as f:
+        f.write(gfa)
+    with open(os.path.join(out_dir, "reads.fastq"), "w") as f:
+        for name, s, _ in reads:
+            f.write(f"@{name}\n{s}\n+\n{'I' * len(s)}\n")
+    stream.write_messages(os.path.join(out_dir, "seeds.gam"), [
+        vg.Alignment(name=name, query_position=0, path=vg.Path(mapping=[
+            vg.Mapping(position=vg.Position(node_id=node))]))
+        for name, _, node in reads
+    ])
+
+
+def align_seeded_jax(in_dir: str, bw: int, ramp: int):
+    """The JAX package's ``align_reads_seeded_batch`` over the corpus in
+    ``in_dir`` (graph.gfa, reads.fastq, seeds.gam): (GAM records with
+    bigraph node ids, as the reference binary writes them, in read order;
+    the names of the reads it sent to its host oracle; the k_in of its
+    graph tables)."""
+    import jax
+
+    jax.config.update("jax_platforms", "cpu")
+    from graphaligner_tpu.core.batch_align import BandedBatchAligner
+    from graphaligner_tpu.graph.bigraph import graph_from_gfa_file
+    from graphaligner_tpu.io import load_fastq
+    from graphaligner_tpu.runtime.aligner import load_seed_hits
+
+    graph = graph_from_gfa_file(os.path.join(in_dir, "graph.gfa"))
+    reads = load_fastq(os.path.join(in_dir, "reads.fastq"))
+    seeds = load_seed_hits(os.path.join(in_dir, "seeds.gam"),
+                           [r.seq_id for r in reads])
+    aligner = BandedBatchAligner(graph, bw, ramp)
+    out, host = run_jax_seeded(graph, aligner, reads, seeds)
+    return out, host, aligner.tables.k_in
+
+
+def make_multiallelic_small() -> None:
+    """``multiallelic_small/``: the inputs of MA_SMALL and the JAX
+    package's goldens at both configs (out_b35.gam, out_b5_B20.gam)."""
+    import time
+
+    from graphaligner_tpu.io import stream
+
+    out_dir = os.path.join(HERE, "multiallelic_small")
+    os.makedirs(out_dir, exist_ok=True)
+    write_multiallelic(out_dir, *MA_SMALL)
+    for name, (bw, ramp) in MA_CONFIGS.items():
+        t0 = time.time()
+        out, host, k_in = align_seeded_jax(out_dir, bw, ramp)
+        tag = name.split("_", 1)[1]
+        stream.write_messages(os.path.join(out_dir, f"out_{tag}.gam"), out)
+        print(f"multiallelic_small {tag}: k_in {k_in}, {len(out)}/"
+              f"{MA_SMALL[1]} aligned, host oracle for {len(host)} reads; "
+              f"align {time.time() - t0:.1f} s", flush=True)
+
+
+def make_multiallelic() -> None:
+    """Both multiallelic goldens (see the module docstring), with the CPU
+    time each took."""
+    import shutil
+    import time
+
+    from graphaligner_tpu.io import stream
+
+    first = os.path.join(HERE, "multiallelic_b35")
+    os.makedirs(first, exist_ok=True)
+    write_multiallelic(first)
+    for name, (bw, ramp) in MA_CONFIGS.items():
+        out_dir = os.path.join(HERE, name)
+        os.makedirs(out_dir, exist_ok=True)
+        if out_dir != first:
+            for f in ("graph.gfa", "reads.fastq", "seeds.gam"):
+                shutil.copyfile(os.path.join(first, f),
+                                os.path.join(out_dir, f))
+        t0 = time.time()
+        out, host, k_in = align_seeded_jax(out_dir, bw, ramp)
+        stream.write_messages(os.path.join(out_dir, "out.gam"), out)
+        print(f"{name}: k_in {k_in}, {len(out)}/{MA_READS} aligned, host "
+              f"oracle for {len(host)} reads {host}; align "
+              f"{time.time() - t0:.1f} s", flush=True)
 
 
 def make(name: str, out_gam: str) -> list:
@@ -240,10 +370,22 @@ def make(name: str, out_gam: str) -> list:
 def main(names) -> int:
     import time
 
-    for name in names or sorted(CORPORA) + ["biggraph_b35"]:
+    names = names or sorted(CORPORA) + ["biggraph_b35", "multiallelic",
+                                        "multiallelic_small"]
+    if any(n.startswith("multiallelic") for n in names):
+        # before jax starts (module docstring)
+        os.environ["JAX_PLATFORMS"] = "cpu"
+        os.environ["XLA_FLAGS"] = (
+            os.environ.get("XLA_FLAGS", "") + " " + XLA_CPU_FLAG).strip()
+    for name in names:
+        t0 = time.time()
+        if name.startswith("multiallelic"):
+            (make_multiallelic_small if name.endswith("small")
+             else make_multiallelic)()
+            print(f"{name}: {time.time() - t0:.1f} s", flush=True)
+            continue
         out_dir = os.path.join(HERE, name)
         os.makedirs(out_dir, exist_ok=True)
-        t0 = time.time()
         if name == "biggraph_b35":
             make_biggraph(out_dir)
             print(f"{name}: {time.time() - t0:.1f} s", flush=True)

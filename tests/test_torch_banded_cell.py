@@ -8,6 +8,13 @@ metadata is the production layout), and a
 seeded random case that respects the meta bit layout but draws every
 field — random column words included — freely. Tolerance zero: the
 outputs are integer.
+
+Past 5 in-neighbours the plain cell pass reads its predecessors from
+``pred_words(K_in)`` planes; the Pallas kernel's one word holds five. The
+random cases at K_in 6 and 8 keep at most five predecessors valid a cell,
+and the kernel, at K_in 5, gets each cell's valid fields compacted into its
+word in their order: it merges the valid predecessors in field order and
+skips the others, so that is the same computation.
 """
 
 import pathlib
@@ -21,6 +28,21 @@ from graphaligner_tpu_torch.ops.banded_cell import banded_cell_plain
 SIM = pathlib.Path(__file__).parent / "fixtures" / "sim"
 
 
+def _compact5(m2, K_in):
+    """[P * Cm, B] pred planes -> the [Cm, B] word of each cell's valid
+    fields (at most five) in field order, as the Pallas kernel takes it."""
+    Cm = m2.shape[0] // -(-K_in // 5)
+    planes = m2.astype(np.int64).reshape(-1, Cm, m2.shape[1])
+    fields = np.stack([(planes[k // 5] >> (6 * (k % 5))) & 63
+                       for k in range(K_in)])
+    valid = (fields >> 5) & 1
+    assert valid.sum(0).max() <= 5
+    order = np.argsort(1 - valid, axis=0, kind="stable")[:5]
+    kept = np.take_along_axis(fields * valid, order, axis=0)
+    word = sum(kept[i] << (6 * i) for i in range(5))
+    return word.astype(np.int32)
+
+
 def _both(args, K_in):
     # jax is imported here, not at the top: test_torch_cuda.py imports
     # _random_args on the GPU machine, which has no jax
@@ -29,7 +51,10 @@ def _both(args, K_in):
     from graphaligner_tpu.ops.pallas.banded_cell import banded_cell_kernel
 
     B = args[0].shape[1]
-    ref = banded_cell_kernel(*[jnp.asarray(a) for a in args], K_in=K_in,
+    ref_args, ref_k = list(args), K_in
+    if K_in > 5:
+        ref_args[1], ref_k = _compact5(args[1], K_in), 5
+    ref = banded_cell_kernel(*[jnp.asarray(a) for a in ref_args], K_in=ref_k,
                              Bb=B)
     got = banded_cell_plain(*[torch.from_numpy(np.ascontiguousarray(a))
                               for a in args], K_in=K_in)
@@ -44,10 +69,16 @@ def _random_args(rng, Cm, Nm, B, K_in):
     m1 = (slot | (flags[0] << 8) | (flags[1] << 9) | (flags[2] << 10)
           | (flags[3] << 11) | (code << 12) | (flags[4] << 15)
           | (flags[5] << 16))
-    m2 = np.zeros((Cm, B), np.int64)
+    # pred planes of five 6-bit fields; past five, at most five valid a cell
+    m2 = np.zeros((-(-K_in // 5), Cm, B), np.int64)
+    n_valid = np.zeros((Cm, B), np.int64)
     for k in range(K_in):
-        m2 |= (rng.integers(0, 32, (Cm, B))
-               | (rng.integers(0, 2, (Cm, B)) << 5)) << (6 * k)
+        f = (rng.integers(0, 32, (Cm, B))
+             | (rng.integers(0, 2, (Cm, B)) << 5))
+        f = np.where(n_valid >= 5, f & 31, f)
+        n_valid += f >> 5
+        m2[k // 5] |= f << (6 * (k % 5))
+    m2 = m2.reshape(-1, B)
     inf = 1 << 20
     old_end = np.where(rng.random((Cm, B)) < 0.2, inf,
                        rng.integers(0, 400, (Cm, B)))
@@ -136,7 +167,8 @@ def test_slice_cells_random_in_degree_5_cpu_route(monkeypatch):
         assert (tail[4] == 1 << 20).all() and (tail[6] == 8).all()
 
 
-@pytest.mark.parametrize("seed,K_in", [(0, 2), (1, 3), (2, 5)])
+@pytest.mark.parametrize("seed,K_in", [(0, 2), (1, 3), (2, 5), (3, 6),
+                                        (4, 8)])
 def test_banded_cell_plain_matches_jax_random(seed, K_in):
     rng = np.random.default_rng(seed)
     _both(_random_args(rng, Cm=40, Nm=16, B=32, K_in=K_in), K_in)
@@ -200,5 +232,7 @@ def test_banded_cell_checks_its_arguments():
             _random_args(np.random.default_rng(0), 8, 4, 8, 2)]
     with pytest.raises(ValueError, match="old_end"):
         banded_cell_plain(*args[:2], args[2].long(), *args[3:], K_in=2)
-    with pytest.raises(NotImplementedError):
+    with pytest.raises(ValueError, match="meta2"):  # K_in 6: two planes
         banded_cell_plain(*args, K_in=6)
+    with pytest.raises(NotImplementedError, match="K_in <= 32"):
+        banded_cell_plain(*args, K_in=33)

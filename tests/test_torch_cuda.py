@@ -31,10 +31,11 @@ def cuda():
 def _k1_matches_plain(args, P_fix=16):
     from graphaligner_tpu_torch.ops import banded_cell as k1
 
-    n0 = k1.LAUNCHES
+    wide = args[14].shape[1] > k1.NARROW_K_IN
+    n0 = k1.LAUNCHES_WIDE if wide else k1.LAUNCHES
     got = k1.slice_cells(*args, P_fix=P_fix)
     torch.cuda.synchronize()
-    assert k1.LAUNCHES == n0 + 1
+    assert (k1.LAUNCHES_WIDE if wide else k1.LAUNCHES) == n0 + 1
     want = k1.slice_cells_plain(*args, P_fix=P_fix)
     for name, g, w in zip(K1_OUTS, got, want):
         assert torch.equal(g, w), name
@@ -117,10 +118,12 @@ def test_slice_cells_kernel_matches_plain_on_cyclic_back_edges(
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("K_in", [2, 5])
+@pytest.mark.parametrize("K_in", [2, 5, 8, 32])
 def test_slice_cells_kernel_matches_plain_random(cuda, K_in):
     """The fused K1 on a seeded random graph of in-degree K_in, random
-    bands, carries and Eq windows, at Cm=288, Nm=32, B=512."""
+    bands, carries and Eq windows, at Cm=288, Nm=32, B=512: the narrow
+    route at 2 and 5, the wide one (two and seven pred planes) at 8 and
+    32."""
     rng = np.random.default_rng(K_in)
     args = [torch.from_numpy(a).to(cuda)
             for a in _random_slice_args(rng, 60, K_in, 32, 288, 512)]
@@ -141,7 +144,9 @@ def _decode(graph, args, moves, used, lanes):
     lanes = np.asarray(lanes)
     node = band[st[0, lanes], st[2, lanes], lanes]
     start_w = np.asarray(graph.node_start)[node].astype(np.int64) + st[3, lanes]
-    rows = min(moves.shape[0], int(np.max(used)) // 8 + 1)
+    k_in = build_graph_tables(graph).k_in
+    per = 8 if k_in <= 4 else 4
+    rows = min(moves.shape[0], int(np.max(used)) // per + 1)
     w, r, n = native.decode_moves_batch(
         np.ascontiguousarray(moves[:rows]).view(np.uint32),
         lanes.astype(np.int32), start_w,
@@ -151,7 +156,8 @@ def _decode(graph, args, moves, used, lanes):
         np.ascontiguousarray(graph.pos_to_node, dtype=np.int32),
         np.ascontiguousarray(build_graph_tables(graph).in_nbrs,
                              dtype=np.int32),
-        int(band.shape[0] - 1) * 64 * 3 + 64, 4,
+        max(int(band.shape[0] - 1) * 64 * 3 + 64, moves.shape[0] * per), 4,
+        byte_codes=k_in > 4,
     )
     assert (n >= 1).all()
     return {int(b): (w[j, : n[j]].copy(), r[j, : n[j]].copy())
@@ -171,10 +177,10 @@ def _k2_matches_per_lane_plain(args, kw, out=None):
     from graphaligner_tpu_torch.ops import walk_moves as k2
 
     if out is None:
-        n0 = k2.LAUNCHES
+        n0 = k2.LAUNCHES + k2.LAUNCHES_WIDE
         out = k2.walk_moves(*args, **kw)
         torch.cuda.synchronize()
-        assert k2.LAUNCHES == n0 + 1
+        assert k2.LAUNCHES + k2.LAUNCHES_WIDE == n0 + 1
     want = k2.walk_moves_plain(*args, **kw, Bb=1)
     for name, g, w in zip(("moves", "fail", "state_out", "used"), out, want):
         assert torch.equal(g, w), name
@@ -299,10 +305,11 @@ def test_walk_kernel_at_top_capacity_tier(cuda, monkeypatch):
         assert torch.equal(g, w)
 
 
-def _bubble_chain(path, rng, bubbles=12, width=4):
-    """A GFA chain of shared nodes (20-40 bp) joined by bubbles of
-    ``width`` alleles (1-10 bp): every shared node past the first has
-    in-degree ``width``. Returns the node list of each rank."""
+def _bubble_chain(path, rng, bubbles=12, width=4, shared=(20, 41)):
+    """A GFA chain of shared nodes (``shared`` bp, the upper end excluded)
+    joined by bubbles of ``width`` alleles (1-10 bp): every shared node past
+    the first has in-degree ``width``. Returns the node list of each
+    rank."""
     seqs, order, links = {}, [], []
 
     def node(lo, hi):
@@ -310,11 +317,11 @@ def _bubble_chain(path, rng, bubbles=12, width=4):
         seqs[nid] = "".join(rng.choice(list("ACGT"), int(rng.integers(lo, hi))))
         return nid
 
-    prev = node(20, 41)
+    prev = node(*shared)
     order.append([prev])
     for _ in range(bubbles):
         alleles = [node(1, 11) for _ in range(width)]
-        nxt = node(20, 41)
+        nxt = node(*shared)
         links += [(prev, a) for a in alleles] + [(a, nxt) for a in alleles]
         order += [alleles, [nxt]]
         prev = nxt
@@ -361,6 +368,88 @@ def test_walk_kernel_matches_plain_at_in_degree_4(cuda, monkeypatch,
         codes |= {int(c) for j in range(8)
                   for c in ((moves >> (4 * j)) & 15).unique()}
     assert {14, 15} <= codes
+
+
+@pytest.mark.cuda
+def test_walk_kernel_matches_plain_at_in_degree_8(cuda, monkeypatch,
+                                                  tmp_path):
+    """K2's wide route at K_in = 8: a seeded random bubble chain (8
+    alleles a bubble, shared nodes of 60 to 100 bp so that a band holds at
+    most 32 nodes, numpy seed 8) x 24 reads along random paths with 3 %
+    substitutions, aligned on the card with no host fallback. Every K2
+    call is the wide route's and bit for bit equal to the plain walk at
+    Bb=1, with diagonal moves (byte codes 128 + k) through in-neighbours 5,
+    6 and 7 among its moves; the decoded traces equal the plain walk's."""
+    from graphaligner_tpu_torch.core.tables import build_graph_tables
+    from graphaligner_tpu_torch.graph import graph_from_gfa_file
+    from graphaligner_tpu_torch.io.fastq import FastQ
+    from graphaligner_tpu_torch.ops import walk_moves as k2
+
+    rng = np.random.default_rng(8)
+    seqs, order = _bubble_chain(tmp_path / "chain.gfa", rng, width=8,
+                                shared=(60, 101))
+    graph = graph_from_gfa_file(str(tmp_path / "chain.gfa"))
+    assert build_graph_tables(graph).k_in == 8
+    reads, seeds = [], {}
+    for i in range(24):
+        path = [o[int(rng.integers(0, len(o)))] for o in order]
+        s = "".join(seqs[n] for n in path)
+        mut = rng.random(len(s)) < 0.03
+        s = "".join(str(rng.choice(list("ACGT"))) if m else c
+                    for c, m in zip(s, mut))
+        reads.append(FastQ(f"r{i}", s, "I" * len(s)))
+        seeds[f"r{i}"] = [(path[0], 0, False)]
+    n0 = k2.LAUNCHES
+    res, walks = _recorded_walks(cuda, graph, reads, seeds, 35, 0,
+                                 monkeypatch)
+    assert k2.LAUNCHES == n0
+    assert not any(r.alignment_failed for r in res.values())
+    codes = set()
+    for args, kw, out in walks:
+        assert kw["K_in"] == 8
+        moves, fail, _, used = _k2_matches_per_lane_plain(args, kw, out)
+        codes |= {int(c) for j in range(4)
+                  for c in ((moves >> (8 * j)) & 255).unique()}
+        st = args[10].cpu().numpy()
+        live = np.nonzero((fail[0].cpu().numpy() == 0) & (st[5] == 0))[0]
+        plain = k2.walk_moves_plain(*args, **kw, Bb=1)
+        _assert_traces_equal(_decode(graph, args, moves, used, live),
+                             _decode(graph, args, plain[0], plain[3], live))
+    assert {133, 134, 135} <= codes
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("bw,ramp,golden", [(35, 0, "multiallelic_b35"),
+                                            (5, 20, "multiallelic_b5_B20")])
+def test_multiallelic_on_gpu_matches_golden(cuda, monkeypatch, bw, ramp,
+                                            golden):
+    """The multiallelic corpus (in-degree 8: 100 reads of about 10 kb) on
+    the card against the JAX package's golden, byte for byte, with no host
+    fallback, through both wide routes."""
+    from graphaligner_tpu_torch.core import batch_align as ba
+    from graphaligner_tpu_torch.graph import graph_from_gfa_file
+    from graphaligner_tpu_torch.io import load_fastq, stream, vg
+    from graphaligner_tpu_torch.ops import banded_cell as k1
+    from graphaligner_tpu_torch.ops import walk_moves as k2
+    from graphaligner_tpu_torch.runtime.aligner import load_seed_hits
+
+    monkeypatch.setenv("GA_NO_FALLBACK", "1")
+    d = FIX / "torch" / golden
+    graph = graph_from_gfa_file(str(d / "graph.gfa"))
+    reads = load_fastq(str(d / "reads.fastq"))
+    seeds = load_seed_hits(str(d / "seeds.gam"), [r.seq_id for r in reads])
+    n1, n2 = k1.LAUNCHES_WIDE, k2.LAUNCHES_WIDE
+    res = ba.align_reads_seeded_batch(
+        graph, ba.BandedBatchAligner(graph, bw, ramp, cuda), reads, seeds)
+    assert k1.LAUNCHES_WIDE > n1 and k2.LAUNCHES_WIDE > n2
+    gold = {a.name: a for a in
+            stream.read_messages(str(d / "out.gam"), vg.Alignment)}
+    assert len(gold) == len(reads)
+    for r in reads:
+        aln = vg.Alignment.decode(res[r.seq_id].alignment.encode())
+        for m in aln.path.mapping:
+            m.position.node_id //= 2
+        assert aln == gold[r.seq_id], r.seq_id
 
 
 def _eq(cuda, codes, S):

@@ -5,8 +5,9 @@ port.
   reference binary's goldens in seeded mode, and the JAX-made goldens in
   exhaustive mode (-i).
 - In a subprocess where ``import jax`` and ``import graphaligner_tpu`` both
-  fail, the port still aligns smallexample through its CLI, seeded and -i:
-  it needs neither.
+  fail, the port still aligns smallexample through its CLI, seeded and -i,
+  and the small multi-allelic corpus (in-degree 8) seeded: it needs
+  neither.
 - Asking for ``cuda`` with no GPU raises; so does every unported route.
 """
 
@@ -82,12 +83,13 @@ sys.exit(rc)
 """
 
 
-def _run_without_jax(tmp_path, *args):
+def _run_without_jax(tmp_path, *args, graph=None, reads=None, bw="35"):
     small = FIX / "smallexample"
     proc = subprocess.run(
         [sys.executable, "-c", _NO_JAX, str(ROOT),
-         "-g", str(small / "sub_test.vg"), "-f", str(small / "read.fastq"),
-         "-b", "35", "-a", "out.gam", "--backend", "cpu", *args],
+         "-g", str(graph or small / "sub_test.vg"),
+         "-f", str(reads or small / "read.fastq"),
+         "-b", bw, "-a", "out.gam", "--backend", "cpu", *args],
         cwd=tmp_path, capture_output=True, text=True, timeout=300,
     )
     assert proc.returncode == 0, proc.stderr[-2000:]
@@ -102,6 +104,15 @@ def test_port_runs_where_jax_is_absent(tmp_path):
     assert [a.encode() for a in got] == [a.encode() for a in want]
     trace = (tmp_path / "trace_0_read1.trace").read_text()
     assert trace == (FIX / "golden" / "trace_0_read1.trace").read_text()
+    # in-degree 8 (K1's and K2's wide routes), against the JAX golden
+    ma = FIX / "torch" / "multiallelic_small"
+    got = _run_without_jax(tmp_path, "-s", str(ma / "seeds.gam"), "-B", "20",
+                           graph=ma / "graph.gfa", reads=ma / "reads.fastq",
+                           bw="5")
+    want = _by_name(ma / "out_b5_B20.gam")
+    assert len(got) == 6
+    assert {a.name: a.encode() for a in got} == {
+        n: a.encode() for n, a in want.items()}
 
 
 def test_port_runs_i_where_jax_is_absent(tmp_path):

@@ -89,10 +89,11 @@ def test_walk_moves_plain_matches_jax_with_tight_budget(recorded):
 
 
 def test_walk_moves_refuses_wide_in_degree(recorded):
+    """The wide route's limit: 32 in-neighbours (one a warp thread)."""
     args, kw = recorded[0]
-    with pytest.raises(NotImplementedError, match="walk_batch"):
+    with pytest.raises(NotImplementedError, match="k_in <= 32"):
         walk_moves(*[torch.from_numpy(np.ascontiguousarray(a)) for a in args],
-                   K_in=5)
+                   K_in=33)
 
 
 # ---------------------------------------------------------------- per lane
