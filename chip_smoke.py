@@ -43,6 +43,17 @@ GA_NO_FALLBACK=1:
   package's goldens; its wide K1 call with the most lanes and its wide K2
   calls are held bit for bit against their plain versions (K2 at Bb=1,
   its plain moves decoded to the run's traces), and it is profiled once;
+- the parallel modes (``graphaligner_tpu_torch.parallel``): longsim x10 at
+  -b 35 on a mesh of two shards on the one card ([cuda:0, cuda:0]: every
+  round split in two halves, each scanned and walked on its own), against
+  the golden with its launches, its reads/s beside the unsharded run's in
+  the same call and each shard's round-output bytes; ``make_mesh()`` over
+  every visible card on sim at both configs; and two ``--coordinator``
+  processes of the CLI on the card (torch.distributed over gloo), on sim at
+  -b 35 (strided reads) and on ONT at -b 5 -B 20 (``--shard components``:
+  the longsim graph is one component, so one process takes every read and
+  the other writes an empty shard), their merged GAM byte for byte against
+  one process's and equal to the golden, with the wall;
 - exhaustive mode, -i, through ``align_reads``: K3's slice wavefront on
   the acyclic graphs — smallexample, sim (20 reads on bubbles.vg) and the
   longsim graph x the sim reads tiled x8 (160 lanes) — and K3's cyclic
@@ -194,11 +205,13 @@ def check_golden(name, reads, names, results, golden_file):
 
 
 def run_corpus(device, graph, reads, seeds, bw, ramp, window=None,
-               aligner_cls=None):
+               aligner_cls=None, mesh=None):
     """(results, wall, cells, info) of one seeded run through
     align_reads_seeded_batch: info holds the aligner's set-up seconds (graph
-    tables, reach table), its first tier's Cm, and the run's peak device
-    memory above what is held once the aligner is built ("peak")."""
+    tables, reach table), its first tier's Cm, the run's peak device
+    memory above what is held once the aligner is built ("peak"), and on a
+    mesh the most bytes one round's outputs held on each shard, over the
+    capacity tiers ("shard bytes")."""
     import torch
 
     from graphaligner_tpu_torch.core.batch_align import (
@@ -208,7 +221,10 @@ def run_corpus(device, graph, reads, seeds, bw, ramp, window=None,
 
     torch.cuda.synchronize(device)
     t0 = time.time()
-    aligner = (aligner_cls or BandedBatchAligner)(graph, bw, ramp, device)
+    if mesh is None:
+        aligner = (aligner_cls or BandedBatchAligner)(graph, bw, ramp, device)
+    else:
+        aligner = BandedBatchAligner(graph, bw, ramp, mesh=mesh)
     if window is not None:
         aligner.LONG_WINDOW = window
     torch.cuda.synchronize(device)
@@ -221,6 +237,11 @@ def run_corpus(device, graph, reads, seeds, bw, ramp, window=None,
     info = {"set-up": setup, "Cm": aligner.Cm, "held": held,
             "window": aligner.LONG_WINDOW,
             "peak": torch.cuda.max_memory_allocated(device) - held}
+    tiers, tier = [], aligner
+    while tier is not None:
+        tiers.append(tier.shard_bytes)
+        tier = tier._bigger
+    info["shard bytes"] = [max(col) for col in zip(*tiers)]
     cells = sum(results[r.seq_id].cells_processed for r in reads)
     return results, wall, cells, info
 
@@ -1658,6 +1679,164 @@ def compare_pb(calls, rate, card):
     return (err, ms, plain_ms, bms, by), out["big"][0]
 
 
+def run_cli_processes(tmp, argv, n, timeout=300):
+    """``n`` port CLI processes of one torch.distributed group (gloo on a
+    free local port), each on the card, each stopped before this returns.
+    Returns the wall from the first start to the last exit."""
+    import socket
+
+    sock = socket.socket()
+    sock.bind(("localhost", 0))
+    coord = f"localhost:{sock.getsockname()[1]}"
+    sock.close()
+    env = dict(os.environ, PYTHONPATH=ROOT, GA_NO_FALLBACK="1")
+    procs = []
+    t0 = time.time()
+    try:
+        for pid in range(n):
+            work = os.path.join(tmp, f"p{pid}")
+            os.makedirs(work, exist_ok=True)
+            procs.append(subprocess.Popen(
+                [sys.executable, "-m", "graphaligner_tpu_torch.runtime.cli",
+                 *argv, "--backend", "cuda", "--coordinator", coord,
+                 "--num-processes", str(n), "--process-id", str(pid)],
+                cwd=work, env=env, stdout=subprocess.DEVNULL,
+                stderr=subprocess.PIPE, text=True,
+            ))
+        errs = [p.communicate(timeout=timeout)[1] for p in procs]
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    wall = time.time() - t0
+    for pid, (p, err) in enumerate(zip(procs, errs)):
+        if p.returncode != 0:
+            fail(f"process {pid} of {n} exited {p.returncode}:\n{err[-3000:]}")
+    return wall
+
+
+def run_parallel_path(device, card, longsim, sim):
+    """The port's parallel modes: longsim x10 -b 35 on a mesh of two shards
+    on the one card, beside the same corpus unsharded; make_mesh() over
+    every visible card on sim at both configs; and two --coordinator
+    processes on the card, on sim -b 35 (strided) and ONT -b 5 -B 20
+    (--shard components), their merged GAM against the golden and against
+    one process's bytes. Every corpus byte for byte, 0 host lanes."""
+    import torch
+
+    from graphaligner_tpu_torch.core import batch_align as ba
+    from graphaligner_tpu_torch.core.params import AlignerParams
+    from graphaligner_tpu_torch.ops import banded_cell as k1
+    from graphaligner_tpu_torch.ops import project_band as pb
+    from graphaligner_tpu_torch.ops import walk_moves as k2
+    from graphaligner_tpu_torch.parallel import make_mesh
+    from graphaligner_tpu_torch.runtime.aligner import align_reads, stream, vg
+
+    fb0 = ba.host_fallback_count()
+    card0 = torch.device("cuda", torch.cuda.current_device())
+    graph, reads, seeds, names = longsim
+    golden = f"{FIX}/longsim/golden_b35.gam"
+    two = make_mesh(devices=[card0, card0])
+    # in turns: unsharded, mesh, mesh, unsharded; the counts over the
+    # first mesh run
+    walls = {"unsharded": [], "mesh": []}
+    infos = {}
+    for turn in ("unsharded", "mesh", "mesh", "unsharded"):
+        first = turn == "mesh" and not walls["mesh"]
+        if first:
+            k1.LAUNCHES = k2.LAUNCHES = pb.LAUNCHES = 0
+        results, wall, _, info = run_corpus(
+            device, graph, reads, seeds, 35, 0,
+            mesh=two if turn == "mesh" else None)
+        walls[turn].append(wall)
+        infos.setdefault(turn, info)
+        if first:
+            launches = (k1.LAUNCHES, k2.LAUNCHES, pb.LAUNCHES)
+        if turn == "mesh":
+            n_ok = check_golden("longsim x10 -b 35 on 2 shards", reads, names,
+                                results, golden)
+    if min(launches[:2]) < 1:
+        fail(f"the mesh run launched K1/K2 {launches[:2]}")
+    turns = [walls["unsharded"][0], *walls["mesh"], walls["unsharded"][1]]
+    print(f"longsim x10 -b 35 on a [cuda:0, cuda:0] mesh: {n_ok}/{len(reads)}"
+          f" aligned, byte-identical to the golden (both runs); reads/s in "
+          f"turns (unsharded, mesh, mesh, unsharded): "
+          f"{', '.join(f'{len(reads) / w:.1f}' for w in turns)} (walls "
+          f"{', '.join(f'{w:.3f}' for w in turns)} s); launches K1 "
+          f"{launches[0]}, K2 {launches[1]}, projection "
+          f"{launches[2]}; a round's outputs at most "
+          f"{', '.join(f'{b / 2**20:.0f}' for b in infos['mesh']['shard bytes'])}"
+          f" MiB on each shard (unsharded: "
+          f"{infos['unsharded']['shard bytes'][0] / 2**20:.0f} MiB), the "
+          f"card's peak {infos['mesh']['peak'] / 2**20:.0f} MiB above the "
+          f"aligner's set-up (unsharded: "
+          f"{infos['unsharded']['peak'] / 2**20:.0f} MiB) [{card}]",
+          flush=True)
+
+    mesh = make_mesh()
+    sgraph, sreads, sseeds, snames = sim
+    for bw, ramp, gold in ((35, 0, "golden_b35"), (5, 20, "golden_b5_B20")):
+        n1, n2 = k1.LAUNCHES, k2.LAUNCHES
+        results, wall, _, _ = run_corpus(device, sgraph, sreads, sseeds, bw,
+                                         ramp, mesh=mesh)
+        name = f"sim -b {bw}" + (f" -B {ramp}" if ramp else "")
+        n_ok = check_golden(f"{name} on make_mesh()", sreads, snames, results,
+                            f"{FIX}/sim/{gold}/out.gam")
+        if k1.LAUNCHES == n1 or k2.LAUNCHES == n2:
+            fail(f"{name} on make_mesh() launched no K1 or no K2")
+        print(f"{name} on make_mesh() ({mesh.size} card(s)): {n_ok}/"
+              f"{len(sreads)} aligned, byte-identical to the golden; "
+              f"{len(sreads) / wall:.1f} reads/s [{card}]", flush=True)
+
+    build = os.path.join(ROOT, "build")
+    os.makedirs(build, exist_ok=True)
+    runs = (
+        ("sim -b 35, 2 processes (--shard reads)", f"{FIX}/sim/bubbles.vg",
+         f"{FIX}/sim/sim.fastq", f"{FIX}/sim/seeds.gam", 35, 0, "reads",
+         f"{FIX}/sim/golden_b35/out.gam"),
+        ("ONT -b 5 -B 20, 2 processes (--shard components)",
+         f"{FIX}/longsim/graph.vg", f"{FIX}/ont/reads.fastq",
+         f"{FIX}/ont/seeds.gam", 5, 20, "components",
+         f"{FIX}/ont/golden_b5B20.gam"),
+    )
+    for name, g, f, sd, bw, ramp, mode, gold in runs:
+        with tempfile.TemporaryDirectory(dir=build) as tmp:
+            merged = os.path.join(tmp, "merged.gam")
+            argv = ["-g", g, "-f", f, "-s", sd, "-b", str(bw), "-a", merged]
+            if ramp:
+                argv += ["-B", str(ramp)]
+            wall = run_cli_processes(tmp, argv + ["--shard", mode], 2)
+            ords = [open(os.path.join(tmp, f"merged.shard{i}.gam.ord")).read()
+                    .split() for i in range(2)]
+            solo = os.path.join(tmp, "solo.gam")
+            align_reads(AlignerParams(graph_file=g, fastq_file=f,
+                                      alignment_file=solo, seed_file=sd,
+                                      initial_bandwidth=bw,
+                                      ramp_bandwidth=ramp),
+                        log=lambda *a: None,
+                        output_dir=os.path.join(tmp, "solo"))
+            with open(merged, "rb") as a, open(solo, "rb") as b:
+                if a.read() != b.read():
+                    fail(f"{name}: the merged GAM differs from one "
+                         "process's bytes")
+            got = {a.name: a for a in stream.read_messages(merged,
+                                                           vg.Alignment)}
+            want = {a.name: a for a in stream.read_messages(gold,
+                                                            vg.Alignment)}
+            if got != want:
+                fail(f"{name}: the merged GAM differs from the golden")
+            print(f"{name}: {len(got)} alignments merged from shards of "
+                  f"{len(ords[0])} and {len(ords[1])}, byte-identical to one "
+                  f"process and equal to the golden; wall {wall:.2f} s (two "
+                  f"processes from start to exit) [{card}]", flush=True)
+    fallbacks = ba.host_fallback_count() - fb0
+    if fallbacks:
+        fail(f"{fallbacks} lanes fell back to the host oracle on the "
+             "parallel path")
+    return launches
+
+
 def main() -> int:
     t_start = time.time()
     if not os.path.isdir(os.path.join(ROOT, "graphaligner_tpu_torch")):
@@ -1822,6 +2001,11 @@ def main() -> int:
         fail("a K3 route never launched on the -i path")
     if fallbacks:
         fail(f"{fallbacks} lanes fell back to the host oracle")
+
+    mesh_launches = run_parallel_path(device, card, longsim, sim)
+    print(f"parallel path, longsim x10 on 2 shards: K1 {mesh_launches[0]}, "
+          f"K2 {mesh_launches[1]}, projection {mesh_launches[2]} launches",
+          flush=True)
 
     check_redispatch(lrec)
     k2_long_err = compare_k2_long(lrec, card)

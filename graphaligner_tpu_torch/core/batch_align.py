@@ -33,6 +33,15 @@ is below 2,097,150 digraph nodes, else by the iterative relaxation
 (``core.reach``) force the latter on smaller graphs.
 
 Device tensors stay on ``device``; the host reads them with ``.cpu()``.
+With a device mesh (``parallel.mesh``, the JAX package's ``--mesh dp``)
+every round's lanes, B rounded up to a multiple of the mesh's size, split
+into contiguous shards of equal width, each scanned on its device against
+its own copy of the graph tables (``engine_banded.banded_scan_shards``);
+each shard's outputs stay on its device, and each lane is walked with the
+shard that holds its last accepted slice, on that shard's device, with the
+whole walk group's table length and step budget (a shard's own longest
+table could give its lanes another budget, and fail one that passes
+unsharded).
 Not ported (it raises NotImplementedError): in-degree past 32, and the
 long-read walk at in-degree past 4, which the JAX package lacks too (its
 long walk is the Pallas kernel, which asserts K_in <= 4).
@@ -62,7 +71,7 @@ from ..ops.walk_moves import (
 from . import hmm as _hmm
 from .align import _pad_to_word
 from .engine import _ENCODE_LUT, _READ_CODE
-from .engine_banded import banded_scan
+from .engine_banded import banded_scan_shards, device_guard
 from .hmm import CorrectnessState
 from .params import (
     ALTERNATE_METHOD_CUTOFF,
@@ -100,10 +109,11 @@ def _long_add(key, value) -> None:
     LONG_STATS[key] = LONG_STATS.get(key, 0) + value
 
 
-def _long_peak(key, dev) -> None:
-    if dev.type == "cuda":
-        LONG_STATS[key] = max(LONG_STATS.get(key, 0),
-                              torch.cuda.max_memory_allocated(dev))
+def _long_peak(key, devices) -> None:
+    for dev in devices:
+        if dev.type == "cuda":
+            LONG_STATS[key] = max(LONG_STATS.get(key, 0),
+                                  torch.cuda.max_memory_allocated(dev))
 
 
 def _mark(dev):
@@ -111,7 +121,7 @@ def _mark(dev):
     card, the host clock elsewhere."""
     if dev.type == "cuda":
         ev = torch.cuda.Event(enable_timing=True)
-        ev.record()
+        ev.record(torch.cuda.current_stream(dev))
         return ev
     return time.perf_counter()
 
@@ -238,18 +248,17 @@ class _Round:
         self._host: dict = {}
 
     def drop(self, *keys) -> None:
-        """Free outputs on the device and their host copies."""
+        """Free outputs on the devices and their host copies."""
         if "cols" in keys and "sends" in self.out:
-            # sends is a view of cols: keep a copy so cols' memory goes
-            self.out["sends"] = self.out["sends"].clone()
+            self.out.keep_sends()
         for key in keys:
-            self.out.pop(key, None)
+            self.out.pop(key)
             self._host.pop(key, None)
 
     def host(self, key) -> np.ndarray:
         arr = self._host.get(key)
         if arr is None:
-            arr = self.out[key].cpu().numpy()
+            arr = self.out.host(key)
             self._host[key] = arr
         return arr
 
@@ -310,8 +319,18 @@ class _LaneState:
     cursor: int = 0
 
 
+def _resolve(device) -> torch.device:
+    """``device`` with its index ("cuda" is the current card)."""
+    dev = torch.device(device)
+    if dev.type == "cuda" and dev.index is None:
+        dev = torch.device("cuda", torch.cuda.current_device())
+    return dev
+
+
 class BandedBatchAligner:
-    """Batched seeded/banded alignment on one torch device."""
+    """Batched seeded/banded alignment on one torch device, or on the
+    devices of a mesh (``parallel.mesh.make_mesh``; ``device`` is then its
+    first)."""
 
     # reads whose slice bucket passes this window (or the tier's
     # max_window_slices) run the memory-bounded long-read mode: chained
@@ -328,18 +347,31 @@ class BandedBatchAligner:
         graph: AlignmentGraph,
         initial_bandwidth: int,
         ramp_bandwidth: int,
-        device,
+        device=None,
         Nm: int | None = None,
         Cm: int | None = None,
         max_rounds: int = 6,
+        mesh=None,
+        mesh_axis: str = "dp",
         _tables=None,
-        _dt=None,
+        _dts=None,
         _rev_pos=None,
         _tier: int = 0,
     ):
         native.get_lib()  # required: fail here, not mid-run
         self.graph = graph
-        self.device = torch.device(device)
+        if mesh is not None:
+            if mesh_axis != mesh.axis:
+                raise ValueError(f"the mesh's axis is {mesh.axis!r}, not "
+                                 f"{mesh_axis!r}")
+            self.shard_devices = [_resolve(d) for d in mesh.devices]
+        elif device is None:
+            raise ValueError("BandedBatchAligner needs a device or a mesh")
+        else:
+            self.shard_devices = [_resolve(device)]
+        self.mesh = mesh
+        self.mesh_axis = mesh_axis
+        self.device = self.shard_devices[0]
         self.tables = _tables if _tables is not None else build_graph_tables(graph)
         if self.tables.k_in > K_IN_MAX:
             raise NotImplementedError(
@@ -378,13 +410,21 @@ class BandedBatchAligner:
         self._bigger = None
         # 8-bit tie-break deltas whenever every replay threshold fits
         self._tie8 = ew <= 254
-        if _dt is None:
+        if _dts is None:
             # past reach_fits the JAX package builds the table and then
             # projects without it: it is not built here
             reach = (ensure_reach(self.tables, ew - 1)
                      if reach_fits(self.tables.num_nodes) else None)
-            _dt = device_tables(self.tables, reach, self.device)
-        self._dt = _dt
+            dt = device_tables(self.tables, reach, self.device)
+            # one copy a distinct device, the reach table with it, as the
+            # JAX package's shard_map replicates them
+            _dts = {}
+            for dev in self.shard_devices:
+                _dts.setdefault(dev, dt.to(dev))
+        self._dts = _dts
+        self._dt = _dts[self.device]
+        # the most bytes one round's outputs held on each shard's device
+        self.shard_bytes = [0] * len(self.shard_devices)
 
     def _next_tier(self):
         """The 2x-capacity retry aligner (sharing graph tables), or None
@@ -400,8 +440,10 @@ class BandedBatchAligner:
                 Nm=min(self.Nm * 2, 32),
                 Cm=max(self.Cm * 2, 448),
                 max_rounds=self.max_rounds,
+                mesh=self.mesh,
+                mesh_axis=self.mesh_axis,
                 _tables=self.tables,
-                _dt=self._dt,
+                _dts=self._dts,
                 _rev_pos=self.rev_pos,
                 _tier=self.tier + 1,
             )
@@ -513,7 +555,7 @@ class BandedBatchAligner:
         if long_mode:
             # the walk recomputes every round, the newest one too
             self._chunk_rounds[-1].drop("cols", "codes")
-            _long_peak("peak scan", self.device)
+            _long_peak("peak scan", self._dts)
         for lane in lanes:
             if not lane.done:
                 lane.failed = True
@@ -705,24 +747,33 @@ class BandedBatchAligner:
             if len(groups[kq]) < 32 and bigger:
                 groups[min(bigger)].extend(groups.pop(kq))
         for kq in sorted(groups, reverse=True):
-            g = groups[kq]
-            step = len(g) if self.device.type == "cuda" else 256
-            for j in range(0, len(g), step):
-                self._walk_block(
-                    problems, lanes, keeps, g[j : j + step], starts_map, kq,
-                    results, steps,
-                )
+            # each lane walks with the shard that holds its last accepted
+            # slice, on its device, with the group's table length kq and
+            # budget
+            by_shard: dict = {}
+            for i in groups[kq]:
+                rec = lanes[i].accepted[int(keeps[i]) - 1]
+                by_shard.setdefault(rec.lane_in_round // rec.rnd.out.width,
+                                    []).append(i)
+            for d, g in sorted(by_shard.items()):
+                dev = self.shard_devices[d]
+                step = len(g) if dev.type == "cuda" else 256
+                for j in range(0, len(g), step):
+                    with device_guard(dev):
+                        self._walk_block(
+                            problems, lanes, keeps, g[j : j + step],
+                            starts_map, kq, results, steps, dev,
+                        )
 
     def _walk_block(self, problems, lanes, keeps, blk, starts_map, K_max,
-                    results, steps=None):
-        """One K2 call over lane subset ``blk`` (table length quantized to
-        K_max slices; ``steps`` a lane's budget, None for the TPU kernel's),
-        then the native decode of every live lane."""
-        dev = self.device
+                    results, steps, dev):
+        """One K2 call on ``dev`` over lane subset ``blk`` (table length
+        quantized to K_max slices; ``steps`` a lane's budget, None for the
+        TPU kernel's), then the native decode of every live lane."""
         n = len(blk)
         Bp = max(128, -(-n // 128) * 128)
         cols_tab, band_tab, lens_tab, pred_tab, pprev_tab, codes8 = (
-            self._consolidate_walk(lanes, keeps, K_max, blk, Bp)
+            self._consolidate_walk(lanes, keeps, K_max, blk, Bp, dev)
         )
 
         def row1(a):
@@ -752,7 +803,7 @@ class BandedBatchAligner:
         # grew the leading below-window pad slice)
         moves_dev, fail_dev, _state, used_dev = walk_moves(
             cols_tab, band_tab, lens_tab, pred_tab, pprev_tab, codes8,
-            self._dt.bt_bits_lut,
+            self._dts[dev].bt_bits_lut,
             row1(self._seq_lens[blk]),
             row1(seed_nodes),
             torch.zeros((1, Bp), dtype=torch.int32, device=dev),
@@ -807,7 +858,7 @@ class BandedBatchAligner:
             results[i] = (score, arr, int(keeps[i]), cells)
 
     def _gather_walk_inputs(self, lanes, keeps):
-        """Every walk lane's final slice, gathered on the device: a
+        """Every walk lane's final slice, gathered on the first device: a
         [B, Cm+Nm] payload (last-row scores + band ids) that stays there,
         and a [B, 10] start summary fetched to the host (best, nmins, pos,
         slot, off, node of the first minimum, pos/slot/off/node of the
@@ -839,12 +890,10 @@ class BandedBatchAligner:
                     steps[i] = rec.step
                     lane_pos[i] = rec.lane_in_round
                     mask[i] = True
-            steps_t = torch.as_tensor(steps, device=dev)
-            lane_t = torch.as_tensor(lane_pos, device=dev)
             mask_t = torch.as_tensor(mask, device=dev)
-            sends = rnd.out["sends"][steps_t, :, lane_t]  # [B, Cm]
-            band = rnd.out["band_ids"][steps_t, :, lane_t]  # [B, Nm]
-            lens = rnd.out["lens_tab"][steps_t, :, lane_t]
+            sends = rnd.out.take("sends", steps, lane_pos, dev)  # [B, Cm]
+            band = rnd.out.take("band_ids", steps, lane_pos, dev)  # [B, Nm]
+            lens = rnd.out.take("lens_tab", steps, lane_pos, dev)
             valid = band != int(EMPTY)
             lens = torch.where(valid, lens, 0)
             offs = lens.cumsum(1, dtype=torch.int32) - lens
@@ -974,12 +1023,12 @@ class BandedBatchAligner:
             starts[w] = (pos, int(hit[0]), pos - int(node_start[node]))
         return starts
 
-    def _consolidate_walk(self, lanes, keeps, K_max, blk, Bp):
-        """Walk tables of lanes ``blk``, gathered on the device from each
-        round's outputs: (cols [K_max+1, 7, Cm, Bp], band, lens, pred,
-        pred_prev [K_max+1, Nm, Bp], codes [K_max+1, 64, Bp] uint8), lane-
-        padded to Bp, with entry 0 the walk's below-window pad slice."""
-        dev = self.device
+    def _consolidate_walk(self, lanes, keeps, K_max, blk, Bp, dev):
+        """Walk tables of lanes ``blk``, gathered on ``dev`` from each
+        round's outputs (each shard's lanes from its device): (cols
+        [K_max+1, 7, Cm, Bp], band, lens, pred, pred_prev [K_max+1, Nm,
+        Bp], codes [K_max+1, 64, Bp] uint8), lane-padded to Bp, with entry
+        0 the walk's below-window pad slice."""
         rounds = []
         for li in blk:
             for rec in lanes[li].accepted:
@@ -1004,15 +1053,14 @@ class BandedBatchAligner:
                     if rec.rnd is rnd:
                         lane_pos[bi] = rec.lane_in_round
                         break
-            st = torch.as_tensor(steps, device=dev)
-            ln = torch.as_tensor(lane_pos, device=dev)[None, :]
             m3 = torch.as_tensor(mask, device=dev)[:, None, :]
             gathered = [
-                rnd.out[key][st, :, ln].permute(0, 2, 1)
-                for key in ("band_ids", "lens_tab", "pred_tab", "pred_prev")
+                rnd.out.take(key, steps, lane_pos, dev).permute(0, 2, 1)
+                for key in ("band_ids", "lens_tab", "pred_tab", "pred_prev",
+                            "codes")
             ]
-            gathered.append(rnd.out["codes"][st, :, ln].permute(0, 2, 1))
-            cols = rnd.out["cols"][st, :, :, ln].permute(0, 2, 3, 1)
+            cols = rnd.out.take("cols", steps, lane_pos, dev).permute(
+                0, 2, 3, 1)
             if tabs is None:
                 fills = (int(EMPTY), 0, 0, 0, 0)
                 tabs = [
@@ -1035,14 +1083,13 @@ class BandedBatchAligner:
         newest first, its columns are recomputed, the lanes whose table
         ends there get their walk starts, and K2 walks the window from the
         lane state the newer window left. The windows' move streams,
-        concatenated, decode as one walk's."""
-        dev = self.device
+        concatenated, decode as one walk's. On a mesh a window's lanes walk
+        with the shard that holds their segment of its round, on its device
+        (the others, idle or passing no slice of it, with the first), each
+        shard with the window's table length, so with its step budget."""
+        dev0 = self.device
         Cm, Nm = self.Cm, self.Nm
         B = len(lanes)
-        # lanes padded as _walk_block pads them, on every device: the plain
-        # walk's lockstep blocks are then the TPU kernel's, and on the card
-        # the pad lanes are idle warps (state[5] = 1)
-        Bp = max(128, -(-B // 128) * 128)
         NO_BASE = -(10**6)
         marks: list = []  # (key, start, end) of each recompute and window
 
@@ -1086,14 +1133,8 @@ class BandedBatchAligner:
             if any(s_[0] is r for i in live for s_ in lane_segs[i])
         ]
 
-        def row1(a):
-            out = np.zeros((1, Bp), np.int32)
-            out[0, :B] = a
-            return torch.as_tensor(out, device=dev)
-
-        seq_row = row1(self._seq_lens)
-        seed_row = row1([p[1] for p in problems])
-        state = np.zeros((16, Bp), np.int32)
+        seeds = np.array([p[1] for p in problems], dtype=np.int32)
+        state = np.zeros((16, B), np.int32)
         state[5] = 1  # idle until the lane's last window starts it
         sw = np.zeros(B, dtype=np.int64)
         move_parts: list = []
@@ -1109,9 +1150,9 @@ class BandedBatchAligner:
             }
             if not segs_here:
                 continue
-            m0, n0 = _mark(dev), _k1.LAUNCHES
+            m0, n0 = _mark(dev0), _k1.LAUNCHES
             out = self._redispatch_round(rnd)
-            marks.append(("recompute", m0, _mark(dev)))
+            marks.append(("recompute", m0, _mark(dev0)))
             _long_add("k1 recompute", _k1.LAUNCHES - n0)
             _long_add("lane windows", len(segs_here))
             K_w = max(s_[2] for s_ in segs_here.values())
@@ -1124,28 +1165,16 @@ class BandedBatchAligner:
                 lr[i] = lane_r
                 steps_map[:n, i] = step0 + np.arange(n)
                 valid_map[:n, i] = True
-            st_t = torch.as_tensor(steps_map, device=dev)
-            lr_t = torch.as_tensor(lr, device=dev)[None, :]
-            vm = torch.as_tensor(valid_map, device=dev)[:, None, :]
+            by_shard: dict = {}
+            for i in range(B):
+                d = int(lr[i]) // rnd.out.width if i in segs_here else 0
+                by_shard.setdefault(d, []).append(i)
 
-            # the window's tables by (step, lane_in_round), gathered for the
-            # B lanes into buffers of Bp; entry 0, the slice below the
-            # window, is the lane's previous segment's last slice from that
-            # round's stash
-            keys = ("band_ids", "lens_tab", "pred_tab", "pred_prev")
-            tabs = []
-            for key, fill in zip(keys, (int(EMPTY), 0, 0, 0)):
-                t_ = torch.full((K_w + 1, Nm, Bp), fill, dtype=torch.int32,
-                                device=dev)
-                g_ = rnd.out[key][st_t, :, lr_t].permute(0, 2, 1)
-                t_[1:, :, :B] = torch.where(vm, g_, fill)
-                tabs.append(t_)
-            cols_w = torch.zeros((K_w + 1, 7, Cm, Bp), dtype=torch.int32,
-                                 device=dev)
-            cols_w[1:, :, :, :B] = torch.where(
-                vm[:, None], out["cols"][st_t, :, :, lr_t].permute(0, 2, 3, 1),
-                0,
-            )
+            # entry 0 of a window, the slice below it, is the lane's
+            # previous segment's last slice from that round's stash; a stash
+            # miss (a rewind moved an older round's segment end after its
+            # stash was taken) fails the lane to the retry ladder (JAX
+            # :2042-2057)
             by_prev: dict = {}
             for i, s_ in segs_here.items():
                 segs = lane_segs[i]
@@ -1155,10 +1184,8 @@ class BandedBatchAligner:
                     by_prev.setdefault(id(p_[0]), (p_[0], []))[1].append(
                         (i, p_)
                     )
+            stash = []
             for prnd, pairs in by_prev.values():
-                # a stash miss (a rewind moved an older round's segment end
-                # after its stash was taken) fails the lane to the retry
-                # ladder (JAX :2042-2057)
                 good, reqpos = [], []
                 for i, p_ in pairs:
                     hits = np.nonzero(
@@ -1170,20 +1197,13 @@ class BandedBatchAligner:
                         continue
                     good.append((i, p_))
                     reqpos.append(int(hits[0]))
-                if not good:
-                    continue
-                idx = torch.as_tensor([i for i, _ in good], device=dev)
-                plast = torch.as_tensor([p_[1] + p_[2] - 1 for _, p_ in good],
-                                        device=dev)
-                plane = torch.as_tensor([p_[4] for _, p_ in good], device=dev)
-                # (no name may keep a view of a buffer: each must go with
-                # its window)
-                cols_w[0][:, :, idx] = prnd.cols_last[
-                    torch.as_tensor(reqpos, device=dev)
-                ].permute(1, 2, 0)
-                for j, key in enumerate(keys):
-                    tabs[j][0][:, idx] = prnd.out[key][plast, :, plane].T
-            band_w, lens_w, pred_w, pprev_w = tabs
+                if good:
+                    stash.append((prnd, good, reqpos))
+            windows = {
+                d: self._long_window(rnd, out, stash, sub, steps_map,
+                                     valid_map, lr, K_w, self.shard_devices[d])
+                for d, sub in by_shard.items()
+            }
 
             # lanes whose table ends in this window start walking here
             starters = [
@@ -1192,21 +1212,16 @@ class BandedBatchAligner:
                 if s_[3] + s_[2] == int(keeps[i]) and not lanes[i].failed
             ]
             if starters:
-                fin_step = torch.as_tensor(
-                    [segs_here[i][1] + segs_here[i][2] - 1 for i in starters],
-                    device=dev,
-                )
-                fin_lane = torch.as_tensor(
-                    [segs_here[i][4] for i in starters], device=dev
-                )
+                fin_step = [segs_here[i][1] + segs_here[i][2] - 1
+                            for i in starters]
+                fin_lane = [segs_here[i][4] for i in starters]
                 final_sends = np.zeros((B, Cm), np.int32)
                 final_band = np.full((B, Nm), int(EMPTY), np.int32)
                 final_sends[starters] = (
-                    out["sends"][fin_step, :, fin_lane].cpu().numpy()
+                    out.take("sends", fin_step, fin_lane, dev0).cpu().numpy()
                 )
-                final_band[starters] = (
-                    rnd.out["band_ids"][fin_step, :, fin_lane].cpu().numpy()
-                )
+                final_band[starters] = rnd.out.take(
+                    "band_ids", fin_step, fin_lane, dev0).cpu().numpy()
                 try:
                     starts = self._walk_starts(
                         problems, lanes, keeps, starters, final_sends,
@@ -1234,36 +1249,61 @@ class BandedBatchAligner:
                 base[:, None] + np.arange(K_w + 1, dtype=np.int32)[None, :] - 1,
                 0, S_g - 1,
             )
-            base_row = np.full((1, Bp), NO_BASE, np.int32)
-            base_row[0, :B] = base
-            codes8 = np.zeros((K_w + 1, WORD_SIZE, Bp), np.uint8)
-            codes8[:, :, :B] = codes_all[
-                np.arange(B)[:, None], codes_rows
-            ].transpose(1, 2, 0)
-            codes8_t = torch.as_tensor(codes8, device=dev)
-            base_t = torch.as_tensor(base_row, device=dev)
-            state_t = torch.as_tensor(state, device=dev)
-            m0, n0 = _mark(dev), _k2.LAUNCHES
-            moves_dev, fail_dev, state_dev, _ = walk_moves(
-                cols_w, band_w, lens_w, pred_w, pprev_w, codes8_t,
-                self._dt.bt_bits_lut, seq_row, seed_row, base_t, state_t,
-                K_in=self.tables.k_in,
-            )
-            marks.append(("K2 windows", m0, _mark(dev)))
-            _long_add("k2", _k2.LAUNCHES - n0)
-            state = state_dev.cpu().numpy().copy()
-            fail = fail_dev.cpu().numpy()[0]
-            for i in segs_here:
-                if fail[i]:
-                    lanes[i].failed = True
-                    state[5, i] = 1
-            move_parts.append(moves_dev.cpu().numpy().view(np.uint32))
-            # the next round's recompute and window come after these go
-            del cols_w, tabs, t_, band_w, lens_w, pred_w, pprev_w
+            moves_win = None
+            for d_i, sub in sorted(by_shard.items()):
+                d = self.shard_devices[d_i]
+                # lanes padded as _walk_block pads them, on every device:
+                # the plain walk's lockstep blocks are then the TPU
+                # kernel's, and on the card the pad lanes are idle warps
+                # (state[5] = 1)
+                n = len(sub)
+                Bp = max(128, -(-n // 128) * 128)
+                sub_a = np.asarray(sub)
+
+                def row1(a):
+                    out_ = np.zeros((1, Bp), np.int32)
+                    out_[0, :n] = a
+                    return torch.as_tensor(out_, device=d)
+
+                base_row = np.full((1, Bp), NO_BASE, np.int32)
+                base_row[0, :n] = base[sub_a]
+                codes8 = np.zeros((K_w + 1, WORD_SIZE, Bp), np.uint8)
+                codes8[:, :, :n] = codes_all[
+                    sub_a[:, None], codes_rows[sub_a]
+                ].transpose(1, 2, 0)
+                state_d = np.zeros((16, Bp), np.int32)
+                state_d[5] = 1
+                state_d[:, :n] = state[:, sub_a]
+                cols_w, (band_w, lens_w, pred_w, pprev_w) = windows.pop(d_i)
+                with device_guard(d):
+                    m0, n0 = _mark(d), _k2.LAUNCHES
+                    moves_dev, fail_dev, state_dev, _ = walk_moves(
+                        cols_w, band_w, lens_w, pred_w, pprev_w,
+                        torch.as_tensor(codes8, device=d),
+                        self._dts[d].bt_bits_lut, row1(self._seq_lens[sub_a]),
+                        row1(seeds[sub_a]), torch.as_tensor(base_row, device=d),
+                        torch.as_tensor(state_d, device=d),
+                        K_in=self.tables.k_in,
+                    )
+                    marks.append(("K2 windows", m0, _mark(d)))
+                _long_add("k2", _k2.LAUNCHES - n0)
+                state[:, sub_a] = state_dev.cpu().numpy()[:, :n]
+                fail = fail_dev.cpu().numpy()[0, :n]
+                for j, i in enumerate(sub):
+                    if fail[j] and i in segs_here:
+                        lanes[i].failed = True
+                        state[5, i] = 1
+                moves_d = moves_dev.cpu().numpy().view(np.uint32)
+                if moves_win is None:
+                    moves_win = np.zeros((moves_d.shape[0], B), np.uint32)
+                moves_win[:, sub_a] = moves_d[:, :n]
+                # the next window's recompute comes after these go
+                del cols_w, band_w, lens_w, pred_w, pprev_w
+            move_parts.append(moves_win)
         # the last window's copies above synchronized every mark
         for key, a, b in marks:
             _long_add(key, _between(a, b))
-        _long_peak("peak walk", dev)
+        _long_peak("peak walk", self._dts)
 
         final_live = []
         for i in live:
@@ -1305,6 +1345,51 @@ class BandedBatchAligner:
                     r.num_cells for r in lane.accepted[: int(keeps[i])]
                 ) * WORD_SIZE
                 results[i] = (score, arr, int(keeps[i]), cells)
+
+    def _long_window(self, rnd, out, stash, sub, steps_map, valid_map, lr,
+                     K_w, dev):
+        """One long-mode window's walk tables for lanes ``sub`` on ``dev``:
+        cols [K_w+1, 7, Cm, Bp] and band, lens, pred, pred_prev [K_w+1, Nm,
+        Bp], Bp = len(sub) padded to a multiple of 128, gathered from the
+        recomputed round ``out`` (cols) and ``rnd``'s kept tables by each
+        lane's (step, lane_in_round); entry 0 comes from ``stash``, [(older
+        round, [(lane, its segment there)], request positions)]."""
+        n = len(sub)
+        Bp = max(128, -(-n // 128) * 128)
+        st = steps_map[:, sub]
+        ln = lr[sub]
+        vm = torch.as_tensor(valid_map[:, sub], device=dev)[:, None, :]
+        keys = ("band_ids", "lens_tab", "pred_tab", "pred_prev")
+        tabs = []
+        for key, fill in zip(keys, (int(EMPTY), 0, 0, 0)):
+            g_ = rnd.out.take(key, st, ln, dev).permute(0, 2, 1)
+            t_ = torch.full((K_w + 1, g_.shape[1], Bp), fill,
+                            dtype=torch.int32, device=dev)
+            t_[1:, :, :n] = torch.where(vm, g_, fill)
+            tabs.append(t_)
+        cols_w = torch.zeros((K_w + 1, 7, self.Cm, Bp), dtype=torch.int32,
+                             device=dev)
+        cols_w[1:, :, :, :n] = torch.where(
+            vm[:, None], out.take("cols", st, ln, dev).permute(0, 2, 3, 1), 0
+        )
+        pos = {i: j for j, i in enumerate(sub)}
+        for prnd, good, reqpos in stash:
+            here = [(k, pos[i], p_) for k, (i, p_) in enumerate(good)
+                    if i in pos]
+            if not here:
+                continue
+            idx = torch.as_tensor([j for _, j, _ in here], device=dev)
+            rows = torch.as_tensor([reqpos[k] for k, _, _ in here],
+                                   device=prnd.cols_last.device)
+            # (no name may keep a view of a buffer: each must go with its
+            # window)
+            cols_w[0][:, :, idx] = prnd.cols_last[rows].to(dev).permute(
+                1, 2, 0)
+            plast = [p_[1] + p_[2] - 1 for _, _, p_ in here]
+            plane = [p_[4] for _, _, p_ in here]
+            for t_, key in zip(tabs, keys):
+                t_[0][:, idx] = prnd.out.take(key, plast, plane, dev).T
+        return cols_w, tabs
 
     # ------------------------------------------------------------- device round
     @staticmethod
@@ -1356,6 +1441,8 @@ class BandedBatchAligner:
             B = 512
             while B < n_lanes:
                 B *= 2
+        nd = len(self.shard_devices)
+        B = -(-B // nd) * nd  # equal shards (JAX :2277-2279)
         bw = np.full((S_max, B), self.initial_bandwidth, dtype=np.int32)
         codes_lane = np.full(
             (B, S_max * WORD_SIZE), _READ_CODE["N"], dtype=np.uint8
@@ -1400,13 +1487,10 @@ class BandedBatchAligner:
                 init_min[l] = rec.min_score
         # rewind carries: one device gather + fetch per source round
         for rnd_src, recs in carry_groups.values():
-            steps_a = torch.as_tensor([r.step for _, r in recs],
-                                      device=self.device)
-            lanes_a = torch.as_tensor([r.lane_in_round for _, r in recs],
-                                      device=self.device)
-            o = rnd_src.out
+            steps_a = [r.step for _, r in recs]
+            lanes_a = [r.lane_in_round for _, r in recs]
             packed = torch.cat(
-                [o[key][steps_a, :, lanes_a]
+                [rnd_src.out.take(key, steps_a, lanes_a, self.device)
                  for key in ("band_ids", "node_min", "node_end", "sends")],
                 dim=1,
             ).cpu().numpy()  # [n, 3*Nm + Cm]
@@ -1417,17 +1501,15 @@ class BandedBatchAligner:
                 init_nend[l] = packed[j, 2 * Nm : 3 * Nm]
                 init_send[l] = packed[j, 3 * Nm :]
 
-        zeros_b = np.zeros(B, dtype=np.int32)
         seg = (seg_active, seg_first, seg_slen, seg_rnode, seg_rlen)
-        out = banded_scan(
-            self._dt, codes_lane, zeros_b, zeros_b, zeros_b, bw,
-            init_ids, init_send, init_nmin, init_nend, init_min,
-            S_max=S_max, Nm=self.Nm, Cm=self.Cm, seg=seg, tie8=self._tie8,
-        )
+        out = self._scan(codes_lane, bw, init_ids, init_send, init_nmin,
+                         init_nend, init_min, seg, S_max)
+        for d in range(nd):
+            self.shard_bytes[d] = max(self.shard_bytes[d], out.nbytes(d))
         return _Round(
             out,
             control=self._unpack_control(
-                out["control"].cpu().numpy(), init_min, seg_active, seg_rnode
+                out.host("control"), init_min, seg_active, seg_rnode
             ),
             bw=bw,
             carry_from=[r[2] for r in requests],
@@ -1440,19 +1522,22 @@ class BandedBatchAligner:
             ) if self._long_mode else None,
         )
 
-    def _redispatch_round(self, rnd) -> dict:
-        """A long-mode round run again from its scan inputs (JAX
-        :2461-2490): the scan is deterministic (a stable sort, no atomics),
-        so the recomputed outputs equal the dropped ones bit for bit (the
-        reference's getSlicesFromTable recompute, GraphAligner.h:2858-2943)."""
-        (codes_lane, bw, init_ids, init_send, init_nmin, init_nend, init_min,
-         seg, S_max) = rnd.scan_inputs
-        zeros_b = np.zeros(codes_lane.shape[0], dtype=np.int32)
-        return banded_scan(
-            self._dt, codes_lane, zeros_b, zeros_b, zeros_b, bw,
+    def _scan(self, codes_lane, bw, init_ids, init_send, init_nmin,
+              init_nend, init_min, seg, S_max):
+        """One scan round over the aligner's shards."""
+        return banded_scan_shards(
+            [self._dts[d] for d in self.shard_devices], codes_lane, bw,
             init_ids, init_send, init_nmin, init_nend, init_min,
             S_max=S_max, Nm=self.Nm, Cm=self.Cm, seg=seg, tie8=self._tie8,
         )
+
+    def _redispatch_round(self, rnd):
+        """A long-mode round run again from its scan inputs (JAX
+        :2461-2490), on the same shards: the scan is deterministic (a
+        stable sort, no atomics), so the recomputed outputs equal the
+        dropped ones bit for bit (the reference's getSlicesFromTable
+        recompute, GraphAligner.h:2858-2943)."""
+        return self._scan(*rnd.scan_inputs)
 
     def _stash_round_boundary(self, rnd, overrides) -> None:
         """Before a long-mode round's columns go: each request's last
@@ -1464,10 +1549,7 @@ class BandedBatchAligner:
             dtype=np.int64,
         )
         lanes_ = np.array([l for (l, _, _) in rnd.req_meta], dtype=np.int64)
-        rnd.cols_last = rnd.out["cols"][
-            torch.as_tensor(steps, device=self.device), :, :,
-            torch.as_tensor(lanes_, device=self.device),
-        ]
+        rnd.cols_last = rnd.out.take("cols", steps, lanes_, self.device)
         rnd.last_steps = steps
         rnd.last_lanes = lanes_
 

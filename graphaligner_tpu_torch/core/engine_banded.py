@@ -29,13 +29,21 @@ in-neighbours) is K1's wide route here: K1 takes graphs of in-degree up to
 32 and returns each slot's predecessor tables as ``pred_words(K_in)``
 int32 planes (``ops.banded_cell``), so ``pred_tab`` and ``pred_prev`` are
 [S, P * Nm, B], plane p at rows p * Nm to (p + 1) * Nm; at P = 1 they are
-the JAX package's. Not ported: the JAX package's probe projections
+the JAX package's. On a device mesh (``banded_scan_shards``) the lanes split into contiguous
+shards of equal width, each scanned on its own device as the JAX
+package's ``shard_map`` runs its shards: with no collective, so the
+iterative projection's stop rule is each shard's own there as here.
+Not ported: the JAX package's probe projections
 (``GA_PROJ`` = sort, sort2, pairwise2, unroll), which give the same bands
 as ``pairwise``.
 """
 
 from __future__ import annotations
 
+import contextlib
+from collections.abc import Mapping
+
+import numpy as np
 import torch
 
 from ..ops.banded_cell import K_IN_MAX, slice_cells
@@ -291,3 +299,116 @@ def _finish_outputs(nm_pack, ctrl_pack, cols, read_codes, init_min,
         .permute(1, 2, 0)
         .contiguous(),  # [S, 64, B]
     }
+
+
+def device_guard(device):
+    """``device`` as the current CUDA device (the kernels launch on the
+    current device, whatever device their stream belongs to); a no-op
+    for the CPU."""
+    device = torch.device(device)
+    if device.type == "cuda":
+        return torch.cuda.device(device)
+    return contextlib.nullcontext()
+
+
+class LaneShards(Mapping):
+    """A scan's outputs split along the lane (last) axis into shards of
+    ``width`` lanes, shard d holding lanes [d * width, (d + 1) * width) in
+    ``parts[d]``, a ``banded_scan`` dict on that shard's device. Lanes are
+    addressed by their global index; the aligner gathers no more across
+    shards than it takes. As a mapping, ``out[key]`` is the whole batch
+    (one shard's tensor itself, else the shards joined on the first
+    one's device: for inspection)."""
+
+    def __init__(self, parts: list, width: int):
+        self.parts = parts
+        self.width = width
+
+    def __getitem__(self, key) -> torch.Tensor:
+        ts = [part[key] for part in self.parts]
+        if len(ts) == 1:
+            return ts[0]
+        return torch.cat([t.to(ts[0].device) for t in ts], dim=-1)
+
+    def __iter__(self):
+        return iter(self.parts[0])
+
+    def __len__(self) -> int:
+        return len(self.parts[0])
+
+    def __contains__(self, key) -> bool:
+        return key in self.parts[0]
+
+    def pop(self, key) -> None:
+        for part in self.parts:
+            part.pop(key, None)
+
+    def keep_sends(self) -> None:
+        """``sends`` is a view of ``cols``: copy it so that dropping the
+        columns frees their memory."""
+        for part in self.parts:
+            part["sends"] = part["sends"].clone()
+
+    def nbytes(self, d: int) -> int:
+        """Bytes shard d's outputs hold on its device (views once)."""
+        seen = {}
+        for t in self.parts[d].values():
+            seen[t.untyped_storage().data_ptr()] = t.untyped_storage().nbytes()
+        return sum(seen.values())
+
+    def host(self, key) -> np.ndarray:
+        """Every lane of ``key`` as one host array."""
+        arrs = [part[key].cpu().numpy() for part in self.parts]
+        return arrs[0] if len(arrs) == 1 else np.concatenate(arrs, axis=-1)
+
+    def take(self, key, steps, lanes, device) -> torch.Tensor:
+        """``key[steps, ..., lanes]`` on ``device``: steps [..., n] and
+        lanes [n] (global) integer arrays, the result [..., n, *mid] where
+        the output is [S, *mid, B]. Each shard gathers its own lanes."""
+        steps = np.asarray(steps, dtype=np.int64)
+        lanes = np.asarray(lanes, dtype=np.int64)
+        if len(self.parts) == 1:
+            t = self.parts[0][key]
+            return t[torch.as_tensor(steps, device=t.device), ...,
+                     torch.as_tensor(lanes, device=t.device)].to(device)
+        t0 = self.parts[0][key]
+        out = torch.empty(steps.shape + tuple(t0.shape[1:-1]),
+                          dtype=t0.dtype, device=device)
+        shard = lanes // self.width
+        for d in np.unique(shard):
+            sel = np.nonzero(shard == d)[0]
+            t = self.parts[d][key]
+            part = t[torch.as_tensor(steps[..., sel], device=t.device), ...,
+                     torch.as_tensor(lanes[sel] - d * self.width,
+                                     device=t.device)]
+            out.index_copy_(steps.ndim - 1,
+                            torch.as_tensor(sel, device=device),
+                            part.to(device))
+        return out
+
+
+def banded_scan_shards(dts, read_codes, bandwidth, init_ids, init_cell_send,
+                       init_node_min, init_node_end, init_min, *, S_max,
+                       Nm, Cm, seg, tie8=False) -> LaneShards:
+    """The segmented ``banded_scan`` over a batch of host (numpy) inputs
+    whose B lanes split into ``len(dts)`` contiguous shards of equal width,
+    shard d scanned against ``dts[d]`` on its device. Every shard's work
+    is issued before anything is read back, so the cards run at once."""
+    nd = len(dts)
+    B = read_codes.shape[0]
+    if B % nd:
+        raise ValueError(f"{B} lanes do not split into {nd} equal shards")
+    width = B // nd
+    zeros = np.zeros(width, dtype=np.int32)
+    parts = []
+    for d, dt in enumerate(dts):
+        lo, hi = d * width, (d + 1) * width
+        with device_guard(dt.device):
+            parts.append(banded_scan(
+                dt, read_codes[lo:hi], zeros, zeros, zeros,
+                bandwidth[:, lo:hi], init_ids[lo:hi], init_cell_send[lo:hi],
+                init_node_min[lo:hi], init_node_end[lo:hi], init_min[lo:hi],
+                S_max=S_max, Nm=Nm, Cm=Cm, tie8=tie8,
+                seg=tuple(s[:, lo:hi] for s in seg),
+            ))
+    return LaneShards(parts, width)

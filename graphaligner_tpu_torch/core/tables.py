@@ -9,7 +9,7 @@ the graph has a usable one, into the port's tensors on one device.
 
 from __future__ import annotations
 
-from dataclasses import dataclass
+from dataclasses import dataclass, fields, replace
 
 import numpy as np
 import torch
@@ -153,6 +153,19 @@ class DeviceTables:
     k_in: int
     num_nodes: int
     device: torch.device
+
+    def to(self, device) -> "DeviceTables":
+        """The same tables on ``device`` (a device mesh keeps one copy on
+        each card it spans)."""
+        device = torch.device(device)
+        if device == self.device:
+            return self
+        moved = {
+            f.name: getattr(self, f.name).to(device)
+            for f in fields(self)
+            if isinstance(getattr(self, f.name), torch.Tensor)
+        }
+        return replace(self, device=device, **moved)
 
 
 def match_bits(table: np.ndarray) -> np.ndarray:

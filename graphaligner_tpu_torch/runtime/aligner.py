@@ -1,17 +1,23 @@
 """Aligning a read file end to end (reference Aligner.cpp), torch port.
 
-Port of ``graphaligner_tpu/runtime/aligner.py`` on one device: seeded
-banded mode through the batched engine (``core.batch_align``), and
-exhaustive mode (-i, no seed file) through the batched exhaustive engine
-(``core.engine``). Reads are aligned in chunks; per-read GAM and trace
-files and the final concatenated GAM are written exactly as the JAX
-package writes them. The device mesh and multi-host runs are not yet
-ported and raise.
+Port of ``graphaligner_tpu/runtime/aligner.py``: seeded banded mode
+through the batched engine (``core.batch_align``), and exhaustive mode
+(-i, no seed file) through the batched exhaustive engine (``core.engine``).
+Reads are aligned in chunks; per-read GAM and trace files and the final
+concatenated GAM are written exactly as the JAX package writes them.
+
+``mesh_axis="dp"`` splits every scan round's lanes over a device mesh
+(``parallel.mesh``; the seeded path only, as in the JAX package). With
+``process_count`` > 1 each process aligns its share of the reads (strided,
+or by the connected components of their seeds with ``shard_mode=
+"components"``) into a GAM shard with a sidecar of global read ordinals,
+and process 0 merges the shards after a barrier (``parallel.distributed``).
 """
 
 from __future__ import annotations
 
 import os
+from dataclasses import replace
 
 from .._device import get_device
 from ..core.params import AlignerParams
@@ -88,23 +94,113 @@ def align_reads(
     backend: str = "cuda",
     device_batch: int = 4096,
     mesh_axis: str = "none",
+    process_index: int | None = None,
     process_count: int | None = None,
+    shard_mode: str = "reads",
 ) -> list:
     """Align all reads on ``backend`` ("cuda", or "cpu" for the kernels'
-    plain versions); returns the list of output alignments."""
+    plain versions); returns the list of this process's output alignments.
+
+    mesh_axis "dp" runs the seeded path on a mesh of every visible card
+    (of the one CPU device for backend "cpu"). With
+    process_count > 1 (``parallel.distributed.initialize`` gives it), this
+    process aligns its shard into ``<alignment file>.shard<i>`` and process
+    0 merges every shard into the alignment file, byte-identical to one
+    process's (JAX runtime/aligner.py:88-219)."""
+    shard_info: dict = {}
+    out = _align_reads_impl(
+        params, log, output_dir, backend, device_batch, mesh_axis,
+        process_index, process_count, shard_mode, shard_info,
+    )
     if process_count is not None and process_count > 1:
-        raise NotImplementedError("multi-host alignment is not yet ported")
-    if mesh_axis and mesh_axis != "none":
-        raise NotImplementedError("the device mesh (--mesh) is not yet ported")
+        from ..parallel import distributed as _dist
+
+        if params.alignment_file:
+            # ordinal sidecar: reads with no seeds / failed alignments emit
+            # no message, so the merge orders by global read ordinal, not by
+            # shard position
+            _dist.write_shard_ordinals(
+                params.alignment_file,
+                process_index,
+                process_count,
+                shard_info.get("ids", []),
+                out,
+                ordinals=shard_info.get("ordinals"),
+            )
+        _dist.barrier()
+        if process_index == 0 and params.alignment_file:
+            n = _dist.merge_shards(params.alignment_file, process_count)
+            log(f"merged {n} alignments from {process_count} host shards")
+    return out
+
+
+def _align_reads_impl(params, log, output_dir, backend, device_batch,
+                      mesh_axis, process_index, process_count, shard_mode,
+                      shard_info) -> list:
     device = get_device(backend)
+    mesh = None
+    if mesh_axis and mesh_axis != "none":
+        from ..parallel.mesh import make_mesh
+
+        mesh = make_mesh(axis=mesh_axis,
+                         devices=[device] if device.type == "cpu" else None)
     os.makedirs(output_dir, exist_ok=True)
+    dist = process_count is not None and process_count > 1
     fastqs = load_fastq(params.fastq_file)
+    graph = None
+    if dist:
+        # each process aligns its read shard into a GAM shard of its own;
+        # process 0 merges them after the barrier (Aligner.cpp:276-314)
+        from ..parallel import distributed as _dist
+
+        if params.alignment_file:
+            params = replace(
+                params,
+                alignment_file=_dist.shard_path(params.alignment_file,
+                                                process_index),
+            )
+        # stride over the TRAVERSAL order (back to front, the reference's
+        # shared stack) so that the ordinal merge rebuilds one process's
+        # output order byte for byte
+        traversal = list(reversed(fastqs))
+        if shard_mode == "components":
+            # each process loads only ITS connected components and aligns
+            # the reads whose seeds lie there (parallel.components)
+            if not params.seed_file:
+                raise ValueError("--shard components requires a seed file (-s)")
+            from ..parallel import components as _comp
+
+            all_seeds = load_seed_hits(
+                params.seed_file, [f.seq_id for f in traversal]
+            )
+            graph, read_host = _comp.load_component_shard(
+                params.graph_file, all_seeds, process_index, process_count
+            )
+            pairs = [
+                (j, f)
+                for j, f in enumerate(traversal)
+                if read_host(f.seq_id) == process_index
+            ]
+            shard = [f for _, f in pairs]
+            ordinals = [j for j, _ in pairs]
+        else:
+            shard = _dist.shard_reads_for_host(
+                traversal, process_index, process_count
+            )
+            ordinals = list(range(process_index, len(traversal), process_count))
+        # shard read ids in traversal order and their global ordinals, for
+        # the ordinal sidecar
+        shard_info["ids"] = [f.seq_id for f in shard]
+        shard_info["ordinals"] = ordinals
+        fastqs = list(reversed(shard))
+        log(f"process {process_index}/{process_count}: {len(fastqs)} reads")
     log(f"{len(fastqs)} reads")
     seed_hits = None
     if params.seed_file:
         seed_hits = load_seed_hits(params.seed_file, [f.seq_id for f in fastqs])
-    log(f"load graph from {params.graph_file}")
-    graph = load_alignment_graph(params.graph_file)
+    if graph is None:
+        log(f"load graph from {params.graph_file}")
+        graph = load_alignment_graph(params.graph_file)
     s = graph.stats
     log(f"{s.nodes} nodes\n{s.bp}bp\n{s.edges} edges\n"
         f"{s.high_in_degree_nodes} nodes with in-degree >= 2")
@@ -115,7 +211,7 @@ def align_reads(
     else:
         alignments = _align_reads_seeded_batched(
             params, graph, fastqs, seed_hits, log, output_dir, device_batch,
-            device,
+            device, mesh,
         )
     log(f"final result has {len(alignments)} alignments")
     if params.alignment_file:
@@ -139,7 +235,11 @@ def _write_read(fastq, aln, trace, output_dir) -> None:
 
 
 def _align_reads_seeded_batched(params, graph, fastqs, seed_hits, log,
-                                output_dir, device_batch, device) -> list:
+                                output_dir, device_batch, device,
+                                mesh=None) -> list:
+    """``mesh`` splits every scan round's lanes over its devices (the
+    multi-card analogue of the reference's thread pool,
+    Aligner.cpp:275-314)."""
     from ..core.batch_align import (
         BandedBatchAligner,
         align_reads_seeded_batch,
@@ -148,9 +248,16 @@ def _align_reads_seeded_batched(params, graph, fastqs, seed_hits, log,
 
     if params.num_threads and params.num_threads > 1:
         set_host_threads(params.num_threads)
-    aligner = BandedBatchAligner(
-        graph, params.initial_bandwidth, params.ramp_bandwidth, device
-    )
+    if mesh is not None:
+        log(f"device mesh: {mesh.size} devices along '{mesh.axis}'")
+        aligner = BandedBatchAligner(
+            graph, params.initial_bandwidth, params.ramp_bandwidth,
+            mesh=mesh, mesh_axis=mesh.axis,
+        )
+    else:
+        aligner = BandedBatchAligner(
+            graph, params.initial_bandwidth, params.ramp_bandwidth, device
+        )
     alignments: list = []
     order = list(reversed(fastqs))  # the reference's back-first order
     for start in range(0, len(order), device_batch):

@@ -2,11 +2,15 @@
 
     python -m graphaligner_tpu_torch.runtime.cli -g graph.vg -f reads.fastq
         -a out.gam -t N -b band [-B rampband] (-s seeds.gam | -i)
-        [-A auggraph.vg] [--backend cuda|cpu]
+        [-A auggraph.vg] [--backend cuda|cpu] [--mesh dp]
+        [--coordinator host:port --num-processes N --process-id I
+         [--shard reads|components]]
 
 Seeded banded mode (-s) and exhaustive mode (-i, which ignores -s, as
-graphaligner_tpu's CLI does); --mesh and the multi-host flags are accepted for
-compatibility and raise "not yet ported".
+graphaligner_tpu's CLI does). --mesh dp splits the seeded path's scan
+rounds over every visible card; --coordinator starts one process of a
+multi-process run (one per host, or one per card with
+CUDA_VISIBLE_DEVICES), whose GAM shards process 0 merges into -a.
 """
 
 from __future__ import annotations
@@ -40,11 +44,29 @@ def build_parser() -> argparse.ArgumentParser:
         help="cuda (default) runs the CUDA kernels and fails without a "
         "card; cpu runs their plain torch versions",
     )
-    p.add_argument("--coordinator", default="", help="multi-host (not yet ported)")
+    p.add_argument(
+        "--coordinator",
+        default="",
+        help="multi-process: host:port of process 0's rendezvous "
+        "(torch.distributed, gloo)",
+    )
     p.add_argument("--num-processes", type=int, default=0)
     p.add_argument("--process-id", type=int, default=-1)
-    p.add_argument("--shard", default="reads", choices=["reads", "components"])
-    p.add_argument("--mesh", default="none", choices=["none", "dp"])
+    p.add_argument(
+        "--shard",
+        default="reads",
+        choices=["reads", "components"],
+        help="multi-process sharding: reads = strided read split, graph "
+        "replicated per process; components = connected-component graph "
+        "partition, reads routed by seed component (requires -s)",
+    )
+    p.add_argument(
+        "--mesh",
+        default="none",
+        choices=["none", "dp"],
+        help="split the seeded path's scan rounds data-parallel over every "
+        "visible card (one CPU device with --backend cpu)",
+    )
     return p
 
 
@@ -65,8 +87,6 @@ def main(argv=None) -> int:
     if not args.initial_full_band and not args.seed_file:
         print("either initial full band or seed file must be set", file=sys.stderr)
         return 1
-    if args.coordinator or args.num_processes > 1:
-        raise NotImplementedError("multi-host alignment is not yet ported")
     params = AlignerParams(
         graph_file=args.graph_file,
         fastq_file=args.fastq_file,
@@ -79,7 +99,25 @@ def main(argv=None) -> int:
         dynamic_row_start=args.dynamic_row_start,
         initial_full_band=args.initial_full_band,
     )
-    align_reads(params, backend=args.backend, mesh_axis=args.mesh)
+    pidx = pcount = None
+    if args.coordinator:
+        from ..parallel import distributed
+
+        pidx, pcount = distributed.initialize(
+            args.coordinator, args.num_processes, args.process_id
+        )
+    try:
+        align_reads(
+            params,
+            backend=args.backend,
+            mesh_axis=args.mesh,
+            process_index=pidx,
+            process_count=pcount,
+            shard_mode=args.shard,
+        )
+    finally:
+        if args.coordinator:
+            distributed.shutdown()
     return 0
 
 

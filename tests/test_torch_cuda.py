@@ -1006,3 +1006,35 @@ def test_longsim_without_reach_on_gpu_matches_golden(cuda, monkeypatch, bw,
         for m in mine.path.mapping:
             m.position.node_id //= 2
         assert mine == gold[r.seq_id]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("bw,ramp,golden", [(35, 0, "golden_b35"),
+                                            (5, 20, "golden_b5_B20")])
+def test_two_shard_mesh_on_one_card_matches_golden(cuda, bw, ramp, golden,
+                                                   monkeypatch):
+    """sim on a mesh of two shards on one card ([cuda:0, cuda:0]): every
+    round split in two equal halves, each scanned and walked on its own,
+    the goldens byte for byte with no host fallback."""
+    from graphaligner_tpu_torch.core import batch_align as ba
+    from graphaligner_tpu_torch.io import stream, vg
+    from graphaligner_tpu_torch.ops import banded_cell as k1
+    from graphaligner_tpu_torch.ops import walk_moves as k2
+    from graphaligner_tpu_torch.parallel import make_mesh
+
+    monkeypatch.setenv("GA_NO_FALLBACK", "1")
+    graph, reads, seeds = _sim()
+    card = torch.device("cuda", torch.cuda.current_device())
+    mesh = make_mesh(devices=[card, card])
+    n1, n2 = k1.LAUNCHES, k2.LAUNCHES
+    aligner = ba.BandedBatchAligner(graph, bw, ramp, mesh=mesh)
+    res = ba.align_reads_seeded_batch(graph, aligner, reads, seeds)
+    assert k1.LAUNCHES > n1 and k2.LAUNCHES > n2
+    assert min(aligner.shard_bytes) > 0
+    gold = {a.name: a for a in
+            stream.read_messages(str(SIM / golden / "out.gam"), vg.Alignment)}
+    for r in reads:
+        aln = vg.Alignment.decode(res[r.seq_id].alignment.encode())
+        for m in aln.path.mapping:
+            m.position.node_id //= 2
+        assert aln == gold[r.seq_id]

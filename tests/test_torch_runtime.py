@@ -6,8 +6,8 @@ port.
   exhaustive mode (-i).
 - In a subprocess where ``import jax`` and ``import graphaligner_tpu`` both
   fail, the port still aligns smallexample through its CLI, seeded and -i,
-  and the small multi-allelic corpus (in-degree 8) seeded: it needs
-  neither.
+  and the small multi-allelic corpus (in-degree 8) seeded, and imports its
+  ``parallel`` package: it needs neither.
 - Asking for ``cuda`` with no GPU raises; so does every unported route.
 """
 
@@ -74,6 +74,9 @@ import sys
 sys.modules["jax"] = None
 sys.modules["graphaligner_tpu"] = None
 sys.path.insert(0, sys.argv[1])
+import graphaligner_tpu_torch.parallel.components  # noqa: F401
+import graphaligner_tpu_torch.parallel.distributed  # noqa: F401
+import graphaligner_tpu_torch.parallel.mesh  # noqa: F401
 from graphaligner_tpu_torch.runtime import cli
 rc = cli.main(sys.argv[2:])
 loaded = [m for m in sys.modules if sys.modules[m] is not None and (
@@ -158,20 +161,32 @@ def test_cuda_tensor_without_gpu_raises_in_kernel_wrapper(monkeypatch):
     assert k1.LAUNCHES == n0
 
 
-def test_unported_routes_raise(tmp_path):
+def test_unported_routes_raise(tmp_path, monkeypatch):
+    """The mesh and the multi-process flags run now (tests/
+    test_torch_parallel.py, test_torch_multihost.py); what they cannot do
+    raises instead of falling back: a mesh on ``cuda`` with no card, a
+    component shard without seeds, a process id outside the group."""
     from graphaligner_tpu_torch.core.params import AlignerParams
+    from graphaligner_tpu_torch.parallel import distributed, make_mesh
     from graphaligner_tpu_torch.runtime import cli
     from graphaligner_tpu_torch.runtime.aligner import align_reads
 
+    monkeypatch.chdir(tmp_path)
     sim = FIX / "sim"
     base = ["-g", str(sim / "bubbles.vg"), "-f", str(sim / "sim.fastq"),
-            "-b", "35", "--backend", "cpu"]
-    with pytest.raises(NotImplementedError, match="not yet ported"):
-        cli.main(base + ["-s", str(sim / "seeds.gam"), "--mesh", "dp"])
+            "-b", "35"]
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="cuda"):
+        cli.main(base + ["-s", str(sim / "seeds.gam"), "--mesh", "dp",
+                         "--backend", "cuda"])
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        make_mesh()
     params = AlignerParams(graph_file=str(sim / "bubbles.vg"),
                            fastq_file=str(sim / "sim.fastq"),
-                           seed_file=str(sim / "seeds.gam"),
-                           initial_bandwidth=35)
-    with pytest.raises(NotImplementedError, match="multi-host"):
-        align_reads(params, backend="cpu", process_count=2)
-
+                           initial_bandwidth=35, initial_full_band=True)
+    with pytest.raises(ValueError, match="seed file"):
+        align_reads(params, log=lambda *a: None, backend="cpu",
+                    process_index=0, process_count=2,
+                    shard_mode="components")
+    with pytest.raises(ValueError, match="process-id"):
+        distributed.initialize("localhost:1", 2, 2)
