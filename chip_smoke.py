@@ -43,6 +43,15 @@ GA_NO_FALLBACK=1:
   package's goldens; its wide K1 call with the most lanes and its wide K2
   calls are held bit for bit against their plain versions (K2 at Bb=1,
   its plain moves decoded to the run's traces), and it is profiled once;
+- the same seeded path past 32 in-neighbours (K2's chunks of 32, its
+  16-bit move codes past 64, the projection at out-degree 80): converging
+  x10 or more (tests/fixtures/torch/converging_b35: reads of about 10 kb
+  on a graph whose converging trees join 33 to 80 leaves into one
+  segment, in-degree 80) at -b 35 and -b 5 -B 20, with reach tables where
+  ensure_reach builds one and without, against the JAX package's goldens,
+  each launch shape's shared bytes and lanes a block printed; one
+  recorded call each of K1, K2 and the projection is held bit for bit
+  against its plain version;
 - the parallel modes (``graphaligner_tpu_torch.parallel``): longsim x10 at
   -b 35 on a mesh of two shards on the one card ([cuda:0, cuda:0]: every
   round split in two halves, each scanned and walked on its own), against
@@ -107,6 +116,7 @@ import sys
 import tempfile
 import time
 from concurrent.futures import ThreadPoolExecutor
+from types import SimpleNamespace
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 FIX = os.path.join(ROOT, "tests", "fixtures")
@@ -121,6 +131,11 @@ HUGE_OVER_NM = ("read_1635367824", "read_604779437")
 # is, against the JAX package's goldens at both configs
 MA_CORPORA = (("multiallelic x10 -b 35", 35, 0, "multiallelic_b35"),
               ("multiallelic x10 -b 5 -B 20", 5, 20, "multiallelic_b5_B20"))
+# the in-degree-80 corpus (converging trees of 33 to 80 leaves), tiled to at
+# least CV_READS reads, against the JAX package's goldens at both configs
+CV_CORPORA = (("converging x{} -b 35", 35, 0, "converging_b35"),
+              ("converging x{} -b 5 -B 20", 5, 20, "converging_b5_B20"))
+CV_READS = 1000
 # the big-graph corpus: bench_biggraph.py's graph (tests/biggraph_util.py),
 # past the 2,097,150 nodes from which the scan projects without reach
 BIG_SEGMENTS = 1_050_000
@@ -153,7 +168,9 @@ def fail(msg: str) -> None:
     sys.exit(1)
 
 
-def load_corpus(graph_file, reads_file, seeds_file, tile=1):
+def load_corpus(graph_file, reads_file, seeds_file, tile=1, drop=()):
+    """(graph, reads, seeds, tiled name -> read name), the reads named in
+    ``drop`` left out."""
     from graphaligner_tpu_torch.runtime.aligner import (
         load_alignment_graph,
         load_fastq,
@@ -161,7 +178,7 @@ def load_corpus(graph_file, reads_file, seeds_file, tile=1):
     )
 
     graph = load_alignment_graph(graph_file)
-    base = load_fastq(reads_file)
+    base = [r for r in load_fastq(reads_file) if r.seq_id not in drop]
     base_seeds = load_seed_hits(seeds_file, [r.seq_id for r in base])
     if tile == 1:
         return graph, base, base_seeds, {r.seq_id: r.seq_id for r in base}
@@ -236,6 +253,7 @@ def run_corpus(device, graph, reads, seeds, bw, ramp, window=None,
     wall = time.time() - t0
     info = {"set-up": setup, "Cm": aligner.Cm, "held": held,
             "window": aligner.LONG_WINDOW,
+            "reach": aligner._dt.reach is not None,
             "peak": torch.cuda.max_memory_allocated(device) - held}
     tiers, tier = [], aligner
     while tier is not None:
@@ -461,7 +479,8 @@ def k2_work(args, outs, decode, traces):
     sk_out = outs[2][0].cpu().numpy().astype(np.int64)
     walked = np.where(used > 0, sk_in - sk_out + 1, 0)
     ops = int(used.sum()) * K2_OPS_STEP + int(walked.sum()) * Nm * K2_OPS_SLOT
-    moved = 4 * 19 * len(used) + 4 * int((used // 8 + 1 + 18).sum())
+    per = 32 // decode[1].get("code_bits", 4) if decode is not None else 8
+    moved = 4 * 19 * len(used) + 4 * int((used // per + 1 + 18).sum())
     traced = np.zeros(len(used), dtype=bool)
     if decode is not None:
         (lanes, _, _, node_start, node_end, pos2node, in_nbrs, *_), _ = decode
@@ -519,7 +538,7 @@ def k2_decode(moves, used, decode):
     from graphaligner_tpu_torch.core.batch_align import native
 
     dargs, dkw = decode
-    per = 4 if dkw.get("byte_codes") else 8
+    per = 32 // dkw.get("code_bits", 4)
     rows = min(moves.shape[0], int(used.max()) // per + 1)
     return native.decode_moves_batch(
         np.ascontiguousarray(moves[:rows].cpu().numpy()).view(np.uint32),
@@ -1555,6 +1574,229 @@ def run_wide_path(device, card):
     return launches, rec, ma
 
 
+class ShapeRecorder:
+    """Counts the calls of K1, K2 and the projection by launch shape
+    (each K1 and K2 call one launch, each projection call two), for the
+    shared bytes and lanes a block of each."""
+
+    def __init__(self):
+        import graphaligner_tpu_torch.core.batch_align as ba
+        import graphaligner_tpu_torch.core.engine_banded as eb
+
+        self.shapes = {}
+        self._mods = (eb, ba)
+        self._orig = (eb.slice_cells, ba.walk_moves, eb.project_band)
+
+        def count(key):
+            self.shapes[key] = self.shapes.get(key, 0) + 1
+
+        def k1(*args, **kw):
+            count(("K1", args[5].shape[0], args[0].shape[0],
+                   args[14].shape[1]))
+            return self._orig[0](*args, **kw)
+
+        def k2(*args, **kw):
+            count(("K2", args[0].shape[2], args[1].shape[1],
+                   args[6].shape[0], kw["K_in"]))
+            return self._orig[1](*args, **kw)
+
+        def proj(*args, **kw):
+            count(("projection", args[0].shape[1], args[6].shape[1]))
+            return self._orig[2](*args, **kw)
+
+        eb.slice_cells, ba.walk_moves, eb.project_band = k1, k2, proj
+
+    def close(self):
+        eb, ba = self._mods
+        eb.slice_cells, ba.walk_moves, eb.project_band = self._orig
+
+    def report(self, card):
+        """One line a launch shape: its calls, lanes a block and shared
+        bytes, as the wrappers size them."""
+        from graphaligner_tpu_torch.ops import banded_cell as k1
+        from graphaligner_tpu_torch.ops import project_band as pb
+        from graphaligner_tpu_torch.ops import walk_moves as k2
+
+        for key, n in sorted(self.shapes.items()):
+            if key[0] == "K1":
+                _, Cm, Nm, K_in = key
+                LB = k1.slice_lanes(Nm, Cm, K_in)
+                what = (f"K1 wide at Cm={Cm} Nm={Nm} K_in={K_in}: {n} "
+                        f"launches, {LB} lanes a block, "
+                        f"{k1.slice_smem(Nm, Cm, LB, K_in)} B shared")
+            elif key[0] == "K2":
+                _, Cm, Nm, R, K_in = key
+                what = (f"K2 wide at Cm={Cm} Nm={Nm} K_in={K_in}: {n} "
+                        f"launches, one lane a block, "
+                        f"{k2.smem_bytes(Cm, Nm, R, K_in)} B shared "
+                        f"({32 // k2.codes_per_word(K_in)}-bit move codes)")
+            else:
+                _, Nm, K_out = key
+                LB = pb.PROJ_LANES
+                while LB > 1 and pb.project_smem(Nm, K_out, LB) > \
+                        pb.SMEM_LIMIT:
+                    LB //= 2
+                what = (f"projection at Nm={Nm} K_out={K_out}: {2 * n} "
+                        f"launches ({n} calls), {LB} lanes a block, "
+                        f"{pb.project_smem(Nm, K_out, LB)} B shared")
+            print(f"  {what} [{card}]", flush=True)
+
+
+def converging_codes(rec):
+    """The widest in-neighbour index of any H or D through an in-neighbour
+    among the recorded K2 calls' moves (16-bit codes past 64
+    in-neighbours, bytes up to 64)."""
+    import torch
+
+    from graphaligner_tpu_torch.ops import walk_moves as k2
+
+    widest = -1
+    for args, kw, outs, _, _ in rec.k2:
+        bits = k2.code_bits(kw["K_in"])
+        h0, d0 = k2.move_bases(kw["K_in"])
+        span = h0 if bits > 4 else 4  # the in-neighbours a code range holds
+        m = outs[0].to(torch.int64) & 0xFFFFFFFF
+        for j in range(32 // bits):
+            c = (m >> (bits * j)) & ((1 << bits) - 1)
+            for base in (h0, d0):
+                k = torch.where((c >= base) & (c < base + span), c - base, -1)
+                widest = max(widest, int(k.max()))
+    return widest
+
+
+def run_converging_path(device, card):
+    """The seeded path on a graph of in-degree past 32 (K1's and K2's wide
+    routes over in-neighbours in chunks of 32, 16-bit move codes past 64,
+    the projection at out-degree past 32): the converging corpus
+    (tests/fixtures/torch/converging_*, converging trees of 33 to 80
+    leaves) at -b 35 and -b 5 -B 20, its reads that the JAX package aligned
+    on its device tiled to at least CV_READS, with reach tables where
+    ensure_reach builds one and under GA_REACH_MAXN=0, against the JAX
+    package's goldens under GA_NO_FALLBACK=1, every count set to 0 before
+    and read after; then, outside the count, the reads it sent to its host
+    oracle (their lanes pass 32 band nodes at every tier), which must
+    raise. Prints each launch shape's shared bytes and lanes a block.
+    Records the K1 and K2 calls of the first run and the projection calls
+    of the first run without reach tables. Returns (launches, the
+    Recorder, the projection calls)."""
+    from graphaligner_tpu_torch.core import batch_align as ba
+    from graphaligner_tpu_torch.io import load_fastq
+    from graphaligner_tpu_torch.ops import banded_cell as k1
+    from graphaligner_tpu_torch.ops import project_band as pb
+    from graphaligner_tpu_torch.ops import walk_moves as k2
+
+    corpora = []
+    for name, bw, ramp, golden in CV_CORPORA:
+        d = f"{FIX}/torch/{golden}"
+        with open(f"{d}/out_host.txt") as f:
+            host = f.read().split()
+        device_reads = [r.seq_id for r in load_fastq(f"{d}/reads.fastq")
+                        if r.seq_id not in host]
+        tile = -(-CV_READS // len(device_reads))
+        corpus = load_corpus(f"{d}/graph.gfa", f"{d}/reads.fastq",
+                             f"{d}/seeds.gam", tile=tile, drop=host)
+        corpora.append((name.format(tile), bw, ramp, golden, corpus, host))
+    k1.LAUNCHES = k1.LAUNCHES_WIDE = k2.LAUNCHES = k2.LAUNCHES_WIDE = 0
+    pb.LAUNCHES = 0
+    fb0 = ba.host_fallback_count()
+    rec = Recorder()
+    prec = ProjRecorder()
+    shapes = ShapeRecorder()
+    modes = [True, False]
+    try:
+        while modes:
+            reach = modes.pop(0)
+            if not reach:
+                os.environ["GA_REACH_MAXN"] = "0"
+            try:
+                for name, bw, ramp, golden, corpus, host in corpora:
+                    graph, reads, seeds, names = corpus
+                    rec.on = rec.k1 is None
+                    prec.corpus = None if reach or prec.calls else name
+                    results, wall, cells, info = run_corpus(
+                        device, graph, reads, seeds, bw, ramp)
+                    if reach and not info["reach"]:
+                        # ensure_reach rejected the graph: every band is
+                        # projected by the kernel, and the phase runs once
+                        print(f"{name}: ensure_reach builds no reach table "
+                              "for this graph; every band is projected by "
+                              "the kernel, so the phase runs once",
+                              flush=True)
+                        modes = []
+                        reach = False
+                    tag = "" if reach else ", no reach table"
+                    n_ok = check_golden(
+                        name + tag, reads, names, results,
+                        f"{FIX}/torch/{golden}/out.gam")
+                    bp = sum(len(r.sequence) for r in reads)
+                    print(f"{name}{tag} ({len(reads) // len(set(names.values()))}"
+                          f" x {len(set(names.values()))} reads, the JAX "
+                          f"package's host oracle took {len(host)} others): "
+                          f"{n_ok}/{len(reads)} aligned, "
+                          f"byte-identical to the JAX golden; "
+                          f"{len(reads) / wall:.1f} reads/s, "
+                          f"{cells / wall / 1e6:.1f} Mcells/s, {bp / 1e6:.2f} "
+                          f"Mbp in {wall:.2f} s (set-up {info['set-up']:.3f}"
+                          f" s), peak device memory {info['peak'] / 2**20:.0f}"
+                          f" MiB above the set-up [{card}]", flush=True)
+            finally:
+                os.environ.pop("GA_REACH_MAXN", None)
+    finally:
+        shapes.close()
+        prec.close()
+        rec.close()
+    launches = {"slice_cells_wide": k1.LAUNCHES_WIDE,
+                "walk_moves_wide": k2.LAUNCHES_WIDE,
+                "project_band": pb.LAUNCHES, "slice_cells": k1.LAUNCHES,
+                "walk_moves": k2.LAUNCHES}
+    fallbacks = ba.host_fallback_count() - fb0
+    k_in = max(key[3] for key in shapes.shapes if key[0] == "K1")
+    widest = converging_codes(rec)
+    print(f"converging path launches (in-degree {k_in}): K1 wide "
+          f"{launches['slice_cells_wide']}, K2 wide "
+          f"{launches['walk_moves_wide']}, projection "
+          f"{launches['project_band']}, narrow K1 {k1.LAUNCHES} and K2 "
+          f"{k2.LAUNCHES}; host-fallback lanes {fallbacks}; the first run's "
+          f"walks moved through in-neighbours up to index {widest}",
+          flush=True)
+    shapes.report(card)
+    if min(launches["slice_cells_wide"], launches["walk_moves_wide"],
+           launches["project_band"]) < 1:
+        fail(f"a kernel of the converging path never launched: {launches}")
+    if k1.LAUNCHES or k2.LAUNCHES:
+        fail(f"a narrow route ran on a graph of in-degree {k_in}: "
+             f"{launches}")
+    if k_in <= 64 or widest < 64:
+        fail(f"the converging path did not walk past 64 in-neighbours "
+             f"(in-degree {k_in}, widest move through in-neighbour "
+             f"{widest})")
+    if fallbacks:
+        fail(f"{fallbacks} lanes fell back to the host oracle")
+    if rec.k1 is None or not rec.k2 or not prec.calls:
+        fail("the converging phase's kernel arguments were not recorded")
+    # the reads the JAX package's host oracle took: under GA_NO_FALLBACK=1
+    # they must raise, not be realigned on the host
+    for name, bw, ramp, golden, corpus, host in corpora:
+        if not host:
+            continue
+        d = f"{FIX}/torch/{golden}"
+        graph, reads, seeds, _ = load_corpus(
+            f"{d}/graph.gfa", f"{d}/reads.fastq", f"{d}/seeds.gam")
+        try:
+            run_corpus(device, graph, [r for r in reads if r.seq_id in host],
+                       seeds, bw, ramp)
+        except RuntimeError as e:
+            if not (str(e).startswith("GA_NO_FALLBACK")
+                    and any(repr(r) in str(e) for r in host)):
+                raise
+            print(f"{name}, the {len(host)} reads the JAX package sent to "
+                  f"its host oracle ({', '.join(host)}) untiled: raised under "
+                  f"GA_NO_FALLBACK=1 ({e})", flush=True)
+        else:
+            fail(f"{name}: the reads past 32 band nodes did not raise")
+    return launches, rec, next(iter(prec.calls.values()))
+
+
 def pb_work(args, outs, log):
     """(bytes, int32 operations) of one project_band call, counted from the
     trips its lanes need (the plain version's trip log: a live lane up to
@@ -1580,36 +1822,69 @@ def pb_work(args, outs, log):
     return moved, ops
 
 
+def pb_check(args, what):
+    """A recorded projection call against project_band_plain: ids and over
+    bit for bit, or fail. Returns (outputs, the plain version's trip log,
+    its ms, the largest difference)."""
+    import torch
+
+    from graphaligner_tpu_torch.ops import project_band as pb
+
+    got = pb.project_band(*args)
+    log = []
+    want, plain_ms = timed(lambda: pb.project_band_plain(*args, trip_log=log))
+    err = 0
+    for g, w, name in zip(got, want, ("ids", "over")):
+        diff = int((g.long() - w.long()).abs().max())
+        err = max(err, diff)
+        if not torch.equal(g, w):
+            fail(f"project_band {name} differs from its plain version on "
+                 f"{what} (max {diff})")
+    return got, log, plain_ms, err
+
+
+def pb_timed(args, rate, card, what):
+    """A recorded projection call held against its plain version, timed,
+    with its bound: (max abs err, ms, plain ms, bound ms, bound by)."""
+    from graphaligner_tpu_torch.ops import project_band as pb
+
+    got, log, plain_ms, err = pb_check(args, what)
+    # back to back, the wrapper's host-side launch cost sets the events'
+    # interval: the kernels' own time is the profiler's device time
+    ev_ms = cuda_ms(lambda: pb.project_band(*args), 20)
+    ms = device_ms(lambda: pb.project_band(*args), 20) or ev_ms
+    moved, ops = pb_work(args, got, log)
+    bms, by = bound(moved, ops, rate)
+    B, Nm = args[0].shape
+    trips = max(i + 1 for i, (_, need) in enumerate(log) if bool(need.any()))
+    print(f"project_band vs plain on {what} at B={B} Nm={Nm} "
+          f"K_out={args[6].shape[1]}: ids and over bit-identical; {trips} "
+          f"trips, {int(got[1].sum())} over lanes; kernel {ms:.4f} ms of "
+          f"device time (two launches and a memset; {ev_ms:.4f} ms between "
+          f"CUDA events a call back to back), plain {plain_ms:.2f} ms; bound "
+          f"{bms:.5f} ms by {by} ({moved} B, {ops} int32 ops), share "
+          f"{bms / ms:.4f} [{card}]", flush=True)
+    return err, ms, plain_ms, bms, by
+
+
+def pb_slots(args):
+    """The previous-band slots a projection call reads."""
+    return int((args[0] < INT32_MAX).sum())
+
+
 def compare_pb(calls, rate, card):
     """The projection kernel against project_band_plain on recorded calls:
     every call of the sim corpora, then the heaviest longsim x10 call (the
     most previous-band slots), the call with the most over lanes beside
     live ones, and the heaviest big-graph call (its bands' ranks past
     2,097,151), bit for bit; the last three timed, with their bounds."""
-    import torch
-
     from graphaligner_tpu_torch.ops import project_band as pb
 
     err = 0
-
-    def check(args, what):
-        nonlocal err
-        got = pb.project_band(*args)
-        log = []
-        want, plain_ms = timed(
-            lambda: pb.project_band_plain(*args, trip_log=log))
-        for g, w, name in zip(got, want, ("ids", "over")):
-            diff = int((g.long() - w.long()).abs().max())
-            err = max(err, diff)
-            if not torch.equal(g, w):
-                fail(f"project_band {name} differs from its plain version "
-                     f"on {what} (max {diff})")
-        return got, log, plain_ms
-
     n = 0
     for name in ("sim -b 35", "sim -b 5 -B 20"):
         for args in calls[name]:
-            check(args, f"a {name} call")
+            err = max(err, pb_check(args, f"a {name} call")[3])
             n += 1
     print(f"project_band vs plain: all {n} calls of sim -b 35 and -b 5 -B 20 "
           f"without a reach table bit-identical", flush=True)
@@ -1620,10 +1895,11 @@ def compare_pb(calls, rate, card):
         for args in calls["sim -b 35"]:
             pb.I_PROJ = cap
             try:
-                (_, over), _, _ = check(
+                (_, over), _, _, e = pb_check(
                     args, f"a sim -b 35 call at a cap of {cap} trips")
             finally:
                 pb.I_PROJ = 32
+            err = max(err, e)
             _, over_full = pb.project_band_plain(*args)
             capped += int((over & ~over_full).sum())
         if capped < 1:
@@ -1632,10 +1908,7 @@ def compare_pb(calls, rate, card):
               f"{len(calls['sim -b 35'])} calls of sim -b 35 bit-identical, "
               f"{capped} lanes over by the cap alone", flush=True)
 
-    def slots(a):
-        return int((a[0] < INT32_MAX).sum())
-
-    main = max(calls["longsim x10 -b 35"], key=slots)
+    main = max(calls["longsim x10 -b 35"], key=pb_slots)
     best, best_n = None, 0
     for cs in calls.values():
         for a in cs:
@@ -1645,7 +1918,7 @@ def compare_pb(calls, rate, card):
                 best, best_n = a, k
     if best is None:
         fail("no recorded projection call had over lanes beside live ones")
-    big = max(calls["biggraph -b 35"], key=slots)
+    big = max(calls["biggraph -b 35"], key=pb_slots)
     ranks = big[8][big[0].clamp(0, big[8].shape[0] - 1)][big[0] < INT32_MAX]
     if int(ranks.max()) <= INT32_MAX // 1024:
         fail("the big-graph call's bands have no rank past 2,097,151")
@@ -1656,27 +1929,10 @@ def compare_pb(calls, rate, card):
                            "beside live ones"),
             ("big", big, "the heaviest big-graph call (ranks to "
                          f"{int(ranks.max()):,})")):
-        got, log, plain_ms = check(args, what)
-        # back to back, the wrapper's host-side launch cost sets the events'
-        # interval: the kernels' own time is the profiler's device time
-        ev_ms = cuda_ms(lambda: pb.project_band(*args), 20)
-        ms = device_ms(lambda: pb.project_band(*args), 20) or ev_ms
-        moved, ops = pb_work(args, got, log)
-        bms, by = bound(moved, ops, rate)
-        B, Nm = args[0].shape
-        trips = max(i + 1 for i, (_, need) in enumerate(log)
-                    if bool(need.any()))
-        print(f"project_band vs plain on {what} at B={B} Nm={Nm} "
-              f"K_out={args[6].shape[1]}: ids and over bit-identical; "
-              f"{trips} trips, {int(got[1].sum())} over lanes; kernel "
-              f"{ms:.4f} ms of device time (two launches and a memset; "
-              f"{ev_ms:.4f} ms between CUDA events a call back to back), "
-              f"plain "
-              f"{plain_ms:.2f} ms; bound {bms:.5f} ms by {by} ({moved} B, "
-              f"{ops} int32 ops), share {bms / ms:.4f} [{card}]", flush=True)
-        out[key] = (ms, plain_ms, bms, by)
-    ms, plain_ms, bms, by = out["main"]
-    return (err, ms, plain_ms, bms, by), out["big"][0]
+        out[key] = pb_timed(args, rate, card, what)
+        err = max(err, out[key][0])
+    _, ms, plain_ms, bms, by = out["main"]
+    return (err, ms, plain_ms, bms, by), out["big"][1]
 
 
 def run_cli_processes(tmp, argv, n, timeout=300):
@@ -1942,6 +2198,9 @@ def main() -> int:
     wide_launches, wrec, ma = run_wide_path(device, card)
     for name in ("slice_cells_wide", "walk_moves_wide"):
         launches[name] = wide_launches[name]
+    cv_launches, cvrec, cv_pb = run_converging_path(device, card)
+    for name in ("slice_cells_wide", "walk_moves_wide", "project_band"):
+        launches[name] += cv_launches[name]
 
     # exhaustive mode (-i): K3's two routes, through align_reads
     k3.LAUNCHES_WAVEFRONT = 0
@@ -2024,6 +2283,23 @@ def main() -> int:
     results["walk_moves_wide"] = compare_k2(wrec, rate, "walk_moves (wide)")
     results["project_band"], big_ms = compare_pb(pb_calls, rate, card)
     del pb_calls
+    # the converging phase (in-degree 80): one recorded call of each
+    cv_k_in = cvrec.k1[0][14].shape[1]
+    cv_errs = [
+        compare_k1(cvrec.k1, rate, "the converging phase's widest call "
+                   f"(K_in {cv_k_in})")[0],
+        compare_k2(SimpleNamespace(k2=[max(cvrec.k2,
+                                           key=lambda r: r[0][0].numel())]),
+                   rate, f"walk_moves (wide, K_in {cv_k_in})")[0],
+        pb_timed(max(cv_pb, key=pb_slots), rate, card, "the converging "
+                 "phase's heaviest call (K_out "
+                 f"{cv_pb[0][6].shape[1]})")[0],
+    ]
+    del cvrec, cv_pb
+    for name, e in zip(("slice_cells_wide", "walk_moves_wide",
+                        "project_band"), cv_errs):
+        err, *rest = results[name]
+        results[name] = (max(err, e), *rest)
     print(f"biggraph -b 35: projection {big_ms:.4f} ms a slice at its "
           f"heaviest call, {big[0]} launches (two a slice) over {big[1]} "
           f"slices [{card}]",

@@ -14,9 +14,10 @@ getSqrtSlices control loop (GraphAligner.h:2571-2856) is split as there:
 The walk starts are decided on the device (unique minima and same-node
 ties) or by the native band-order replay (multi-node ties); the backtrace
 runs as kernel K2 (``ops.walk_moves``) and the native decoder turns its
-move codes back into traces. On graphs of in-degree 5 to 32 the JAX
+move codes back into traces. On graphs of in-degree past 4 the JAX
 package walks with its XLA walk (``backtrace_device.walk_batch``) and the
-port with K2's wide route (byte move codes), under walk_batch's budget:
+port with K2's wide route (byte move codes up to in-degree 64, 16-bit ones
+past), under walk_batch's budget:
 ``_quantize_k`` of the longest walked table over the whole walk, times 80,
 plus 64 steps a lane. Lanes that overflow a capacity tier retry on
 the 2x tier; what still fails falls back to the host oracle per lane
@@ -42,9 +43,13 @@ shard that holds its last accepted slice, on that shard's device, with the
 whole walk group's table length and step budget (a shard's own longest
 table could give its lanes another budget, and fail one that passes
 unsharded).
-Not ported (it raises NotImplementedError): in-degree past 32, and the
-long-read walk at in-degree past 4, which the JAX package lacks too (its
-long walk is the Pallas kernel, which asserts K_in <= 4).
+Any in-degree runs whose kernels' tables fit the card's shared memory
+(``slice_smem``, ``smem_bytes``, ``project_smem``); a launch past that
+raises NotImplementedError naming the in-degree, Cm, Nm and bytes. Lanes
+whose bands pass 32 nodes go to the host oracle, as in the JAX package.
+Not ported (it raises NotImplementedError): the long-read walk at
+in-degree past 4, which the JAX package lacks too (its long walk is the
+Pallas kernel, which asserts K_in <= 4).
 """
 
 from __future__ import annotations
@@ -60,9 +65,9 @@ from ..graph.alignment_graph import AlignmentGraph
 from ..io import native
 from ..ops import banded_cell as _k1
 from ..ops import walk_moves as _k2
-from ..ops.banded_cell import K_IN_MAX
 from ..ops.walk_moves import (
     NIBBLE_K_IN,
+    code_bits,
     codes_per_word,
     max_window_slices,
     moves_walk_fits,
@@ -373,11 +378,6 @@ class BandedBatchAligner:
         self.mesh_axis = mesh_axis
         self.device = self.shard_devices[0]
         self.tables = _tables if _tables is not None else build_graph_tables(graph)
-        if self.tables.k_in > K_IN_MAX:
-            raise NotImplementedError(
-                f"graphs of in-degree {self.tables.k_in} > {K_IN_MAX} are "
-                "not yet ported"
-            )
         self.initial_bandwidth = int(initial_bandwidth)
         self.ramp_bandwidth = int(ramp_bandwidth)
         ew = max(self.initial_bandwidth, self.ramp_bandwidth) + WORD_SIZE
@@ -840,7 +840,7 @@ class BandedBatchAligner:
         out_w, out_r, n_out = native.decode_moves_batch(
             moves, cols_a, sw_a, sr_a, node_start64, node_end64, pos2node,
             in_nbrs, cap, _host_threads(),
-            byte_codes=self.tables.k_in > NIBBLE_K_IN,
+            code_bits=code_bits(self.tables.k_in),
         )
         for j, (_, i) in enumerate(live):
             m = int(n_out[j])

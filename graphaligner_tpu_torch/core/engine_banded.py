@@ -25,8 +25,8 @@ arrays keep the batch as the last axis ([Nm, B], [Cm, B], [7, Cm, B]).
 Nothing in the loop reads back to the host, so the host queues the slices
 ahead of the card.
 The JAX package's XLA cell pass (``cell_pass_xla``, what it runs past 5
-in-neighbours) is K1's wide route here: K1 takes graphs of in-degree up to
-32 and returns each slot's predecessor tables as ``pred_words(K_in)``
+in-neighbours) is K1's wide route here: K1 takes graphs of any in-degree
+whose tables fit its shared memory and returns each slot's predecessor tables as ``pred_words(K_in)``
 int32 planes (``ops.banded_cell``), so ``pred_tab`` and ``pred_prev`` are
 [S, P * Nm, B], plane p at rows p * Nm to (p + 1) * Nm; at P = 1 they are
 the JAX package's. On a device mesh (``banded_scan_shards``) the lanes split into contiguous
@@ -46,7 +46,7 @@ from collections.abc import Mapping
 import numpy as np
 import torch
 
-from ..ops.banded_cell import K_IN_MAX, slice_cells
+from ..ops.banded_cell import slice_cells
 from ..ops.project_band import project_band
 from ..ops.wordops import M32, i32
 from .params import WORD_SIZE
@@ -92,11 +92,10 @@ def banded_scan(
     Read codes must then be pre-shifted so step t's rows sit at
     read_codes[:, t*64:(t+1)*64]."""
     dev = dt.device
-    K_in = dt.in_nbrs.shape[1]
-    if Nm > 32 or K_in > K_IN_MAX:
+    if Nm > 32:
         raise NotImplementedError(
-            "banded scan beyond the cell kernel's packing (Nm <= 32, "
-            f"K_in <= {K_IN_MAX}) is not yet ported"
+            "banded scan beyond the cell kernel's packing (Nm <= 32) is not "
+            "yet ported"
         )
     N_nodes = dt.num_nodes
     read_codes = torch.as_tensor(read_codes, device=dev)

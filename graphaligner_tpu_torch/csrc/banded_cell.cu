@@ -57,7 +57,7 @@
 // over many SMs and keep the divergence between start and chain cells to 8
 // lanes a warp.
 //
-// The wide route (slice_cells_kernel<true>, 6 to 32 in-neighbours) is the
+// The wide route (slice_cells_kernel<true>, past 5 in-neighbours) is the
 // JAX package's XLA cell pass (graphaligner_tpu/core/engine_banded.py::
 // cell_pass_xla), which it runs past 5 in-neighbours and which merges the
 // same predecessors in the same order. Its only change is the width of
@@ -65,7 +65,10 @@
 // pred_tab and pred_prev (plane p holds in-neighbours 5p to 5p + 4, 6 bits
 // each), kept as 2 (NP - 1) more shared slot tables after the node-end
 // buffer and written out as nm rows 4 .. 4 + 2 NP - 1. At NP = 1 the
-// template is the narrow route, whose plane loops run once.
+// template is the narrow route, whose plane loops run once. No bound on
+// K_in but shared memory: a slot's field stays 6 bits at any in-degree (a
+// 5-bit slot, Nm <= 32, and its valid bit), every loop over in-neighbours
+// runs to K_in, and the caller sizes LB so that the planes fit.
 #include <cuda_runtime.h>
 
 #include "wordops.cuh"
@@ -486,9 +489,9 @@ extern "C" int ga_slice_cells(SLICE_CELLS_PARAMS) {
   return launch_slice_cells<false>(SLICE_CELLS_ARGS);
 }
 
-// the wide route: 6 to 32 in-neighbours, ceil(K_in / 5) pred planes
+// the wide route: past 5 in-neighbours, ceil(K_in / 5) pred planes
 extern "C" int ga_slice_cells_wide(SLICE_CELLS_PARAMS) {
-  if (Nm < 1 || Nm > 32 || K_in < 6 || K_in > 32 || LB < 1 || LB > 32 ||
+  if (Nm < 1 || Nm > 32 || K_in < 6 || LB < 1 || LB > 32 ||
       Lc < 64)
     return (int)cudaErrorInvalidValue;
   return launch_slice_cells<true>(SLICE_CELLS_ARGS);

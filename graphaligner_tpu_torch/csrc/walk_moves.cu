@@ -1,4 +1,4 @@
-// Backtrace walk emitting 4-bit move codes (kernel K2) for Hopper, sm_90a.
+// Backtrace walk emitting packed move codes (kernel K2) for Hopper, sm_90a.
 //
 // Replaces graphaligner_tpu/ops/pallas/walk_moves.py::walk_moves_kernel:
 // from each lane's start (slice, slot, offset, score) the walk descends
@@ -56,18 +56,25 @@
 // step of the longest lane (first design: 7.915 and 9.006 ms), 9.902 ms for
 // 128 lanes at Cm=2304; NVIDIA H100 80GB HBM3, 700 W, chip_smoke.py.
 //
-// The wide route (walk_moves_kernel<true>, 5 to 32 in-neighbours) computes
+// The wide route (walk_moves_kernel<true>, past 4 in-neighbours) computes
 // what the JAX package runs there, its XLA walk (graphaligner_tpu/core/
-// backtrace_device.py::walk_batch), with the same priority: thread k of the
-// warp weighs in-neighbour k, two ballots over the whole warp give every
-// in-neighbour's H and D, and the winner is the lowest set bit of H | D
-// (lowest k, H before D); its slot, offset and column come from its thread
-// by shuffles. Its moves are byte codes, four an int32 word (0 PAD, 1 STOP,
-// 2 V, 3 H, 4 D, 64+k Hk, 128+k Dk), and its pred tables NP = ceil(K_in /
-// 5) planes a slot ([K+1, NP * Nm, B], plane p holding in-neighbours 5p to
-// 5p + 4), staged as NP (Nm + 1) shared words each. The caller gives it
-// walk_batch's budget (T_total - 1 steps, W_cap no tighter). The fast path
-// inside a node and the staging are the narrow route's.
+// backtrace_device.py::walk_batch), with the same priority. The
+// in-neighbours go in chunks of 32: in chunk j thread t weighs
+// in-neighbour 32 j + t, two ballots over the whole warp give the chunk's
+// H and D, and the first chunk with any legal move decides, its winner the
+// lowest set bit of H | D (lowest k, H before D); its slot, offset and
+// column come from its thread by shuffles. In-neighbour 0, which also
+// stands for the within-node move off a node start, is thread 0 of chunk
+// 0; past chunk 0 only node starts have candidates, so a step elsewhere
+// weighs one chunk. Its moves are byte codes, four an int32 word (0 PAD,
+// 1 STOP, 2 V, 3 H, 4 D, 64+k Hk, 128+k Dk), up to 64 in-neighbours, and
+// 16-bit codes, two a word (0x4000+k Hk, 0x8000+k Dk), past 64 (A.PER
+// codes a word). Its pred tables are NP = ceil(K_in / 5) planes a slot
+// ([K+1, NP * Nm, B], plane p holding in-neighbours 5p to 5p + 4), staged
+// as NP (Nm + 1) shared words each, which bounds K_in by shared memory
+// alone. The caller gives it walk_batch's budget (T_total - 1 steps, W_cap
+// no tighter). The fast path inside a node and the staging are the narrow
+// route's.
 #include <cuda_runtime.h>
 
 #include <cstdint>
@@ -99,6 +106,7 @@ struct Args {
   int32_t *fail, *state_out, *used;  // [1, B], [16, B], [1, B]
   int K, Cm, Nm, B, K_in, W_cap, T_total, T_w, R;
   int NP;  // pred planes: 1 on the narrow route
+  int PER;  // move codes an int32 word: 8, 4 or 2
 };
 
 // The block's lane's tables of one slice.
@@ -257,13 +265,14 @@ __device__ __forceinline__ int32_t masked_value(const int32_t (&w)[5],
 template <bool WIDE>
 __global__ void __launch_bounds__(32) walk_moves_kernel(Args A) {
   extern __shared__ __align__(16) int32_t smem[];
-  const int tid = threadIdx.x, k = WIDE ? tid : tid & 3;
+  const int tid = threadIdx.x;
   const int Cm = A.Cm, Nm = A.Nm;
   const int b = blockIdx.x;
   const bool valid = WIDE || tid < 4;
-  // move codes of H and D through in-neighbour k, and the code width
-  constexpr int C_HK = WIDE ? 64 : 8, C_DK = WIDE ? 128 : 12;
-  constexpr int PER = WIDE ? 4 : 8, BITS = 32 / PER;
+  // the code width, and the codes of H and D through in-neighbour k
+  const int PER = WIDE ? A.PER : 8, BITS = 32 / PER;
+  const int C_HK = !WIDE ? 8 : PER == 4 ? 64 : 0x4000;
+  const int C_DK = !WIDE ? 12 : PER == 4 ? 128 : 0x8000;
   const size_t sB = (size_t)A.B;
   auto sidx = [&](int32_t slot) { return (slot >= 0 && slot < Nm) ? slot : Nm; };
 
@@ -354,16 +363,6 @@ __global__ void __launch_bounds__(32) walk_moves_kernel(Args A) {
       const bool slow = is_start || row_in == 0 || grow == 0;
       if (__any_sync(FULL, act && slow)) {
         const int32_t node_id = S.band_c[si];
-        // this thread's in-neighbour's pred words, shifted to its field
-        int32_t pw, ppw;
-        if constexpr (WIDE) {
-          const int pi = (k / 5) * (Nm + 1) + si;
-          pw = k < A.K_in ? S.pred_c[pi] >> (6 * (k % 5)) : 0;
-          ppw = k < A.K_in ? S.pprev_c[pi] >> (6 * (k % 5)) : 0;
-        } else {
-          pw = S.pred_c[si] >> (6 * k);
-          ppw = S.pprev_c[si] >> (6 * k);
-        }
         const bool spec_s =
             grow == 0 && node_id == seed_v && here >= 0 && here <= 1;
 
@@ -383,52 +382,71 @@ __global__ void __launch_bounds__(32) walk_moves_kernel(Args A) {
           wn_d = prev_value(off - 1);
         }
 
-        // in-neighbour k of this thread
-        const int32_t pslot = pw & 31, psp = ppw & 31;
-        const bool pvalid = (pw >> 5) & 1, ppv = (ppw >> 5) & 1;
-        const int32_t u_off =
-            is_start ? S.lens_c[sidx(pslot)] - 1 : off - 1;
-        const bool uv =
-            k == 0 ? (pvalid || !is_start) : (is_start && pvalid);
-        const bool prev_only = is_start && row_in == 0 && !pvalid && ppv;
-        const bool cand =
-            act && slow && !spec_s && k < A.K_in && (uv || prev_only);
-        int32_t us[5];
-        const int32_t ubase =
-            is_start ? S.offs_c[sidx(pslot)] : obase;
-        read_col(S, clamp_cell(ubase + u_off, Cm), us);
-        const bool h_ok = cand && uv && masked_value(us, m0) == here - 1;
-        int32_t diag = masked_value(us, m1), po_off = dflt;
-        if (row_in == 0) {
-          // boundary diagonal: the pred's end cell in the previous band
-          po_off = S.lens_p[sidx(psp)] - 1;
-          const int cellp =
-              clamp_cell(S.offs_p[sidx(psp)] + po_off, Cm);
-          const int32_t v = q == 1 ? 0 : S.send[cellp];
-          diag = is_start ? (ppv ? v : dflt) : wn_d;
-        }
-        const bool d_ok =
-            cand && (matched ? diag == here : diag == here - 1);
-
-        // the winner among the lane's threads (four, or the warp): lowest
-        // k, H before D; its pred fields, offset and column come from its
-        // thread
+        // The in-neighbours, a chunk of the lane's threads at a time (the
+        // narrow route: its four threads, one chunk; the wide: the warp's
+        // 32, as many chunks as it takes). The first chunk with a legal H
+        // or D decides: its winner is the lowest k, H before D, and its
+        // pred fields, offset and column come from its thread.
         const int lsh = WIDE ? 0 : tid & ~3;
         const unsigned lmask = WIDE ? FULL : 15u;
-        const unsigned h4 = (__ballot_sync(FULL, h_ok) >> lsh) & lmask;
-        const unsigned d4 = (__ballot_sync(FULL, d_ok) >> lsh) & lmask;
-        const unsigned any4 = h4 | d4;
-        const int kw = any4 ? __ffs(any4) - 1 : k;
-        const int src = lsh + kw;
-        const int32_t w_off = __shfl_sync(FULL, u_off, src);
-        const int32_t w_po_off = __shfl_sync(FULL, po_off, src);
-        const int32_t wpw = __shfl_sync(FULL, pw, src);
-        const int32_t wppw = __shfl_sync(FULL, ppw, src);
-        int32_t w_col[5];
+        const int n_chunks = WIDE && is_start ? (A.K_in + 31) >> 5 : 1;
+        unsigned any4 = 0;
+        bool w_h = false;  // the winner's move is H
+        int kw = 0;
+        int32_t w_off = 0, w_po_off = 0, wpw = 0, wppw = 0;
+        int32_t w_col[5] = {0, 0, 0, 0, 0};
+        for (int ch = 0; ch < n_chunks && !any4; ++ch) {
+          const int k = WIDE ? (ch << 5) + tid : tid & 3;
+          // this thread's in-neighbour's pred words, shifted to its field
+          int32_t pw, ppw;
+          if constexpr (WIDE) {
+            const int pi = (k / 5) * (Nm + 1) + si;
+            pw = k < A.K_in ? S.pred_c[pi] >> (6 * (k % 5)) : 0;
+            ppw = k < A.K_in ? S.pprev_c[pi] >> (6 * (k % 5)) : 0;
+          } else {
+            pw = S.pred_c[si] >> (6 * k);
+            ppw = S.pprev_c[si] >> (6 * k);
+          }
+          const int32_t pslot = pw & 31, psp = ppw & 31;
+          const bool pvalid = (pw >> 5) & 1, ppv = (ppw >> 5) & 1;
+          const int32_t u_off =
+              is_start ? S.lens_c[sidx(pslot)] - 1 : off - 1;
+          const bool uv =
+              k == 0 ? (pvalid || !is_start) : (is_start && pvalid);
+          const bool prev_only = is_start && row_in == 0 && !pvalid && ppv;
+          const bool cand =
+              act && slow && !spec_s && k < A.K_in && (uv || prev_only);
+          int32_t us[5];
+          const int32_t ubase = is_start ? S.offs_c[sidx(pslot)] : obase;
+          read_col(S, clamp_cell(ubase + u_off, Cm), us);
+          const bool h_ok = cand && uv && masked_value(us, m0) == here - 1;
+          int32_t diag = masked_value(us, m1), po_off = dflt;
+          if (row_in == 0) {
+            // boundary diagonal: the pred's end cell in the previous band
+            po_off = S.lens_p[sidx(psp)] - 1;
+            const int cellp = clamp_cell(S.offs_p[sidx(psp)] + po_off, Cm);
+            const int32_t v = q == 1 ? 0 : S.send[cellp];
+            diag = is_start ? (ppv ? v : dflt) : wn_d;
+          }
+          const bool d_ok =
+              cand && (matched ? diag == here : diag == here - 1);
+
+          const unsigned h4 = (__ballot_sync(FULL, h_ok) >> lsh) & lmask;
+          const unsigned d4 = (__ballot_sync(FULL, d_ok) >> lsh) & lmask;
+          any4 = h4 | d4;
+          const int lw = any4 ? __ffs(any4) - 1 : 0;
+          w_h = (h4 >> lw) & 1;
+          kw = (WIDE ? ch << 5 : 0) + lw;
+          const int src = lsh + lw;
+          w_off = __shfl_sync(FULL, u_off, src);
+          w_po_off = __shfl_sync(FULL, po_off, src);
+          wpw = __shfl_sync(FULL, pw, src);
+          wppw = __shfl_sync(FULL, ppw, src);
 #pragma unroll
-        for (int f = 0; f < 5; ++f) w_col[f] = __shfl_sync(FULL, us[f], src);
+          for (int f = 0; f < 5; ++f) w_col[f] = __shfl_sync(FULL, us[f], src);
+        }
         if (slow) {
-          const bool s_h = any4 && ((h4 >> kw) & 1);
+          const bool s_h = any4 && w_h;
           const bool s_d = any4 && !s_h;
           const bool s_v = !spec_s && !any4 && vert_s == here - 1;
           spec = spec_s;
@@ -476,7 +494,7 @@ __global__ void __launch_bounds__(32) walk_moves_kernel(Args A) {
         for (int f = 0; f < 5; ++f) s[8 + f] = take_w ? u[f] : col[f];
         word |= (uint32_t)move << (BITS * (t % PER));
         if (t % PER == PER - 1) {
-          if (k == 0)
+          if (tid == 0)
             A.moves[min(t / PER, A.T_w - 1) * sB + b] = (int32_t)word;
           word = 0;
         }
@@ -512,22 +530,24 @@ static int launch_walk_moves(const Args &A, int smem, void *stream) {
       const int32_t *win_base, const int32_t *init_state, int32_t *moves,     \
       int32_t *fail, int32_t *state_out, int32_t *used, int K, int Cm,        \
       int Nm, int B, int K_in, int W_cap, int T_total, int T_w, int R,        \
-      int smem, void *stream
+      int per, int smem, void *stream
 
 // the narrow route: up to 4 in-neighbours, 4-bit move codes
 extern "C" int ga_walk_moves(WALK_MOVES_PARAMS) {
-  if (K_in < 1 || K_in > 4) return (int)cudaErrorInvalidValue;
+  if (K_in < 1 || K_in > 4 || per != 8) return (int)cudaErrorInvalidValue;
   const Args A{cols, band, lens, pred, pprev, codes, lut, seq_len, seed,
                win_base, init_state, moves, fail, state_out, used, K, Cm, Nm,
-               B, K_in, W_cap, T_total, T_w, R, 1};
+               B, K_in, W_cap, T_total, T_w, R, 1, 8};
   return launch_walk_moves<false>(A, smem, stream);
 }
 
-// the wide route: 5 to 32 in-neighbours, byte move codes
+// the wide route: past 4 in-neighbours, byte move codes up to 64 and
+// 16-bit ones past
 extern "C" int ga_walk_moves_wide(WALK_MOVES_PARAMS) {
-  if (K_in < 5 || K_in > 32) return (int)cudaErrorInvalidValue;
+  if (K_in < 5 || per != (K_in <= 64 ? 4 : 2))
+    return (int)cudaErrorInvalidValue;
   const Args A{cols, band, lens, pred, pprev, codes, lut, seq_len, seed,
                win_base, init_state, moves, fail, state_out, used, K, Cm, Nm,
-               B, K_in, W_cap, T_total, T_w, R, (K_in + 4) / 5};
+               B, K_in, W_cap, T_total, T_w, R, (K_in + 4) / 5, per};
   return launch_walk_moves<true>(A, smem, stream);
 }

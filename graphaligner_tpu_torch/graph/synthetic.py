@@ -205,16 +205,141 @@ def make_multiallelic(n_segments, n_reads, read_len, seed, seg_len=(32, 96),
             length += len(parts[-1]) + (len(parts[-2]) if a else 0)
             i += 1
         truth = "".join(parts)[:read_len]
-        out = []
-        for c in truth:
-            x = rng.random()
-            if x < sub:
-                out.append(str(rng.choice([b for b in "ACGT" if b != c])))
-            elif x < sub + indel / 2:
-                continue
-            else:
-                out.append(c)
-                if x < sub + indel:
-                    out.append(str(BASES[rng.integers(0, 4)]))
-        reads.append((f"ma{r}", "".join(out), segs[first]))
+        reads.append((f"ma{r}", _mutate(rng, truth, sub, indel),
+                      segs[first]))
     return gfa, reads
+
+
+# converging trees: their leaves, and the length of each branch node
+TREE_LEAVES = (33, 80)
+BRANCH_LEN = (40, 80)
+
+
+def make_converging(n_segments, n_reads, read_len, seed, seg_len=(32, 96),
+                    tree_share=0.1, leaves=TREE_LEAVES, branch_len=BRANCH_LEN,
+                    max_allele=12, sub=0.03, indel=0.005, sites=None):
+    """A variation graph where many paths converge on one node, as in a
+    pangenome graph built from many haplotypes, and reads along random
+    paths through it.
+
+    The backbone is n_segments random segments of seg_len bp (inclusive).
+    Between two consecutive segments sits either a multi-allelic site, as
+    in ``make_multiallelic`` (n alleles drawn from ALLELE_COUNTS with
+    ALLELE_SHARES, distinct random sequences of 0 to max_allele bp, an
+    empty one a direct edge), or, with probability ``tree_share``, a
+    converging tree: a binary tree of branch nodes of branch_len bp
+    (inclusive), its root an out-neighbour of the segment before, each
+    inner node with two out-neighbours, and its L leaves (L drawn from
+    ``leaves``, inclusive) all linked into the segment after, which so has
+    in-degree L while no tree node has out-degree above 2. ``sites``, if
+    given, fixes the n_segments - 1 sites instead: ("site", n) or ("tree",
+    L) each. Node ids count up in path order (a tree's nodes in preorder, its
+    leaves left to right), and the links into a segment come in that
+    order, so leaf i of a tree is the segment's in-neighbour i.
+
+    Each read starts at the first base of a random segment and follows,
+    for read_len bp, a uniformly drawn allele at every site and a
+    uniformly drawn leaf's root-to-leaf path at every tree; it is mutated
+    as in ``make_multiallelic``. Everything is drawn from
+    ``np.random.default_rng(seed)``.
+
+    Returns (gfa text, reads), reads a list of (name, sequence, seed node
+    id): the read's first segment, at read position 0, forward."""
+    rng = np.random.default_rng(seed)
+
+    def rand_seq(n):
+        return "".join(BASES[rng.integers(0, 4, n)])
+
+    seqs: list[str] = []
+    links: list[tuple[int, int]] = []
+    segs: list[int] = []
+    # per site, its paths to the next segment as node id lists ([] : an
+    # empty allele)
+    paths: list[list[list[int]]] = []
+
+    def tree(L):
+        """Adds a tree of L leaves (preorder ids); returns its root and
+        its root-to-leaf paths, left to right."""
+        seqs.append(rand_seq(int(rng.integers(branch_len[0],
+                                              branch_len[1] + 1))))
+        node = len(seqs)
+        if L == 1:
+            return node, [[node]]
+        out = []
+        for part in (L // 2, L - L // 2):
+            child, sub_paths = tree(part)
+            links.append((node, child))
+            out += [[node] + p for p in sub_paths]
+        return node, out
+
+    for i in range(n_segments):
+        seqs.append(rand_seq(int(rng.integers(seg_len[0], seg_len[1] + 1))))
+        node = len(seqs)
+        segs.append(node)
+        if i:
+            for p in paths[-1]:
+                links.append((p[-1] if p else segs[-2], node))
+        if i + 1 == n_segments:
+            break
+        if sites is not None:
+            kind, n = sites[i]
+        elif rng.random() < tree_share:
+            kind, n = "tree", int(rng.integers(leaves[0], leaves[1] + 1))
+        else:
+            kind, n = "site", int(rng.choice(ALLELE_COUNTS, p=ALLELE_SHARES))
+        if kind == "tree":
+            root, site_paths = tree(n)
+            links.append((node, root))
+        else:
+            alleles: list[str] = []
+            while len(alleles) < n:
+                s = rand_seq(int(rng.integers(0, max_allele + 1)))
+                if s not in alleles:
+                    alleles.append(s)
+            site_paths = []
+            for s in alleles:
+                if s:
+                    seqs.append(s)
+                    links.append((node, len(seqs)))
+                    site_paths.append([len(seqs)])
+                else:
+                    site_paths.append([])
+        paths.append(site_paths)
+    gfa = "".join(f"S\t{i + 1}\t{s}\n" for i, s in enumerate(seqs))
+    gfa += "".join(f"L\t{a}\t+\t{b}\t+\t0M\n" for a, b in links)
+
+    seg_lens = np.array([len(seqs[s - 1]) for s in segs])
+    rest = np.cumsum(seg_lens[::-1])[::-1]  # backbone bp from each segment
+    starts = np.nonzero(rest >= read_len + 64)[0]
+    reads = []
+    for r in range(n_reads):
+        first = int(rng.choice(starts))
+        parts, length, i = [], 0, first
+        while length < read_len:
+            parts.append(seqs[segs[i] - 1])
+            if i < len(paths):
+                p = paths[i][int(rng.integers(0, len(paths[i])))]
+                parts += [seqs[n - 1] for n in p]
+            length = sum(map(len, parts))
+            i += 1
+        truth = "".join(parts)[:read_len]
+        reads.append((f"cv{r}", _mutate(rng, truth, sub, indel),
+                      segs[first]))
+    return gfa, reads
+
+
+def _mutate(rng, truth, sub, indel):
+    """``truth`` mutated base by base: a substitution with probability
+    ``sub``, a 1-bp deletion or insertion with ``indel / 2`` each."""
+    out = []
+    for c in truth:
+        x = rng.random()
+        if x < sub:
+            out.append(str(rng.choice([b for b in "ACGT" if b != c])))
+        elif x < sub + indel / 2:
+            continue
+        else:
+            out.append(c)
+            if x < sub + indel:
+                out.append(str(BASES[rng.integers(0, 4)]))
+    return "".join(out)

@@ -167,7 +167,7 @@ def _register(lib):
         i64p, i64p,  # start_w, start_row [W]
         i64p, i64p,  # node_start, node_end
         i32p, i32p, ctypes.c_int32,  # pos_to_node, in_nbrs, k_in
-        ctypes.c_int32,  # byte_codes
+        ctypes.c_int32,  # code_bits
         ctypes.c_int64, ctypes.c_int64, ctypes.c_int32,  # W, cap, nthreads
         i64p, i64p, i64p,  # out_w, out_r [W*cap], n_out [W]
     ]
@@ -354,11 +354,11 @@ class TracePieceCtx:
 
 def decode_moves_batch(moves2d, cols, start_ws, start_rows, node_start,
                        node_end, pos_to_node, in_nbrs, cap, nthreads,
-                       byte_codes=False):
+                       code_bits=4):
     """Decode every lane of one walk block in ONE native call (internal
     thread pool; see ga_decode_batch). moves2d: the [n_words, B] uint32
-    fetch layout; cols[i] = lane i's column; byte_codes: the wide walk's
-    byte codes (in-degree 5 to 32), else 4-bit ones. Returns (out_w, out_r,
+    fetch layout; cols[i] = lane i's column; code_bits: the width of a
+    move code, 4, 8 or 16 (``ops.walk_moves.code_bits``). Returns (out_w, out_r,
     n_out) slabs — lane i's forward trace is
     (out_w[i, :n], out_r[i, :n]) for n = n_out[i]; n < 0 flags a
     malformed stream (-1) or a caught native crash (-2)."""
@@ -383,7 +383,7 @@ def decode_moves_batch(moves2d, cols, start_ws, start_rows, node_start,
         pos_to_node.ctypes.data_as(ctypes.POINTER(ctypes.c_int32)),
         in_nbrs.ctypes.data_as(ctypes.POINTER(ctypes.c_int32)),
         in_nbrs.shape[1],
-        int(bool(byte_codes)),
+        int(code_bits),
         W,
         cap,
         nthreads,

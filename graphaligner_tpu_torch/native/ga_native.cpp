@@ -397,20 +397,27 @@ void ga_gfa_destroy(void* h) { delete (GaGfa*)h; }
 // order; the implicit row -1 terminator is dropped (getTraceFromTable,
 // GraphAligner.h:894-1021). Returns the number of steps, or -1 on a
 // malformed stream / capacity overflow.
-//   moves:   packed words, nibble t = lockstep step t (byte_codes = 0), or
-//            byte t (byte_codes = 1: the walk of in-degree 5 to 32, codes
-//            0 PAD, 1 STOP, 2 V, 3 H, 4 D, 64+k Hk, 128+k Dk)
+//   moves:   packed words, code t = lockstep step t, code_bits wide:
+//            4 (nibbles: 8+k Hk, 12+k Dk, k < 4), 8 (the walk of in-degree
+//            5 to 64: 64+k Hk, 128+k Dk) or 16 (past 64: 0x4000+k Hk,
+//            0x8000+k Dk); 0 PAD, 1 STOP, 2 V, 3 H, 4 D at every width
 //   in_nbrs: [num_nodes * k_in], -1 padded, adjacency order
 // ---------------------------------------------------------------------------
 static int64_t ga_decode_moves_impl(
     const uint32_t* moves, int64_t n_words, int64_t start_w,
     int64_t start_row, const int64_t* node_start, const int64_t* node_end,
     const int32_t* pos_to_node, const int32_t* in_nbrs, int32_t k_in,
-    int32_t byte_codes, int64_t cap, int64_t* out_w, int64_t* out_r) {
+    int32_t code_bits, int64_t cap, int64_t* out_w, int64_t* out_r) {
   int64_t w = start_w, row = start_row, n = 0;
   if (n < cap) { out_w[n] = w; out_r[n] = row; n++; } else return -1;
-  const int per = byte_codes ? 4 : 8, bits = byte_codes ? 8 : 4;
-  const uint32_t cmask = byte_codes ? 0xFFu : 0xFu;
+  if (code_bits != 4 && code_bits != 8 && code_bits != 16) return -1;
+  const int per = 32 / code_bits, bits = code_bits;
+  const uint32_t cmask = (1u << code_bits) - 1u;
+  // the codes of H and D through in-neighbour 0, and the in-neighbours
+  // each code range holds
+  const uint32_t h0 = code_bits == 4 ? 8u : code_bits == 8 ? 64u : 0x4000u;
+  const uint32_t d0 = code_bits == 4 ? 12u : 2u * h0;
+  const uint32_t kspan = code_bits == 4 ? 4u : h0;
   for (int64_t t = 0; t < n_words * per; t++) {
     uint32_t code = (moves[t / per] >> (bits * (t % per))) & cmask;
     if (code == 0) continue;  // PAD
@@ -425,13 +432,10 @@ static int64_t ga_decode_moves_impl(
       w -= 1;
     } else if (code == 4) {    // D within node
       w -= 1; row -= 1;
-    } else if (!byte_codes && code >= 8 && code < 16) {
-      k = code & 3;
-      diag = code >= 12;
-    } else if (byte_codes && code >= 64 && code < 96) {
-      k = code - 64;
-    } else if (byte_codes && code >= 128 && code < 160) {
-      k = code - 128;
+    } else if (code >= h0 && code < h0 + kspan) {
+      k = (int)(code - h0);
+    } else if (code >= d0 && code < d0 + kspan) {
+      k = (int)(code - d0);
       diag = true;
     } else {
       return -1;
@@ -582,7 +586,7 @@ int ga_trace_piece2(
 // work-stealing pattern as ga_tie_batch), reading each lane's word
 // column straight out of the [n_words, B] device-fetch layout.
 //   moves:   [n_words * B] row-major, code stream of lane i is
-//            moves[t*B + cols[i]] over t (byte codes when byte_codes)
+//            moves[t*B + cols[i]] over t, code_bits a code
 //   n_out:   [W] decoded step counts; -1 malformed stream, -2 crash
 //   out_w/out_r: [W * cap] per-lane slabs (lane i at offset i*cap)
 // ---------------------------------------------------------------------------
@@ -591,7 +595,7 @@ int ga_decode_batch(const uint32_t* moves, int64_t n_words, int64_t B,
                     const int64_t* start_row, const int64_t* node_start,
                     const int64_t* node_end, const int32_t* pos_to_node,
                     const int32_t* in_nbrs, int32_t k_in,
-                    int32_t byte_codes, int64_t W, int64_t cap,
+                    int32_t code_bits, int64_t W, int64_t cap,
                     int32_t nthreads, int64_t* out_w, int64_t* out_r,
                     int64_t* n_out) {
   std::atomic<int64_t> next(0);
@@ -611,7 +615,7 @@ int ga_decode_batch(const uint32_t* moves, int64_t n_words, int64_t B,
         lane_words[(size_t)t] = moves[t * B + c];
       n_out[i] = ga_decode_moves_impl(
           lane_words.data(), n_words, start_w[i], start_row[i], node_start,
-          node_end, pos_to_node, in_nbrs, k_in, byte_codes, cap,
+          node_end, pos_to_node, in_nbrs, k_in, code_bits, cap,
           out_w + i * cap, out_r + i * cap);
       GA_UNGUARD();
     }

@@ -17,15 +17,18 @@ metadata and every cell pass on chip); a CPU tensor runs
 pass is ``banded_cell_plain``, the twin of the Pallas kernel.
 
 In-degree: up to 5 in-neighbours the kernel is the Pallas kernel's twin;
-from 6 to 32 (``K_IN_MAX``) it computes what the JAX package runs there,
-the XLA cell pass (``engine_banded.py::cell_pass_xla``), which reads each
-in-neighbour's slot directly. The per-slot predecessor tables then take
-``pred_words(K_in)`` int32 planes: plane p holds in-neighbours 5p to 5p + 4,
-each in a 6-bit field (slot | valid << 5) at bit 6 (k - 5p), bits 30-31
-clear. One plane is the JAX package's word; past 5 in-neighbours the JAX
-word keeps only the first five and two bits of the sixth, and nothing
+past 5 it computes what the JAX package runs there, the XLA cell pass
+(``engine_banded.py::cell_pass_xla``), which reads each in-neighbour's
+slot directly, at any in-degree. The per-slot predecessor tables then
+take ``pred_words(K_in)`` int32 planes: plane p holds in-neighbours 5p to
+5p + 4, each in a 6-bit field (slot | valid << 5) at bit 6 (k - 5p), bits
+30-31 clear. One plane is the JAX package's word; past 5 in-neighbours the
+JAX word keeps only the first five and two bits of the sixth, and nothing
 reads it there (its walk reads bands and columns). A 6-bit slot (Nm = 64)
-would take 7-bit fields, 4 a plane, in the same plane layout.
+would take 7-bit fields, 4 a plane, in the same plane layout. The planes
+live in shared memory on the card (``slice_smem``): the launch halves the
+lanes a block down to one, and raises ``NotImplementedError`` naming the
+in-degree, Cm, Nm and bytes where one lane's tables do not fit.
 """
 
 from __future__ import annotations
@@ -40,7 +43,6 @@ from .wordops import M32, i32, merge_slices, myers_advance, u32
 INF = 1 << 20
 EMPTY = 2**31 - 1  # empty band slot
 WORD = 64
-K_IN_MAX = 32  # in-neighbours a slot's tables hold
 PRED_PER_WORD = 5  # 6-bit (slot | valid << 5) fields in an int32 pred plane
 
 
@@ -56,7 +58,7 @@ def pred_field(planes, k):
 
 
 # kernel launches since the last reset (plain counts, read by the smoke
-# run): the narrow route (K_in <= 5) and the wide one (6 to K_IN_MAX)
+# run): the narrow route (K_in <= 5) and the wide one (past 5)
 LAUNCHES = 0
 LAUNCHES_WIDE = 0
 NARROW_K_IN = PRED_PER_WORD  # the widest in-degree of one pred word
@@ -111,10 +113,10 @@ def slice_cells(ids, proj_over, p_ids, p_node_min, p_node_end, p_cell_send,
                              f"got {a.dtype} {tuple(a.shape)}")
         if a.device != ids.device:
             raise ValueError("slice_cells: inputs on different devices")
-    if not 1 <= K_in <= K_IN_MAX or Nm > 32 or read_codes.shape[1] < WORD:
+    if K_in < 1 or Nm > 32 or read_codes.shape[1] < WORD:
         raise NotImplementedError(
-            f"slice_cells packs Nm <= 32 slots and K_in <= {K_IN_MAX} "
-            "predecessors, over at least one slice of read codes"
+            "slice_cells packs Nm <= 32 slots and at least one predecessor "
+            "column, over at least one slice of read codes"
         )
     if ids.device.type == "cpu":
         return slice_cells_plain(*args, P_fix=P_fix)
@@ -132,6 +134,21 @@ def slice_smem(Nm: int, Cm: int, lanes: int, K_in: int = 1) -> int:
     return 4 * lanes * ((21 + extra) * Nm + 2 * Cm + 12)
 
 
+def slice_lanes(Nm: int, Cm: int, K_in: int) -> int:
+    """Lanes a ``slice_cells`` block carries: SLICE_LANES, halved until the
+    block's tables fit in shared memory. Raises NotImplementedError, naming
+    the limit, where one lane's do not."""
+    LB = SLICE_LANES
+    while LB > 1 and slice_smem(Nm, Cm, LB, K_in) > SMEM_LIMIT:
+        LB //= 2
+    if slice_smem(Nm, Cm, LB, K_in) > SMEM_LIMIT:
+        raise NotImplementedError(
+            f"slice_cells: one lane's tables at in-degree {K_in}, Cm={Cm}, "
+            f"Nm={Nm} take {slice_smem(Nm, Cm, 1, K_in)} bytes of shared "
+            f"memory, past the {SMEM_LIMIT} a block holds")
+    return LB
+
+
 def _launch(ids, proj_over, p_ids, p_node_min, p_node_end, p_cell_send,
             p_min, active, first_slice, seq_len, read_codes, win, node_len,
             node_start, in_nbrs, seq_codes, bits_lut, *, P_fix):
@@ -140,12 +157,7 @@ def _launch(ids, proj_over, p_ids, p_node_min, p_node_end, p_cell_send,
     Cm = p_cell_send.shape[0]
     N, K_in = in_nbrs.shape
     wide = K_in > NARROW_K_IN
-    LB = SLICE_LANES
-    while LB > 1 and slice_smem(Nm, Cm, LB, K_in) > SMEM_LIMIT:
-        LB //= 2
-    if slice_smem(Nm, Cm, LB, K_in) > SMEM_LIMIT:
-        raise NotImplementedError(
-            f"slice_cells at Cm={Cm} does not fit in shared memory")
+    LB = slice_lanes(Nm, Cm, K_in)
     dev = ids.device
     i32_ = torch.int32
     cols = torch.empty((7, Cm, B), dtype=i32_, device=dev)
@@ -220,42 +232,38 @@ def slice_cells_plain(ids, proj_over, p_ids, p_node_min, p_node_end,
     p_offsets = p_lens.cumsum(0, dtype=torch.int32) - p_lens
     prev_base = p_offsets.gather(0, prev_slot)
 
-    # ---- in-neighbor classification per slot
+    # ---- in-neighbor classification per slot, every in-neighbour at once
+    # ([Nm, B, K_in]: its first slot in this band and in the previous one)
     NP = pred_words(K_in)
-    any_banded = torch.zeros((Nm, B), dtype=torch.bool, device=dev)
-    slot_pseudo = torch.full((Nm, B), INF, dtype=torch.int32, device=dev)
-    pred_tab = [torch.zeros((Nm, B), dtype=torch.int32, device=dev)
-                for _ in range(NP)]
-    pred_prev = [torch.zeros((Nm, B), dtype=torch.int32, device=dev)
-                 for _ in range(NP)]
-    for k in range(K_in):
-        nb_k = torch.where(valid_slot, nbs[:, :, k], -1)
-        nbv = (nb_k >= 0) & valid_slot
-        eq_cur = (nb_k[:, None, :] == ids[None, :, :]) & nbv[:, None, :]
-        in_cur_k = eq_cur.any(1)
-        cur_slot_k = eq_cur.to(torch.int8).argmax(1).to(torch.int32)
-        eq_prev = (
-            (nb_k[:, None, :] == p_ids[None, :, :])
-            & nbv[:, None, :]
-            & p_valid[None, :, :]
-        )
-        in_prev_k = eq_prev.any(1)
-        prev_slot_k = eq_prev.to(torch.int8).argmax(1)
-        pe_k = torch.where(in_prev_k, p_node_end.gather(0, prev_slot_k), INF)
-        slot_pseudo = torch.minimum(
-            slot_pseudo, torch.where(in_prev_k & ~in_cur_k, pe_k, INF)
-        )
-        any_banded = any_banded | in_cur_k | in_prev_k
-        p, sh = divmod(k, PRED_PER_WORD)
-        pred_tab[p] = pred_tab[p] | (
-            (cur_slot_k | (in_cur_k.to(torch.int32) << 5)) << (6 * sh)
-        )
-        # PREVIOUS-band slot per pred: the walk's boundary diagonal reads
-        # preds that fell out of the current band
-        pred_prev[p] = pred_prev[p] | (
-            (prev_slot_k.to(torch.int32) | (in_prev_k.to(torch.int32) << 5))
-            << (6 * sh)
-        )
+    nb = torch.where(valid_slot[..., None], nbs, -1)
+    nbv = nb >= 0
+    eq_cur = (nb[:, None] == ids[None, :, :, None]) & nbv[:, None]
+    in_cur = eq_cur.any(1)
+    cur_slot = eq_cur.to(torch.int8).argmax(1).to(torch.int32)
+    eq_prev = ((nb[:, None] == p_ids[None, :, :, None]) & nbv[:, None]
+               & p_valid[None, :, :, None])
+    in_prev = eq_prev.any(1)
+    prev_slot = eq_prev.to(torch.int8).argmax(1)
+    pe = torch.where(
+        in_prev, p_node_end[..., None].expand(Nm, B, K_in).gather(0, prev_slot),
+        INF)
+    slot_pseudo = torch.where(in_prev & ~in_cur, pe, INF).amin(-1).clamp(
+        max=INF).to(torch.int32)
+    any_banded = (in_cur | in_prev).any(-1)
+
+    def planes(slot_k, in_k):
+        """The NP int32 planes of (slot | valid << 5) fields, five a plane
+        (fields are disjoint, so their sum is their OR)."""
+        f = slot_k.to(torch.int32) | (in_k.to(torch.int32) << 5)
+        f = torch.nn.functional.pad(f, (0, NP * PRED_PER_WORD - K_in))
+        sh = 6 * torch.arange(PRED_PER_WORD, dtype=torch.int32, device=dev)
+        f = f.reshape(Nm, B, NP, PRED_PER_WORD) << sh
+        return list(f.sum(-1, dtype=torch.int32).permute(2, 0, 1))
+
+    # PREVIOUS-band slot per pred: the walk's boundary diagonal reads
+    # preds that fell out of the current band
+    pred_tab = planes(cur_slot, in_cur)
+    pred_prev = planes(prev_slot, in_prev)
     band_source = ~any_banded & valid_slot
     src_noprev_slot = band_source & ~node_in_prev
     src_sm_slot = band_source & node_in_prev & first_slice[None, :]
@@ -400,10 +408,10 @@ def banded_cell_plain(meta1, meta2, old_end, pseudo, eq_lo, eq_hi, seq_len,
     cell is skipped: both are exact."""
     Cm, B = meta1.shape
     Nm = buf_init.shape[1]
-    if not 1 <= K_in <= K_IN_MAX or Nm > 32:
+    if K_in < 1 or Nm > 32:
         raise NotImplementedError(
-            f"banded_cell packs Nm <= 32 slots and K_in <= {K_IN_MAX} "
-            "predecessors"
+            "banded_cell packs Nm <= 32 slots and at least one predecessor "
+            "column"
         )
     NP = pred_words(K_in)
     args = (meta1, meta2, old_end, pseudo, eq_lo, eq_hi, seq_len, buf_init)

@@ -1,4 +1,4 @@
-"""Backtrace walk emitting 4-bit move codes (kernel K2): wrapper and plain
+"""Backtrace walk emitting packed move codes (kernel K2): wrapper and plain
 version.
 
 ``walk_moves`` takes the arguments of
@@ -8,9 +8,11 @@ A lane takes at most ``steps`` moves (the TPU kernel's 112 K + 511 unless
 the caller gives another) and W_cap a slice. Move codes, K_in <= 4: 0 PAD,
 1 STOP, 2 V, 3 H within the node, 4 D within the node, 8+k H via
 in-neighbour k, 12+k D via in-neighbour k, nibble t of a lane's stream its
-t-th move, T_w = ceil((steps + 1) / 8). K_in from 5 to 32 (the wide route)
-takes byte codes, four an int32: 0 PAD, 1 STOP, 2 V, 3 H, 4 D, 64+k Hk,
-128+k Dk, T_w = ceil((steps + 1) / 4); the pred tables then hold
+t-th move, T_w = ceil((steps + 1) / 8). Past 4 in-neighbours (the wide
+route) the codes are wider (``code_bits``): bytes, four an int32, up to 64
+in-neighbours (0 PAD, 1 STOP, 2 V, 3 H, 4 D, 64+k Hk, 128+k Dk), and 16
+bits, two an int32, past 64 (0x4000+k Hk, 0x8000+k Dk); T_w = ceil((steps
++ 1) / codes_per_word). The pred tables then hold
 ``banded_cell.pred_words(K_in)`` planes stacked on the slot axis ([K+1, P
 * Nm, B]). The wide route computes what the JAX package runs there, the
 XLA walk (``core/backtrace_device.py::walk_batch``), which steps every
@@ -19,7 +21,8 @@ lane on its own: its plain version always has per-lane semantics
 ``W_cap = steps``.
 
 A CUDA tensor launches ``csrc/walk_moves.cu``: one lane a one-warp block,
-four threads weighing its in-neighbours, each slice's walk tables staged
+four threads weighing its in-neighbours (the wide route: the warp's 32,
+a chunk of 32 in-neighbours at a time), each slice's walk tables staged
 in shared memory (``smem_bytes``: 9.5 KB at Cm=288, 66 KB at Cm=2304),
 each lane with its own step budget, so a lane's moves carry no PAD
 nibbles. It reads the engine's 7-field columns and the uint8 codes as they
@@ -38,21 +41,33 @@ import ctypes
 import torch
 
 from . import _build
-from .banded_cell import K_IN_MAX, PRED_PER_WORD, pred_words
+from .banded_cell import PRED_PER_WORD, pred_words
 from .wordops import M32, col_value, i32
 
 INF = 1 << 20
 _EMPTY = 2**31 - 1
 
 LAUNCHES = 0  # the 4-bit route's launches (K_in <= 4)
-LAUNCHES_WIDE = 0  # the byte-code route's launches (K_in 5 to 32)
+LAUNCHES_WIDE = 0  # the wide route's launches (K_in past 4)
 NIBBLE_K_IN = 4  # the widest in-degree of the 4-bit move code
+BYTE_K_IN = 64  # the widest in-degree of the byte move code
 
 
 def codes_per_word(K_in: int) -> int:
-    """Move codes an int32 word holds: 8 nibbles, or 4 bytes past
-    NIBBLE_K_IN."""
-    return 8 if K_in <= NIBBLE_K_IN else 4
+    """Move codes an int32 word holds: 8 nibbles up to NIBBLE_K_IN, 4
+    bytes up to BYTE_K_IN, else two 16-bit codes."""
+    return 8 if K_in <= NIBBLE_K_IN else 4 if K_in <= BYTE_K_IN else 2
+
+
+def code_bits(K_in: int) -> int:
+    """Bits of one move code (4, 8 or 16): the decoder's code width."""
+    return 32 // codes_per_word(K_in)
+
+
+def move_bases(K_in: int) -> tuple[int, int]:
+    """The codes of H and D through in-neighbour 0 (in-neighbour k adds
+    k), at the code width of in-degree K_in."""
+    return {4: (8, 12), 8: (64, 128), 16: (0x4000, 0x8000)}[code_bits(K_in)]
 
 
 def default_steps(K: int) -> int:
@@ -115,10 +130,8 @@ def _check(cols_tab, band_tab, lens_tab, pred_tab, pred_prev_tab, codes8,
     PN = pred_words(K_in) * Nm
     if F != 7:
         raise ValueError("walk_moves: cols_tab must be [K+1, 7, Cm, B]")
-    if not 1 <= K_in <= K_IN_MAX:
-        raise NotImplementedError(
-            f"walk_moves encodes k_in <= {K_IN_MAX} in-neighbours"
-        )
+    if K_in < 1:
+        raise ValueError("walk_moves: K_in must be at least 1")
     if Nm > 32:
         raise NotImplementedError("walk_moves packs pred slots in 5 bits")
     named = {
@@ -191,8 +204,9 @@ def _launch(cols_tab, band_tab, lens_tab, pred_tab, pred_prev_tab, codes8,
     smem = smem_bytes(Cm, Nm, R, K_in)
     if smem > SMEM_LIMIT:
         raise NotImplementedError(
-            f"walk_moves: a slice of Cm={Cm}, Nm={Nm} does not fit in shared "
-            "memory"
+            f"walk_moves: a slice's tables at in-degree {K_in}, Cm={Cm}, "
+            f"Nm={Nm} take {smem} bytes of shared memory, past the "
+            f"{SMEM_LIMIT} a block holds"
         )
     T_total = steps + 1
     per = codes_per_word(K_in)
@@ -206,7 +220,7 @@ def _launch(cols_tab, band_tab, lens_tab, pred_tab, pred_prev_tab, codes8,
     lib = _build.library("walk_moves")
     fn = lib.ga_walk_moves_wide if wide else lib.ga_walk_moves
     fn.restype = ctypes.c_int
-    fn.argtypes = [ctypes.c_void_p] * 15 + [ctypes.c_int] * 10 + [
+    fn.argtypes = [ctypes.c_void_p] * 15 + [ctypes.c_int] * 11 + [
         ctypes.c_void_p
     ]
     err = fn(
@@ -214,7 +228,7 @@ def _launch(cols_tab, band_tab, lens_tab, pred_tab, pred_prev_tab, codes8,
                                  pred_prev_tab, codes8, bits_lut, seq_len,
                                  seed_node, win_base, init_state, moves, fail,
                                  state_out, used)],
-        K, Cm, Nm, B, K_in, W_cap, T_total, T_w, R, smem,
+        K, Cm, Nm, B, K_in, W_cap, T_total, T_w, R, per, smem,
         _build.stream_handle(dev),
     )
     _build.check(err, "walk_moves")
@@ -251,10 +265,9 @@ def walk_moves_plain(cols_tab, band_tab, lens_tab, pred_tab, pred_prev_tab,
     per = codes_per_word(K_in)
     bits = 32 // per
     T_w = (T_total + per - 1) // per
-    wide = K_in > NIBBLE_K_IN
     # move codes: H and D within the node, and via in-neighbour k
     c_h, c_d = 3, 4
-    c_hk, c_dk = (64, 128) if wide else (8, 12)
+    c_hk, c_dk = move_bases(K_in)
     Bb = block_width(B, Bb)
     nb = B // Bb
     blk = torch.arange(B, device=dev) // Bb
@@ -400,29 +413,33 @@ def walk_moves_plain(cols_tab, band_tab, lens_tab, pred_tab, pred_prev_tab,
             d_ok = (uv | prev_only) & torch.where(matched, diag == here,
                                                   diag == here - 1)
             vert = torch.where(row_in == 0, bd[K_in], vals[2 * K_in])
-            po_any = torch.zeros(B, dtype=torch.bool, device=dev)
-            po_slot = torch.zeros(B, dtype=torch.int64, device=dev)
-            po_off = torch.zeros(B, dtype=torch.int64, device=dev)
-            # the reference's priority: per in-neighbour H then D, in order
-            for k in range(K_in):
-                take_h = h_ok[k] & ~decided
-                take_d = d_ok[k] & ~decided & ~take_h
-                take = take_h | take_d
-                move = torch.where(take_h, torch.where(is_start, c_hk + k,
-                                                       c_h), move)
-                move = torch.where(take_d, torch.where(is_start, c_dk + k,
-                                                       c_d), move)
-                n_slot = torch.where(take, u_slot[k], n_slot)
-                n_off = torch.where(take, u_off[k], n_off)
-                n_row = torch.where(take_d, row_in - 1, n_row)
-                n_here = torch.where(take_h | (take_d & ~matched), here - 1,
-                                     n_here)
-                n_col = torch.where(take[None], u_col[:, k], n_col)
-                po_fire = take_d & prev_only[k]
-                po_any = po_any | po_fire
-                po_slot = torch.where(po_fire, pslots_prev[k], po_slot)
-                po_off = torch.where(po_fire, po_offs[k], po_off)
-                decided = decided | take
+            # the reference's priority: per in-neighbour H then D, in
+            # order, so the first in-neighbour with either wins, H first
+            cand = (h_ok | d_ok) & ~decided
+            take = cand.any(0)
+            kw = cand.to(torch.int8).argmax(0)
+
+            def pick(t):
+                return t.gather(0, kw[None])[0]
+
+            take_h = take & pick(h_ok)
+            take_d = take & ~take_h
+            move = torch.where(take_h, torch.where(is_start, c_hk + kw, c_h),
+                               move)
+            move = torch.where(take_d, torch.where(is_start, c_dk + kw, c_d),
+                               move)
+            n_slot = torch.where(take, pick(u_slot), n_slot)
+            n_off = torch.where(take, pick(u_off), n_off)
+            n_row = torch.where(take_d, row_in - 1, n_row)
+            n_here = torch.where(take_h | (take_d & ~matched), here - 1,
+                                 n_here)
+            n_col = torch.where(
+                take[None], u_col.gather(1, kw[None, None].expand(5, 1, B))[:, 0],
+                n_col)
+            # a D into an in-neighbour only in the previous band lands there
+            po_any = take_d & pick(prev_only)
+            po_slot, po_off = pick(pslots_prev), pick(po_offs)
+            decided = decided | take
             take_v = active & (vert == here - 1) & ~decided
             move = torch.where(take_v, 2, move)
             n_row = torch.where(take_v, row_in - 1, n_row)

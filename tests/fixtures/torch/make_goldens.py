@@ -41,6 +41,20 @@ fused loop body recomputes each merge's inputs), so this corpus runs with
 XLA generates CPU code: the computation is integer and its results the
 same.
 
+``converging`` is a seeded corpus on a graph of in-degree past 32 (from
+``graphaligner_tpu_torch.graph.synthetic.make_converging`` at CV_SEGMENTS
+segments and numpy seed CV_SEED: multi-allelic sites, and about one gap in
+ten a converging tree of 33 to 80 leaves, whose leaves all link into the
+next segment) with CV_READS (20) reads of about 10 kb along random paths,
+aligned by ``align_reads_seeded_batch`` at ``-b 35`` and ``-b 5 -B 20``:
+it writes ``graph.gfa``, ``reads.fastq``, ``seeds.gam`` and ``out.gam``
+into ``converging_b35`` and ``converging_b5_B20``, and prints the reads the
+JAX package sent to its host oracle and the CPU time of each golden.
+``converging_small`` writes the CPU tests' corpus (CV_SMALL: converging
+trees of 33 to 70 leaves and one flat site of 33 short alleles) and its
+two goldens into ``converging_small``. They run with the same XLA flag as
+``multiallelic``.
+
 ``circular_i`` first writes its inputs (``write_circular``): the longsim
 graph closed into a circle by one link from its sink node to its source
 node (``graph.gfa``), and reads taken from one source-to-sink walk read as
@@ -334,6 +348,325 @@ def make_multiallelic() -> None:
               f"{time.time() - t0:.1f} s", flush=True)
 
 
+CV_SEGMENTS = 1000
+# cut from 100 reads: the JAX package's CPU run grows with the lanes, and
+# at 100 it had not finished in two hours (fixtures README)
+CV_READS = 20
+CV_READ_LEN = 10_000
+CV_SEED = 17
+CV_CONFIGS = {"converging_b35": (35, 0), "converging_b5_B20": (5, 20)}
+
+
+def write_converging(out_dir: str, n_segments=CV_SEGMENTS, n_reads=CV_READS,
+                     read_len=CV_READ_LEN, seed=CV_SEED, **kw) -> dict:
+    """The converging corpus's inputs into ``out_dir``: graph.gfa,
+    reads.fastq and seeds.gam (one forward seed a read, at its first
+    segment, read position 0). Returns the graph's k_in, node and link
+    counts."""
+    sys.path.insert(0, ROOT)
+    from graphaligner_tpu_torch.graph.synthetic import make_converging
+    from graphaligner_tpu_torch.io import stream, vg
+
+    gfa, reads = make_converging(n_segments, n_reads, read_len, seed, **kw)
+    with open(os.path.join(out_dir, "graph.gfa"), "w") as f:
+        f.write(gfa)
+    with open(os.path.join(out_dir, "reads.fastq"), "w") as f:
+        for name, s, _ in reads:
+            f.write(f"@{name}\n{s}\n+\n{'I' * len(s)}\n")
+    stream.write_messages(os.path.join(out_dir, "seeds.gam"), [
+        vg.Alignment(name=name, query_position=0, path=vg.Path(mapping=[
+            vg.Mapping(position=vg.Position(node_id=node))]))
+        for name, _, node in reads
+    ])
+    lines = gfa.splitlines()
+    return {"nodes": sum(ln[0] == "S" for ln in lines),
+            "links": sum(ln[0] == "L" for ln in lines)}
+
+
+def make_converging_goldens(out_dirs: dict, tag) -> None:
+    """The JAX package's golden of each config in ``out_dirs`` (config ->
+    (directory, GAM file name)), with the names of the reads it sent to its
+    host oracle beside it (``<gam>_host.txt``, one a line), each beside
+    its CPU time; every directory holds the same inputs."""
+    import time
+
+    from graphaligner_tpu.io import stream
+
+    for name, (bw, ramp) in CV_CONFIGS.items():
+        out_dir, gam = out_dirs[name]
+        t0, c0 = time.time(), time.process_time()
+        out, host, k_in = align_seeded_jax(out_dir, bw, ramp)
+        stream.write_messages(os.path.join(out_dir, gam), out)
+        with open(os.path.join(out_dir, gam[:-4] + "_host.txt"), "w") as f:
+            f.write("".join(f"{n}\n" for n in host))
+        print(f"{tag(name)}: k_in {k_in}, {len(out)} aligned, host oracle "
+              f"for {len(host)} reads {host}; align {time.time() - t0:.1f} s"
+              f" wall, {time.process_time() - c0:.1f} s CPU", flush=True)
+
+
+# the converging corpus of the CPU tests: 18 segments, trees of 33 to 70
+# leaves (the device lanes) and one flat site of 33 short alleles (the
+# host oracle's lanes, as in both packages: its 34 band nodes pass 32), 5
+# reads of 450 bp
+CV_SMALL = dict(n_segments=18, n_reads=5, read_len=450, seed=2,
+                sites=[("site", 3), ("site", 33), ("site", 2), ("tree", 40),
+                       ("site", 2), ("tree", 70), ("site", 3), ("tree", 33),
+                       ("site", 2), ("tree", 64), ("site", 4), ("tree", 50),
+                       ("site", 2), ("tree", 35), ("site", 3), ("tree", 45),
+                       ("site", 2)])
+
+
+def make_converging_small() -> None:
+    """``converging_small/``: the inputs of CV_SMALL and the JAX package's
+    goldens at both configs (out_b35.gam, out_b5_B20.gam)."""
+    out_dir = os.path.join(HERE, "converging_small")
+    os.makedirs(out_dir, exist_ok=True)
+    counts = write_converging(out_dir, **CV_SMALL)
+    print(f"converging_small: {counts}", flush=True)
+    make_converging_goldens(
+        {n: (out_dir, f"out_{n.split('_', 1)[1]}.gam") for n in CV_CONFIGS},
+        lambda n: f"converging_small {n.split('_', 1)[1]}")
+
+
+def make_converging_corpus() -> None:
+    """Both converging goldens (see the module docstring)."""
+    import shutil
+
+    first = os.path.join(HERE, "converging_b35")
+    dirs = {}
+    for name in CV_CONFIGS:
+        out_dir = os.path.join(HERE, name)
+        os.makedirs(out_dir, exist_ok=True)
+        if out_dir == first:
+            print(f"converging: {write_converging(first)}", flush=True)
+        else:
+            for f in ("graph.gfa", "reads.fastq", "seeds.gam"):
+                shutil.copyfile(os.path.join(first, f),
+                                os.path.join(out_dir, f))
+        dirs[name] = (out_dir, "out.gam")
+    make_converging_goldens(dirs, lambda n: n)
+
+
+# the scan and walk units of tests/test_torch_in_degree_wide.py: the JAX
+# package's banded_scan and walk_batch outputs at in-degree past 32, kept
+# because its XLA cell pass and XLA walk take minutes to compile there
+WIDE_DIR = os.path.join(HERE, "in_degree_wide")
+WIDE_SCAN_K = (33, 64, 70)
+WIDE_WALK_K = (33, 70)
+WIDE_NM, WIDE_BW = 32, 35
+
+
+def wide_scan_graph(K):
+    """GFA text of a graph of in-degree K, two converging trees of K leaves
+    (numpy seed K), with one back link from the segment their first tree
+    joins (in-degree K) to that tree's first leaf, which closes a cycle;
+    and (the joining segment's id, its in-neighbours' ids in order, their
+    parents' ids)."""
+    sys.path.insert(0, ROOT)
+    from graphaligner_tpu_torch.graph.synthetic import make_converging
+
+    gfa, _ = make_converging(4, 0, 0, K, sites=[("tree", K), ("site", 3),
+                                                ("tree", K)])
+    links = [tuple(int(x) for x in ln.split("\t")[1:4:2])
+             for ln in gfa.splitlines() if ln.startswith("L")]
+    into, parent = {}, {}
+    for a, b in links:
+        into.setdefault(b, []).append(a)
+        parent.setdefault(b, a)
+    join = min(n for n, src in into.items() if len(src) == K)
+    leaves = into[join]
+    gfa += f"L\t{join}\t+\t{leaves[0]}\t+\t0M\n"
+    return gfa, join, leaves, [parent[x] for x in leaves]
+
+
+def wide_scan_inputs(graph, tables, join, leaves, parents, K, B=8, S=3,
+                     Cm=384):
+    """banded_scan arguments from random carries around the joining
+    segment: lane b's band holds one leaf (leaf 0, on the cycle, in lane
+    0; past 32, and past 64 where there are, in others), its parent and
+    sibling, the joining segment and what follows it, topo-rank sorted,
+    with random scores and INF holes, random read codes, a lane short and
+    lanes past their first slice (numpy seed K)."""
+    import numpy as np
+
+    rng = np.random.default_rng(K)
+    EMPTY, INF = 2**31 - 1, 1 << 20
+    N = tables.num_nodes
+    rank = tables.topo_rank
+    fwd = {int(graph.node_ids[n]) // 2: n for n in range(N)
+           if graph.node_ids[n] % 2 == 0}
+    picks = [0, K - 1, 32, int(rng.integers(32, K)), int(rng.integers(0, 32)),
+             int(rng.integers(0, K)), int(rng.integers(32, K)),
+             int(rng.integers(64, K)) if K > 64 else int(rng.integers(0, K))]
+    ids = np.full((B, WIDE_NM), EMPTY, np.int32)
+    for b, i in enumerate(picks[:B]):
+        sib = [x for j, x in enumerate(leaves)
+               if parents[j] == parents[i] and j != i][:1]
+        nodes = {fwd[leaves[i]], fwd[parents[i]], fwd[join],
+                 *(fwd[x] for x in sib)}
+        nxt = [fwd[join] + 1, fwd[join] + 2, fwd[join] + 3]
+        nodes |= {n for n in nxt if n in fwd.values()}
+        nodes = sorted(nodes, key=lambda n: rank[n])[:WIDE_NM]
+        ids[b, : len(nodes)] = nodes
+    valid = ids < EMPTY
+    lens = np.where(valid, tables.node_len[np.clip(ids, 0, N - 1)], 0)
+    c_used = lens.sum(1)
+    node_min = np.where(valid, rng.integers(0, 40, (B, WIDE_NM)), INF)
+    node_min[rng.random((B, WIDE_NM)) < 0.15] = INF
+    node_end = np.where(node_min < INF,
+                        node_min + rng.integers(0, 6, (B, WIDE_NM)), INF)
+    send = rng.integers(0, 50, (B, Cm))
+    send[(np.arange(Cm)[None] >= c_used[:, None])
+         | (rng.random((B, Cm)) < 0.1)] = INF
+    init_min = np.where(valid & (node_min < INF), node_min, INF).min(1)
+    codes = rng.integers(0, 4, (B, S * 64)).astype(np.uint8)
+    steps = np.full(B, S, np.int32)
+    steps[1] = S - 1
+    start = rng.integers(0, 2, B).astype(np.int32)
+    args = (codes, np.full(B, S * 64 + 128, np.int32), steps, start,
+            np.full((S, B), WIDE_BW, np.int32), ids, send.astype(np.int32),
+            node_min.astype(np.int32), node_end.astype(np.int32),
+            init_min.astype(np.int32))
+    return args, dict(S_max=S, Nm=WIDE_NM, Cm=Cm)
+
+
+def jax_scan(gfa_file, args, shape):
+    """The JAX package's banded_scan of ``args`` on ``gfa_file``, through
+    its reach table where ensure_reach builds one, else its pairwise
+    projection: (outputs as numpy arrays, whether it had a reach table,
+    its k_in)."""
+    import numpy as np
+
+    import jax
+
+    jax.config.update("jax_platforms", "cpu")
+    from graphaligner_tpu.core.engine_banded import (
+        banded_scan,
+        build_graph_tables,
+    )
+    from graphaligner_tpu.core.reach import ensure_reach
+    from graphaligner_tpu.graph.bigraph import graph_from_gfa_file
+
+    tables = build_graph_tables(graph_from_gfa_file(gfa_file))
+    reach = ensure_reach(tables, WIDE_BW + 63)
+    out = banded_scan(*tables.device_args(), *args, **shape, _proj="reach",
+                      reach=reach)
+    return ({k: np.asarray(v) for k, v in out.items()}, reach is not None,
+            tables.k_in)
+
+
+def make_wide_scan(K: int) -> None:
+    """``in_degree_wide/scan<K>.npz``: the graph, the scan arguments and
+    the JAX package's outputs (``jax_<key>``), its k_in and whether it
+    projected through a reach table."""
+    import time
+
+    import numpy as np
+
+    from graphaligner_tpu_torch.core.tables import build_graph_tables
+    from graphaligner_tpu_torch.graph import graph_from_gfa_file
+
+    os.makedirs(WIDE_DIR, exist_ok=True)
+    gfa, join, leaves, parents = wide_scan_graph(K)
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "g.gfa")
+        with open(path, "w") as f:
+            f.write(gfa)
+        graph = graph_from_gfa_file(path)
+        tables = build_graph_tables(graph)
+        args, shape = wide_scan_inputs(graph, tables, join, leaves, parents,
+                                       K)
+        t0 = time.process_time()
+        out, reach, k_in = jax_scan(path, args, shape)
+    np.savez_compressed(
+        os.path.join(WIDE_DIR, f"scan{K}.npz"), gfa=gfa, k_in=k_in,
+        reach=reach, shape=np.array([shape["S_max"], shape["Nm"],
+                                     shape["Cm"]]),
+        **{f"a{i}": a for i, a in enumerate(args)},
+        **{f"jax_{k}": v for k, v in out.items()})
+    print(f"in_degree_wide scan{K}: k_in {k_in}, reach table {reach}; JAX "
+          f"{time.process_time() - t0:.1f} s CPU", flush=True)
+
+
+def make_wide_walk(K: int, n_reads: int = 16) -> None:
+    """``in_degree_wide/walk<K>.npz``: a graph of 40 segments with a
+    converging tree of K leaves in every other gap (numpy seed 100 + K),
+    the walk of n_reads reads of 600 to 1,300 bp along it as the port's
+    aligner hands it to K2 at -b 35 on the CPU (the arguments of its
+    largest walk_moves call, cut to its lanes), and the JAX package's
+    walk_batch traces and fail flags on the same tables at that call's
+    budget (walk_batch's) and at one its longest lane cannot meet."""
+    import time
+
+    import numpy as np
+
+    sys.path.insert(0, ROOT)
+    import jax
+
+    jax.config.update("jax_platforms", "cpu")
+    from graphaligner_tpu.core.backtrace_device import walk_batch
+    from graphaligner_tpu.core.engine_banded import build_graph_tables
+    from graphaligner_tpu.graph.bigraph import graph_from_gfa_file
+    from graphaligner_tpu_torch.core import batch_align as ba
+    from graphaligner_tpu_torch.graph import graph_from_gfa_file as port_gfa
+    from graphaligner_tpu_torch.graph.synthetic import make_converging
+    from graphaligner_tpu_torch.io.fastq import FastQ
+
+    os.makedirs(WIDE_DIR, exist_ok=True)
+    gfa, reads = make_converging(
+        40, n_reads, 1300, 100 + K, sites=[("tree", K), ("site", 3)] * 20)
+    lens = [600 + 700 * i // (n_reads - 1) for i in range(n_reads)]
+    fq = [FastQ(n, s[:L], "I" * L) for (n, s, _), L in zip(reads, lens)]
+    seeds = {n: [(node, 0, False)] for n, _, node in reads}
+    calls = []
+    orig = ba.walk_moves
+
+    def rec(*args, **kw):
+        calls.append(([a.numpy().copy() for a in args], dict(kw)))
+        return orig(*args, **kw)
+
+    ba.walk_moves = rec
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "g.gfa")
+        with open(path, "w") as f:
+            f.write(gfa)
+        graph = port_gfa(path)
+        try:
+            aligner = ba.BandedBatchAligner(graph, WIDE_BW, 0, "cpu")
+            ba.align_reads_seeded_batch(graph, aligner, fq, seeds)
+        finally:
+            ba.walk_moves = orig
+        args, kw = max(calls, key=lambda c: int((c[0][10][5] == 0).sum()))
+        live = np.nonzero(args[10][5] == 0)[0]
+        args = [a if i == 6 else np.ascontiguousarray(a[..., live])
+                for i, a in enumerate(args)]
+        cols, band, _, _, _, codes8, _, seq_len, seed, _, st = args
+        K1, _, Cm, B = cols.shape
+        node = band[st[0], st[2], np.arange(B)]
+        w0 = (np.asarray(graph.node_start)[node] + st[3]).astype(np.int32)
+        jcols = np.ascontiguousarray(
+            cols[1:].transpose(1, 3, 0, 2).reshape(7, B, (K1 - 1) * Cm))
+        jcodes = np.ascontiguousarray(
+            codes8[1:].transpose(2, 0, 1).reshape(B, (K1 - 1) * 64))
+        budgets = (kw["steps"], 64 * int(st[0].max()) - 1)
+        jt = build_graph_tables(graph_from_gfa_file(path))
+        res = {}
+        t0 = time.process_time()
+        for i, T in enumerate(budgets):
+            trace, fail = walk_batch(jt, jcols, np.ascontiguousarray(band[1:]),
+                                     jcodes, seq_len[0], seed[0], w0, st[0],
+                                     T_max=int(T))
+            res[f"jax_trace{i}"] = np.asarray(trace)
+            res[f"jax_fail{i}"] = np.asarray(fail)
+    np.savez_compressed(
+        os.path.join(WIDE_DIR, f"walk{K}.npz"), gfa=gfa,
+        k_in=aligner.tables.k_in, w0=w0, budgets=np.array(budgets),
+        **{f"a{i}": a for i, a in enumerate(args)}, **res)
+    print(f"in_degree_wide walk{K}: k_in {aligner.tables.k_in}, {B} lanes "
+          f"of {len(calls)} K2 calls' largest, budgets {budgets}; JAX "
+          f"{time.process_time() - t0:.1f} s CPU", flush=True)
+
+
 def make(name: str, out_gam: str) -> list:
     """Aligns corpus ``name`` in -i mode with the JAX package and writes
     the concatenated GAM to ``out_gam``; returns the alignments."""
@@ -371,8 +704,10 @@ def main(names) -> int:
     import time
 
     names = names or sorted(CORPORA) + ["biggraph_b35", "multiallelic",
-                                        "multiallelic_small"]
-    if any(n.startswith("multiallelic") for n in names):
+                                        "multiallelic_small", "converging",
+                                        "converging_small", "in_degree_wide"]
+    if any(n.startswith(("multiallelic", "converging", "in_degree_wide",
+                         "scan", "walk")) for n in names):
         # before jax starts (module docstring)
         os.environ["JAX_PLATFORMS"] = "cpu"
         os.environ["XLA_FLAGS"] = (
@@ -382,6 +717,23 @@ def main(names) -> int:
         if name.startswith("multiallelic"):
             (make_multiallelic_small if name.endswith("small")
              else make_multiallelic)()
+            print(f"{name}: {time.time() - t0:.1f} s", flush=True)
+            continue
+        if name.startswith(("scan", "walk")) and name[4:].isdigit():
+            (make_wide_scan if name.startswith("scan")
+             else make_wide_walk)(int(name[4:]))
+            print(f"{name}: {time.time() - t0:.1f} s", flush=True)
+            continue
+        if name == "in_degree_wide":
+            for K in WIDE_SCAN_K:
+                make_wide_scan(K)
+            for K in WIDE_WALK_K:
+                make_wide_walk(K)
+            print(f"{name}: {time.time() - t0:.1f} s", flush=True)
+            continue
+        if name.startswith("converging"):
+            (make_converging_small if name.endswith("small")
+             else make_converging_corpus)()
             print(f"{name}: {time.time() - t0:.1f} s", flush=True)
             continue
         out_dir = os.path.join(HERE, name)

@@ -234,5 +234,10 @@ def test_banded_cell_checks_its_arguments():
         banded_cell_plain(*args[:2], args[2].long(), *args[3:], K_in=2)
     with pytest.raises(ValueError, match="meta2"):  # K_in 6: two planes
         banded_cell_plain(*args, K_in=6)
-    with pytest.raises(NotImplementedError, match="K_in <= 32"):
+    with pytest.raises(ValueError, match="meta2"):  # K_in 33: seven planes
         banded_cell_plain(*args, K_in=33)
+    with pytest.raises(NotImplementedError, match="predecessor column"):
+        banded_cell_plain(*args, K_in=0)
+    wide = [torch.from_numpy(a) for a in
+            _random_args(np.random.default_rng(1), 8, 4, 8, 70)]
+    banded_cell_plain(*wide, K_in=70)  # no in-degree gate: 14 planes

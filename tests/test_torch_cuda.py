@@ -39,6 +39,7 @@ def _k1_matches_plain(args, P_fix=16):
     want = k1.slice_cells_plain(*args, P_fix=P_fix)
     for name, g, w in zip(K1_OUTS, got, want):
         assert torch.equal(g, w), name
+    return got
 
 
 def _recorded_slices(cuda, graph, reads, seeds, monkeypatch, Nm=32, Cm=288):
@@ -136,6 +137,10 @@ def _decode(graph, args, moves, used, lanes):
     each from its start in the call's init_state; tensors or arrays."""
     from graphaligner_tpu_torch.core.tables import build_graph_tables
     from graphaligner_tpu_torch.io import native
+    from graphaligner_tpu_torch.ops.walk_moves import (
+        code_bits,
+        codes_per_word,
+    )
 
     band, st = (np.asarray(a.cpu() if hasattr(a, "cpu") else a)
                 for a in (args[1], args[10]))
@@ -145,7 +150,7 @@ def _decode(graph, args, moves, used, lanes):
     node = band[st[0, lanes], st[2, lanes], lanes]
     start_w = np.asarray(graph.node_start)[node].astype(np.int64) + st[3, lanes]
     k_in = build_graph_tables(graph).k_in
-    per = 8 if k_in <= 4 else 4
+    per = codes_per_word(k_in)
     rows = min(moves.shape[0], int(np.max(used)) // per + 1)
     w, r, n = native.decode_moves_batch(
         np.ascontiguousarray(moves[:rows]).view(np.uint32),
@@ -157,7 +162,7 @@ def _decode(graph, args, moves, used, lanes):
         np.ascontiguousarray(build_graph_tables(graph).in_nbrs,
                              dtype=np.int32),
         max(int(band.shape[0] - 1) * 64 * 3 + 64, moves.shape[0] * per), 4,
-        byte_codes=k_in > 4,
+        code_bits=code_bits(k_in),
     )
     assert (n >= 1).all()
     return {int(b): (w[j, : n[j]].copy(), r[j, : n[j]].copy())
@@ -416,6 +421,110 @@ def test_walk_kernel_matches_plain_at_in_degree_8(cuda, monkeypatch,
         _assert_traces_equal(_decode(graph, args, moves, used, live),
                              _decode(graph, args, plain[0], plain[3], live))
     assert {133, 134, 135} <= codes
+
+
+def _converging(K, n_reads, tmp_path, seed):
+    """A seeded graph of 40 segments with a converging tree of K leaves
+    in every other gap (in-degree K) and n_reads reads of 1,000 bp along
+    random paths through it, one forward seed each."""
+    from graphaligner_tpu_torch.graph import graph_from_gfa_file
+    from graphaligner_tpu_torch.graph.synthetic import make_converging
+    from graphaligner_tpu_torch.io.fastq import FastQ
+
+    gfa, reads = make_converging(40, n_reads, 1000, seed,
+                                 sites=[("tree", K), ("site", 3)] * 20)
+    (tmp_path / "cv.gfa").write_text(gfa)
+    graph = graph_from_gfa_file(str(tmp_path / "cv.gfa"))
+    return (graph, [FastQ(n, s, "I" * len(s)) for n, s, _ in reads],
+            {n: [(node, 0, False)] for n, _, node in reads})
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("K", [33, 70])
+def test_slice_cells_kernel_matches_plain_past_32_in_neighbours(
+        cuda, monkeypatch, tmp_path, K):
+    """K1's wide route past 32 in-neighbours (seven and 14 pred planes)
+    against slice_cells_plain on every slice of a scan over 16 reads of a
+    seeded converging-tree graph of in-degree K, at the Cm=1152 tier (a
+    band across a tree holds several 40-80 bp nodes): all eight outputs
+    bit for bit, with in-band in-neighbours past 32 (past 64 at 70) in the
+    pred planes."""
+    graph, reads, seeds = _converging(K, 16, tmp_path, 300 + K)
+    calls = _recorded_slices(cuda, graph, reads, seeds, monkeypatch,
+                             Cm=1152)
+    assert calls[0][14].shape[1] == K
+    NP, widest = -(-K // 5), -1
+    for args in calls:
+        nm = _k1_matches_plain(args)[1]
+        for k in range(K):
+            field = nm[4 + k // 5] >> (6 * (k % 5))
+            if bool(((field >> 5) & 1).any()):
+                widest = max(widest, k)
+        assert nm.shape[0] == 4 + 2 * NP
+    assert widest >= (64 if K > 64 else 32)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("K", [33, 70])
+def test_walk_kernel_matches_plain_past_32_in_neighbours(cuda, monkeypatch,
+                                                         tmp_path, K):
+    """K2's wide route past 32 in-neighbours (in chunks of 32; byte codes
+    at 33, 16-bit codes at 70): a seeded converging-tree graph of
+    in-degree K x 64 reads of 1,000 bp, aligned on the card with no host
+    fallback. Every K2 call bit for bit, codes included, equal to the
+    plain walk at Bb=1, with moves through in-neighbours past 32 (past 64
+    at 70) among them; the decoded traces equal the plain walk's."""
+    from graphaligner_tpu_torch.core.tables import build_graph_tables
+    from graphaligner_tpu_torch.ops import walk_moves as k2
+
+    graph, reads, seeds = _converging(K, 64, tmp_path, 200 + K)
+    assert build_graph_tables(graph).k_in == K
+    n0 = k2.LAUNCHES
+    res, walks = _recorded_walks(cuda, graph, reads, seeds, 35, 0,
+                                 monkeypatch)
+    assert k2.LAUNCHES == n0
+    assert not any(r.alignment_failed for r in res.values())
+    bits = k2.code_bits(K)
+    h0, d0 = k2.move_bases(K)
+    ks = set()
+    for args, kw, out in walks:
+        assert kw["K_in"] == K
+        moves, fail, _, used = _k2_matches_per_lane_plain(args, kw, out)
+        m = moves.to(torch.int64) & 0xFFFFFFFF
+        for j in range(32 // bits):
+            c = (m >> (bits * j)) & ((1 << bits) - 1)
+            for base in (h0, d0):
+                hit = c[(c >= base) & (c < base + h0)]
+                ks |= {int(x) - base for x in hit.unique()}
+        st = args[10].cpu().numpy()
+        live = np.nonzero((fail[0].cpu().numpy() == 0) & (st[5] == 0))[0]
+        plain = k2.walk_moves_plain(*args, **kw, Bb=1)
+        _assert_traces_equal(_decode(graph, args, moves, used, live),
+                             _decode(graph, args, plain[0], plain[3], live))
+    assert max(ks) >= (64 if K > 64 else 32)
+
+
+@pytest.mark.cuda
+def test_project_band_kernel_matches_plain_past_32_out_neighbours(
+        cuda, monkeypatch, tmp_path):
+    """The projection kernel at K_out = 70 (the reverse strand of a
+    segment that 70 leaves join: 2,272 entries a lane, 147 KB of shared
+    memory a block of 4 lanes) against project_band_plain, bit for bit, on
+    every call of a scan without a reach table over 8 reads of the
+    converging-tree graph."""
+    from graphaligner_tpu_torch.ops import project_band as pb
+
+    graph, reads, seeds = _converging(70, 8, tmp_path, 270)
+    calls = _recorded_projections(cuda, graph, reads, seeds, monkeypatch,
+                                  Nm=32, rank_offset=0)
+    assert calls[0][6].shape[1] == 70
+    for args in calls:
+        n0 = pb.LAUNCHES
+        ids, over = pb.project_band(*args)
+        torch.cuda.synchronize()
+        assert pb.LAUNCHES == n0 + 2
+        p_ids, p_over = pb.project_band_plain(*args)
+        assert torch.equal(ids, p_ids) and torch.equal(over, p_over)
 
 
 @pytest.mark.cuda

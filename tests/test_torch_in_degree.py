@@ -1,4 +1,5 @@
-"""The port on graphs of in-degree 5 to 32 against the JAX package.
+"""The port on graphs of in-degree 5 to 32 against the JAX package (past
+32: test_torch_in_degree_wide.py).
 
 Past 5 in-neighbours the JAX package runs XLA code: its cell pass
 ``cell_pass_xla`` (graphaligner_tpu/core/engine_banded.py:883) and, past 4,
@@ -18,7 +19,9 @@ every output is integer.
   (tests/fixtures/torch/multiallelic_small: 40 segments, 6 reads of 1,500
   bp) against the JAX package's goldens at -b 35 and -b 5 -B 20;
 - ``banded_cell_plain`` at in-degree 6 and 8 against the Pallas kernel
-  (in test_torch_banded_cell.py), and long mode past in-degree 4 raising.
+  (in test_torch_banded_cell.py), and long mode past in-degree 4 raising;
+- a graph of in-degree 33 aligning, and a launch whose tables do not fit
+  in shared memory raising with its limit.
 
 The JAX side runs in one subprocess (this file run as a script) with
 ``XLA_FLAGS=--xla_cpu_use_fusion_emitters=false``: XLA's CPU fusion
@@ -53,6 +56,16 @@ EMPTY = 2**31 - 1
 INF = 1 << 20
 PRED_MASK = 0x3FFFFFFF
 NM, BW = 32, 35
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_thread():
+    """The plain versions issue many small ops: one intra-op thread a
+    worker keeps them from oversubscribing the CPU the workers share."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
 
 
 # ------------------------------------------------------------------ inputs
@@ -469,7 +482,7 @@ def test_plain_wide_walk_matches_walk_batch(K, jobs):
             np.ascontiguousarray(tables.node_start, dtype=np.int64),
             np.ascontiguousarray(tables.node_end, dtype=np.int64),
             np.ascontiguousarray(tables.pos_to_node),
-            np.ascontiguousarray(tables.in_nbrs), T + 1, 1, byte_codes=True)
+            np.ascontiguousarray(tables.in_nbrs), T + 1, 1, code_bits=8)
         want = _jax_traces(ref[f"trace{i}"], ref[f"fail{i}"])
         for b in range(B):
             ok = not fail[0, b] and n[b] >= 1 and r[b, 0] == 0
@@ -546,17 +559,72 @@ def test_long_mode_past_in_degree_4_raises(monkeypatch):
     assert aligner._long_mode
 
 
-def test_in_degree_past_32_raises(tmp_path):
+def test_in_degree_33_aligns(tmp_path, monkeypatch):
+    """A graph of in-degree 33 (a converging tree of 33 leaves joining one
+    segment) takes the aligner, which once refused it, and reads from that
+    segment on align through both wide routes with no host fallback."""
     from graphaligner_tpu_torch.core import batch_align as ba
-    from graphaligner_tpu_torch.graph.synthetic import make_multiallelic
+    from graphaligner_tpu_torch.graph.synthetic import make_converging
+    from graphaligner_tpu_torch.io.fastq import FastQ
+    from graphaligner_tpu_torch.ops import banded_cell as k1
+    from graphaligner_tpu_torch.ops import walk_moves as k2
 
-    gfa, _ = make_multiallelic(3, 0, 0, 1, counts=(33,), shares=(1.0,),
-                               max_allele=8)
+    monkeypatch.setenv("GA_NO_FALLBACK", "1")
+    gfa, _ = make_converging(4, 0, 0, 1, sites=[("tree", 33), ("site", 2),
+                                                ("site", 3)])
     (tmp_path / "g.gfa").write_text(gfa)
     graph, tables = _port_graph(tmp_path / "g.gfa")
     assert tables.k_in == 33
-    with pytest.raises(NotImplementedError, match="32"):
-        ba.BandedBatchAligner(graph, 35, 0, "cpu")
+    rows = [line.split("\t") for line in gfa.splitlines()]
+    seqs = {int(r[1]): r[2] for r in rows if r[0] == "S"}
+    links = [(int(r[1]), int(r[3])) for r in rows if r[0] == "L"]
+    join = next(n for n in seqs if sum(b == n for _, b in links) == 33)
+    path = [join]
+    while len(path) < 5:
+        path.append(next(b for a, b in links if a == path[-1]))
+    exact = "".join(seqs[n] for n in path)
+    mutated = "".join("A" if i % 40 == 20 and c != "A" else c
+                      for i, c in enumerate(exact))
+    reads = [FastQ(f"r{i}", q, "I" * len(q))
+             for i, q in enumerate((exact, mutated))]
+    calls = {"k1": 0, "k2": 0}
+    orig1, orig2 = k1.slice_cells_plain, k2.walk_moves_plain
+
+    def c1(*a, **kw):
+        calls["k1"] += 1
+        return orig1(*a, **kw)
+
+    def c2(*a, **kw):
+        calls["k2"] += 1
+        return orig2(*a, **kw)
+
+    monkeypatch.setattr(k1, "slice_cells_plain", c1)
+    monkeypatch.setattr(k2, "walk_moves_plain", c2)
+    aligner = ba.BandedBatchAligner(graph, 35, 0, "cpu")
+    res = ba.align_reads_seeded_batch(
+        graph, aligner, reads, {r.seq_id: [(join, 0, False)] for r in reads})
+    assert calls["k1"] and calls["k2"]
+    for r in reads:
+        assert not res[r.seq_id].alignment_failed
+        assert res[r.seq_id].alignment.score < 2**31 - 1
+
+
+def test_launch_past_shared_memory_raises_naming_its_limit():
+    """What bounds the in-degree now is the card's shared memory: where
+    one lane's K1 tables do not fit in a block, the launch raises and
+    names the in-degree, the tier's Cm and Nm, and the bytes (K2's raise:
+    test_torch_walk_moves.py); below that the block's lanes halve."""
+    from graphaligner_tpu_torch.ops import banded_cell as k1
+
+    assert k1.slice_lanes(32, 288, 8) == k1.SLICE_LANES
+    assert 1 < k1.slice_lanes(32, 2304, 200) < k1.SLICE_LANES
+    K_in = 5 * (k1.SMEM_LIMIT // (8 * 32) + 2)
+    need = k1.slice_smem(32, 288, 1, K_in)
+    assert need > k1.SMEM_LIMIT
+    with pytest.raises(NotImplementedError,
+                       match=f"in-degree {K_in}, Cm=288, Nm=32 take {need} "
+                             "bytes"):
+        k1.slice_lanes(32, 288, K_in)
 
 
 if __name__ == "__main__":

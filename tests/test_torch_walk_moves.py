@@ -89,11 +89,26 @@ def test_walk_moves_plain_matches_jax_with_tight_budget(recorded):
 
 
 def test_walk_moves_refuses_wide_in_degree(recorded):
-    """The wide route's limit: 32 in-neighbours (one a warp thread)."""
+    """The wide route's limit is shared memory, not a count of
+    in-neighbours: at in-degree 33 the call's one-plane pred tables are
+    refused for their shape (it takes seven), and a launch whose slice
+    tables do not fit in a block's shared memory raises, naming the
+    in-degree, Cm, Nm and bytes."""
+    from graphaligner_tpu_torch.ops import walk_moves as k2
+
     args, kw = recorded[0]
-    with pytest.raises(NotImplementedError, match="k_in <= 32"):
-        walk_moves(*[torch.from_numpy(np.ascontiguousarray(a)) for a in args],
-                   K_in=33)
+    tensors = [torch.from_numpy(np.ascontiguousarray(a)) for a in args]
+    with pytest.raises(ValueError, match="pred_tab"):
+        walk_moves(*tensors, K_in=33)
+    K1, _, Cm, B = tensors[0].shape
+    Nm = tensors[1].shape[1]
+    K_in = 5 * (k2.SMEM_LIMIT // (8 * (Nm + 1)) + 2)
+    smem = k2.smem_bytes(Cm, Nm, tensors[6].shape[0], K_in)
+    assert smem > k2.SMEM_LIMIT
+    with pytest.raises(NotImplementedError,
+                       match=f"in-degree {K_in}, Cm={Cm}, Nm={Nm} take "
+                             f"{smem} bytes"):
+        k2._launch(*tensors, K_in=K_in, W_cap=448, steps=100)
 
 
 # ---------------------------------------------------------------- per lane
