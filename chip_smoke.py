@@ -49,9 +49,12 @@ GA_NO_FALLBACK=1:
   on a graph whose converging trees join 33 to 80 leaves into one
   segment, in-degree 80) at -b 35 and -b 5 -B 20, with reach tables where
   ensure_reach builds one and without, against the JAX package's goldens,
-  each launch shape's shared bytes and lanes a block printed; one
-  recorded call each of K1, K2 and the projection is held bit for bit
-  against its plain version;
+  each launch shape's shared bytes and lanes a block printed; K1's call
+  with the most lanes at each capacity tier (Cm 288, 576 and 1152) and
+  one recorded call each of K2 and the projection are held bit for bit
+  against their plain versions and timed, and converging -b 35 is
+  profiled once (the wide K1's and the projection's summed device time,
+  the idle share);
 - the parallel modes (``graphaligner_tpu_torch.parallel``): longsim x10 at
   -b 35 on a mesh of two shards on the one card ([cuda:0, cuda:0]: every
   round split in two halves, each scanned and walked on its own), against
@@ -277,6 +280,8 @@ class Recorder:
         native = ba.native
 
         self.k1 = None
+        # Cm -> the K1 call with the most lanes at that tier, when a dict
+        self.k1_tiers = None
         # [args, kwargs, outputs of the run, decode args, decoded traces]
         self.k2 = []
         self.on = True  # record (off for corpora whose calls repeat shapes)
@@ -287,6 +292,11 @@ class Recorder:
             if self.on and (self.k1 is None
                             or args[0].shape[1] > self.k1[0][0].shape[1]):
                 self.k1 = ([a.clone() for a in args], kw)
+            tiers, Cm = self.k1_tiers, args[5].shape[0]
+            if self.on and tiers is not None and (
+                    Cm not in tiers
+                    or args[0].shape[1] > tiers[Cm][0][0].shape[1]):
+                tiers[Cm] = ([a.clone() for a in args], kw)
             return self._orig[0](*args, **kw)
 
         def rec_k2(*args, **kw):
@@ -452,10 +462,13 @@ def compare_k1(call, rate, what):
     Cm = args[5].shape[0]
     moved, ops = k1_work(args, got)
     bms, by = bound(moved, ops, rate)
+    K_in = args[14].shape[1]
+    LB = k1.slice_lanes(Nm, Cm, K_in)
     print(f"K1 slice_cells (fused) vs plain on {what} at Cm={Cm} Nm={Nm} "
           f"B={B}: eight outputs bit-identical; kernel {ms:.4f} ms, plain "
           f"{plain_ms:.1f} ms; bound {bms:.5f} ms by {by} ({moved} B, {ops} "
-          f"int32 ops), share {bms / ms:.4f}", flush=True)
+          f"int32 ops), share {bms / ms:.4f}; {LB} lanes a block, "
+          f"{k1.slice_smem(Nm, Cm, LB, K_in)} B shared", flush=True)
     return err, ms, plain_ms, bms, by
 
 
@@ -1127,8 +1140,9 @@ def dev_us(event):
 
 
 def profile_seeded(device, corpus, card, label="with reach tables",
-                   name="longsim x10"):
-    """A corpus (longsim x10) once more unprofiled (its wall) and once
+                   name="longsim x10", walls=None):
+    """A corpus (longsim x10) once more unprofiled (its wall; or ``walls``,
+    the (wall, set-up) of a run of it at -b 35 already made) and once
     under torch.profiler at -b 35: device kernels (and copies) counted,
     their summed device time (one stream, so the busy time), the idle share
     of the unprofiled wall, the fused K1's launches (both routes), and K1's,
@@ -1139,7 +1153,10 @@ def profile_seeded(device, corpus, card, label="with reach tables",
     from graphaligner_tpu_torch.ops import banded_cell as k1
 
     graph, reads, seeds, _ = corpus
-    _, wall, _, _ = run_corpus(device, graph, reads, seeds, 35, 0)
+    if walls is None:
+        _, wall, _, info = run_corpus(device, graph, reads, seeds, 35, 0)
+        walls = (wall, info["set-up"])
+    wall, setup = walls
     n1 = k1.LAUNCHES + k1.LAUNCHES_WIDE
     t0 = time.time()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
@@ -1159,8 +1176,10 @@ def profile_seeded(device, corpus, card, label="with reach tables",
           f"over {slices} fused K1 launches, {k1_events} seen by the "
           f"profiler), device busy "
           f"{busy:.3f} s; unprofiled wall {wall:.3f} s, idle share "
-          f"{1 - busy / wall:.3f} (profiled wall {wall_prof:.3f} s) [{card}]",
-          flush=True)
+          f"{1 - busy / wall:.3f}, of the alignment alone (the wall less the "
+          f"aligner's set-up, {setup:.3f} s) "
+          f"{1 - busy / (wall - setup):.3f} (profiled wall "
+          f"{wall_prof:.3f} s) [{card}]", flush=True)
     for kernel in ("slice_cells", "walk_moves", "project_band"):
         ev = [e for e in events if kernel in e.name]
         if ev:
@@ -1632,10 +1651,7 @@ class ShapeRecorder:
                         f"({32 // k2.codes_per_word(K_in)}-bit move codes)")
             else:
                 _, Nm, K_out = key
-                LB = pb.PROJ_LANES
-                while LB > 1 and pb.project_smem(Nm, K_out, LB) > \
-                        pb.SMEM_LIMIT:
-                    LB //= 2
+                LB = pb.project_lanes(Nm, K_out)
                 what = (f"projection at Nm={Nm} K_out={K_out}: {2 * n} "
                         f"launches ({n} calls), {LB} lanes a block, "
                         f"{pb.project_smem(Nm, K_out, LB)} B shared")
@@ -1700,9 +1716,11 @@ def run_converging_path(device, card):
     pb.LAUNCHES = 0
     fb0 = ba.host_fallback_count()
     rec = Recorder()
+    rec.k1_tiers = {}
     prec = ProjRecorder()
     shapes = ShapeRecorder()
     modes = [True, False]
+    walls = None  # the first run's (wall, set-up), for the profile
     try:
         while modes:
             reach = modes.pop(0)
@@ -1715,6 +1733,7 @@ def run_converging_path(device, card):
                     prec.corpus = None if reach or prec.calls else name
                     results, wall, cells, info = run_corpus(
                         device, graph, reads, seeds, bw, ramp)
+                    walls = walls or (wall, info["set-up"])
                     if reach and not info["reach"]:
                         # ensure_reach rejected the graph: every band is
                         # projected by the kernel, and the phase runs once
@@ -1794,7 +1813,8 @@ def run_converging_path(device, card):
                   f"GA_NO_FALLBACK=1 ({e})", flush=True)
         else:
             fail(f"{name}: the reads past 32 band nodes did not raise")
-    return launches, rec, next(iter(prec.calls.values()))
+    return (launches, rec, next(iter(prec.calls.values())), corpora[0][4],
+            walls)
 
 
 def pb_work(args, outs, log):
@@ -2198,7 +2218,8 @@ def main() -> int:
     wide_launches, wrec, ma = run_wide_path(device, card)
     for name in ("slice_cells_wide", "walk_moves_wide"):
         launches[name] = wide_launches[name]
-    cv_launches, cvrec, cv_pb = run_converging_path(device, card)
+    cv_launches, cvrec, cv_pb, cv, cv_walls = run_converging_path(device,
+                                                                  card)
     for name in ("slice_cells_wide", "walk_moves_wide", "project_band"):
         launches[name] += cv_launches[name]
 
@@ -2285,9 +2306,13 @@ def main() -> int:
     del pb_calls
     # the converging phase (in-degree 80): one recorded call of each
     cv_k_in = cvrec.k1[0][14].shape[1]
+    if sorted(cvrec.k1_tiers) != [288, 576, 1152]:
+        fail(f"converging's K1 calls came at tiers {sorted(cvrec.k1_tiers)}"
+             ", not at Cm 288, 576 and 1152")
     cv_errs = [
-        compare_k1(cvrec.k1, rate, "the converging phase's widest call "
-                   f"(K_in {cv_k_in})")[0],
+        max(compare_k1(call, rate, f"the converging phase's widest call at "
+                       f"Cm={Cm} (K_in {cv_k_in})")[0]
+            for Cm, call in sorted(cvrec.k1_tiers.items())),
         compare_k2(SimpleNamespace(k2=[max(cvrec.k2,
                                            key=lambda r: r[0][0].numel())]),
                    rate, f"walk_moves (wide, K_in {cv_k_in})")[0],
@@ -2308,6 +2333,9 @@ def main() -> int:
     k2_top_tier(rec)
     profile_seeded(device, longsim, card)
     profile_seeded(device, ma, card, name="multiallelic x10")
+    profile_seeded(device, cv, card, "no reach table",
+                   name=f"converging x{len(cv[1]) // len(set(cv[3].values()))}",
+                   walls=cv_walls)
     os.environ["GA_REACH_MAXN"] = "0"
     try:
         profile_seeded(device, longsim, card, "GA_REACH_MAXN=0")

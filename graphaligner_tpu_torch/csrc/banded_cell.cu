@@ -60,15 +60,26 @@
 // The wide route (slice_cells_kernel<true>, past 5 in-neighbours) is the
 // JAX package's XLA cell pass (graphaligner_tpu/core/engine_banded.py::
 // cell_pass_xla), which it runs past 5 in-neighbours and which merges the
-// same predecessors in the same order. Its only change is the width of
-// the per-slot predecessor tables: NP = ceil(K_in / 5) int32 planes each of
-// pred_tab and pred_prev (plane p holds in-neighbours 5p to 5p + 4, 6 bits
-// each), kept as 2 (NP - 1) more shared slot tables after the node-end
-// buffer and written out as nm rows 4 .. 4 + 2 NP - 1. At NP = 1 the
-// template is the narrow route, whose plane loops run once. No bound on
-// K_in but shared memory: a slot's field stays 6 bits at any in-degree (a
-// 5-bit slot, Nm <= 32, and its valid bit), every loop over in-neighbours
-// runs to K_in, and the caller sizes LB so that the planes fit.
+// same predecessors in the same order. Its pred tables take NP = ceil(K_in /
+// 5) int32 planes each of pred_tab and pred_prev (plane p holds
+// in-neighbours 5p to 5p + 4, 6 bits each: a 5-bit slot, Nm <= 32, and its
+// valid bit), written to nm rows 4 .. 4 + 2 NP - 1 from the registers that
+// pack them; nothing reads them back. What bounds it is phase B's node
+// starts: a joining node merges each of its in-band predecessors in turn,
+// and the lanes of a warp that are not at a node start wait. So:
+// - phase A classifies each in-neighbour in O(1), through a per-lane hash
+//   table of both bands' node ids (HT_SIZE buckets, open addressing; the
+//   first slot holding a node wins, as the scans of the narrow route find
+//   it), each slot thread reading its own row eight entries at a time up to
+//   the row's -1 pad (rows are -1 padded at their end, as core/tables.py
+//   builds them), and keeps each slot's in-band predecessor slots as a
+//   compact list of bytes in in-neighbour order (at most Nm a slot: more
+//   than Nm in-band entries needs a repeated in-neighbour, and such a slot
+//   reads its row again at its node start, through the same table);
+// - phase B's node starts loop over that list only;
+// - a block carries fewer lanes (WIDE_LANES in ops/banded_cell.py), so
+//   fewer lanes share phase B's warp and more blocks fill the SMs.
+// Its shared memory no longer grows with K_in: no in-degree bound is left.
 #include <cuda_runtime.h>
 
 #include "wordops.cuh"
@@ -81,15 +92,44 @@
 enum {
   T_IDS, T_PIDS, T_PEND, T_LEN, T_CUM, T_START, T_INPREV, T_PBASE, T_PSEUDO,
   T_PTAB, T_PPREV, T_SRC, T_POFF, T_NMIN, T_BUF,  // T_BUF: 7 tables
-  T_SLOTS = T_BUF + 7  // then, wide: pred_tab planes 1.., pred_prev 1..
+  T_SLOTS = T_BUF + 7
 };
+// wide: T_PTAB holds a slot's in-band list length (-1: read the row), and
+// the hash table's keys and values follow the lane words, then the lists
 
-// the shared table of pred_tab's (pred_prev's) plane p
-__device__ __forceinline__ int t_ptab(int p) {
-  return p == 0 ? T_PTAB : T_SLOTS + p - 1;
+#define HT_SIZE 128  // hash buckets a lane, for at most 2 Nm = 64 keys
+
+__device__ __forceinline__ uint32_t ht_hash(int32_t x) {
+  return ((uint32_t)x * 2654435769u) >> 25;  // 7 bits
 }
-__device__ __forceinline__ int t_pprev(int p, int NP) {
-  return p == 0 ? T_PPREV : T_SLOTS + NP - 1 + p - 1;
+
+// The value of node x (>= 0) in a lane's table: the first current slot
+// holding it | valid << 5 in bits 0-5, the first previous slot | valid << 5
+// in bits 8-13; 0 when neither band holds it.
+__device__ __forceinline__ int32_t ht_get(const int32_t *hk,
+                                          const int32_t *hv, int LB, int l,
+                                          int32_t x) {
+  uint32_t h = ht_hash(x);
+  while (true) {
+    const int32_t k = hk[h * LB + l];
+    if (k == x) return hv[h * LB + l];
+    if (k == SC_EMPTY) return 0;
+    h = (h + 1) & (HT_SIZE - 1);
+  }
+}
+
+// Adds `bits` to node x's value (inserting x). One thread a key at a time.
+__device__ __forceinline__ void ht_put(int32_t *hk, int32_t *hv, int LB,
+                                       int l, int32_t x, int32_t bits) {
+  uint32_t h = ht_hash(x);
+  while (true) {
+    const int32_t old = atomicCAS(&hk[h * LB + l], SC_EMPTY, x);
+    if (old == SC_EMPTY || old == x) {
+      hv[h * LB + l] |= bits;
+      return;
+    }
+    h = (h + 1) & (HT_SIZE - 1);
+  }
 }
 
 template <bool WIDE>
@@ -123,9 +163,13 @@ __global__ void slice_cells_kernel(
     int LB) {
   extern __shared__ int32_t sm[];
   const int NP = WIDE ? (K_in + 4) / 5 : 1;  // pred planes
-  int32_t *sm_m1 = sm + (T_SLOTS + 2 * (NP - 1)) * Nm * LB;  // [Cm][LB]
+  int32_t *sm_m1 = sm + T_SLOTS * Nm * LB;  // [Cm][LB]
   int32_t *sm_oe = sm_m1 + Cm * LB;         // [Cm][LB]
   int32_t *sm_lane = sm_oe + Cm * LB;       // [12][LB]: eq lo/hi x 5, c_used, fail
+  // wide: the hash tables [HT_SIZE][LB] and the in-band lists [Nm * Nm][LB]
+  int32_t *sm_hk = sm_lane + 12 * LB;
+  int32_t *sm_hv = sm_hk + HT_SIZE * LB;
+  uint8_t *sm_list = (uint8_t *)(sm_hv + HT_SIZE * LB);
   const size_t sB = (size_t)B;
 
   // ---- phase A: one warp per lane, one thread per slot
@@ -178,29 +222,97 @@ __global__ void slice_cells_kernel(
         sm_lane[11 * LB + l] = 0;
       }
       __syncwarp();
+      if constexpr (WIDE) {
+        // the lane's hash table of both bands' ids: the lowest slot of
+        // each distinct id inserts it (the first slot holding it wins)
+        for (int h = j; h < HT_SIZE; h += 32) {
+          sm_hk[h * LB + l] = SC_EMPTY;
+          sm_hv[h * LB + l] = 0;
+        }
+        __syncwarp();
+        const unsigned below = (1u << j) - 1u;
+        const unsigned same = __match_any_sync(SC_FULL, id);
+        if (valid && !(same & below)) ht_put(sm_hk, sm_hv, LB, l, id, j | 32);
+        __syncwarp();
+        const unsigned psame = __match_any_sync(SC_FULL, pid);
+        if (pvalid && !(psame & below))
+          ht_put(sm_hk, sm_hv, LB, l, pid, (j | 32) << 8);
+        __syncwarp();
+      }
       if (sj) {
-        // previous-band match: the first previous slot holding this node
         bool inprev = false;
         int prev_slot = 0;
-        for (int i = 0; i < Nm; ++i) {
-          const int32_t q = SLOT(T_PIDS, i);
-          if (valid && q < SC_EMPTY && q == id) {
-            inprev = true;
-            prev_slot = i;
-            break;
+        if constexpr (WIDE) {
+          const int32_t v = valid ? ht_get(sm_hk, sm_hv, LB, l, id) : 0;
+          inprev = (v >> 13) & 1;
+          prev_slot = (v >> 8) & 31;
+        } else {
+          // previous-band match: the first previous slot holding this node
+          for (int i = 0; i < Nm; ++i) {
+            const int32_t q = SLOT(T_PIDS, i);
+            if (valid && q < SC_EMPTY && q == id) {
+              inprev = true;
+              prev_slot = i;
+              break;
+            }
           }
         }
         SLOT(T_INPREV, j) = inprev;
         SLOT(T_PBASE, j) = SLOT(T_POFF, prev_slot);
-        // in-neighbour classification, five in-neighbours a plane
         bool any_banded = false;
         int32_t pseudo = GA_INF;
         const bool act = active[b];
-        for (int p = 0; p < NP; ++p) {
+        if constexpr (WIDE) {
+          // in-neighbour classification: the row eight entries at a time,
+          // up to its -1 pad; pred planes packed in registers and stored
+          const int32_t *row = in_nbrs + (size_t)safe * K_in;
+          uint8_t *lst = sm_list + (size_t)j * Nm * LB + l;
           int32_t ptab = 0, pprev = 0;
-          for (int kk = 0; kk < 5; ++kk) {
-            const int k = 5 * p + kk;
-            if (k >= K_in) break;
+          int n_in = 0, p = 0, sh = 0;
+          bool more = valid;
+          for (int k0 = 0; more; k0 += 8) {
+            int32_t nbv[8];
+#pragma unroll
+            for (int u = 0; u < 8; ++u)
+              nbv[u] = k0 + u < K_in ? __ldg(row + k0 + u) : -1;
+#pragma unroll
+            for (int u = 0; u < 8; ++u) {
+              const int32_t nb = nbv[u];
+              if (nb < 0) {
+                more = false;
+                break;
+              }
+              const int32_t v = ht_get(sm_hk, sm_hv, LB, l, nb);
+              const int32_t fc = v & 63, fp = (v >> 8) & 63;
+              const bool in_cur = fc >> 5, in_prev = fp >> 5;
+              if (in_prev && !in_cur)
+                pseudo = min(pseudo, SLOT(T_PEND, fp & 31));
+              any_banded |= in_cur || in_prev;
+              if (in_cur) {
+                if (n_in < Nm) lst[(size_t)n_in * LB] = (uint8_t)(fc & 31);
+                ++n_in;
+              }
+              ptab |= fc << sh;
+              pprev |= fp << sh;
+              sh += 6;
+              if (sh == 30) {
+                nm[((4 + p) * Nm + j) * sB + b] = act ? ptab : 0;
+                nm[((4 + NP + p) * Nm + j) * sB + b] = act ? pprev : 0;
+                ++p;
+                ptab = pprev = sh = 0;
+              }
+            }
+          }
+          for (; p < NP; ++p) {  // the row's last plane, then empty ones
+            nm[((4 + p) * Nm + j) * sB + b] = act ? ptab : 0;
+            nm[((4 + NP + p) * Nm + j) * sB + b] = act ? pprev : 0;
+            ptab = pprev = 0;
+          }
+          SLOT(T_PTAB, j) = n_in <= Nm ? n_in : -1;
+        } else {
+          // in-neighbour classification, five in-neighbours a plane
+          int32_t ptab = 0, pprev = 0;
+          for (int k = 0; k < 5 && k < K_in; ++k) {
             const int32_t nb = valid ? in_nbrs[(size_t)safe * K_in + k] : -1;
             const bool nbv = nb >= 0 && valid;
             bool in_cur = false, in_prev = false;
@@ -224,13 +336,13 @@ __global__ void slice_cells_kernel(
             const int32_t pe = in_prev ? SLOT(T_PEND, pslot) : GA_INF;
             if (in_prev && !in_cur) pseudo = min(pseudo, pe);
             any_banded |= in_cur || in_prev;
-            ptab |= (cur_slot | ((int32_t)in_cur << 5)) << (6 * kk);
-            pprev |= (pslot | ((int32_t)in_prev << 5)) << (6 * kk);
+            ptab |= (cur_slot | ((int32_t)in_cur << 5)) << (6 * k);
+            pprev |= (pslot | ((int32_t)in_prev << 5)) << (6 * k);
           }
-          SLOT(t_ptab(p), j) = ptab;
-          SLOT(t_pprev(p, NP), j) = pprev;
-          nm[((4 + p) * Nm + j) * sB + b] = act ? ptab : 0;
-          nm[((4 + NP + p) * Nm + j) * sB + b] = act ? pprev : 0;
+          SLOT(T_PTAB, j) = ptab;
+          SLOT(T_PPREV, j) = pprev;
+          nm[(4 * Nm + j) * sB + b] = act ? ptab : 0;
+          nm[(5 * Nm + j) * sB + b] = act ? pprev : 0;
         }
         const bool band_source = !any_banded && valid;
         SLOT(T_PSEUDO, j) = pseudo;
@@ -341,28 +453,44 @@ __global__ void slice_cells_kernel(
             merged.sbs = sbs_f;
             merged.send = a_f + 63;
             merged.e = 0;
-            // in-band predecessor columns (getNodeStartSlice), a plane of
-            // five at a time
-            for (int p = 0; p < NP; ++p) {
-              const int32_t rp = SLOT(t_ptab(p), slot);
-              for (int kk = 0; kk < 5; ++kk) {
-                if (5 * p + kk >= K_in) break;
-                if (!((rp >> (6 * kk + 5)) & 1)) continue;
-                const int pslot = (rp >> (6 * kk)) & 31;
-                if (pslot >= slot) back_edge = true;
-                int32_t g[7] = {0, 0, 0, 0, 0, 0, 0};
-                if (pslot < Nm)
-                  for (int f = 0; f < 7; ++f) g[f] = SLOT(T_BUF + f, pslot);
-                Col adv;
-                int32_t a_send;
-                myers_advance((g[6] & 1) ? eq : (eq & ~1ull),
-                              ga_u64(g[0], g[1]), ga_u64(g[2], g[3]), g[5], 1,
-                              adv.vp, adv.vn, a_send);
-                adv.sbs = g[4] + 1;
-                adv.send = a_send;
-                adv.e = g[6];
-                merged = merge_slices(merged, adv);
+            // in-band predecessor columns (getNodeStartSlice), in
+            // in-neighbour order
+            auto merge_pred = [&](int pslot) {
+              if (pslot >= slot) back_edge = true;
+              int32_t g[7] = {0, 0, 0, 0, 0, 0, 0};
+              if (pslot < Nm)
+                for (int f = 0; f < 7; ++f) g[f] = SLOT(T_BUF + f, pslot);
+              Col adv;
+              int32_t a_send;
+              myers_advance((g[6] & 1) ? eq : (eq & ~1ull),
+                            ga_u64(g[0], g[1]), ga_u64(g[2], g[3]), g[5], 1,
+                            adv.vp, adv.vn, a_send);
+              adv.sbs = g[4] + 1;
+              adv.send = a_send;
+              adv.e = g[6];
+              merged = merge_slices(merged, adv);
+            };
+            if constexpr (WIDE) {
+              const int32_t n_in = SLOT(T_PTAB, slot);
+              if (n_in >= 0) {
+                const uint8_t *lst = sm_list + (size_t)slot * Nm * LB + l;
+                for (int i = 0; i < n_in; ++i) merge_pred(lst[(size_t)i * LB]);
+              } else {
+                // more in-band entries than slots: the row again
+                const int32_t *row =
+                    in_nbrs + (size_t)min(max(SLOT(T_IDS, slot), 0), N - 1) *
+                                  K_in;
+                for (int k = 0; k < K_in; ++k) {
+                  const int32_t nb = row[k];
+                  if (nb < 0) break;
+                  const int32_t v = ht_get(sm_hk, sm_hv, LB, l, nb);
+                  if (v & 32) merge_pred(v & 31);
+                }
               }
+            } else {
+              const int32_t rp = SLOT(T_PTAB, slot);
+              for (int k = 0; k < 5 && k < K_in; ++k)
+                if ((rp >> (6 * k + 5)) & 1) merge_pred((rp >> (6 * k)) & 31);
             }
             n.vp = merged.vp;
             n.vn = merged.vn;

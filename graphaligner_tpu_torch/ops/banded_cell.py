@@ -25,10 +25,14 @@ take ``pred_words(K_in)`` int32 planes: plane p holds in-neighbours 5p to
 30-31 clear. One plane is the JAX package's word; past 5 in-neighbours the
 JAX word keeps only the first five and two bits of the sixth, and nothing
 reads it there (its walk reads bands and columns). A 6-bit slot (Nm = 64)
-would take 7-bit fields, 4 a plane, in the same plane layout. The planes
-live in shared memory on the card (``slice_smem``): the launch halves the
-lanes a block down to one, and raises ``NotImplementedError`` naming the
-in-degree, Cm, Nm and bytes where one lane's tables do not fit.
+would take 7-bit fields, 4 a plane, in the same plane layout. On the card
+the wide route writes the planes out and keeps in shared memory only a
+hash table of the bands' node ids and each slot's in-band predecessors as
+a list of bytes (``slice_smem``), so its shared bytes do not grow with the
+in-degree; it reads ``in_nbrs`` rows up to their first -1, as
+``core/tables.py`` pads them. Where one lane's tables do not fit a block
+(only at a Cm past any tier), the launch raises ``NotImplementedError``
+naming the in-degree, Cm, Nm and bytes.
 """
 
 from __future__ import annotations
@@ -63,9 +67,14 @@ LAUNCHES = 0
 LAUNCHES_WIDE = 0
 NARROW_K_IN = PRED_PER_WORD  # the widest in-degree of one pred word
 
-# read lanes a block carries (one warp of slot threads each); fewer when a
-# block's tables would not fit in shared memory
+# read lanes a block carries (one warp of slot threads each): the narrow
+# route's SLICE_LANES; the wide route's WIDE_LANES, fewer, so that fewer
+# lanes share the warp of the serial cell pass, whose node starts merge
+# many predecessors, and more blocks fill the SMs (chosen on the card by
+# compare_k1_proj.py --lanes); halved when a block's tables would not fit
 SLICE_LANES = 8
+WIDE_LANES = 1
+HT_SIZE = 128  # the wide route's hash buckets a lane (csrc/banded_cell.cu)
 SMEM_LIMIT = 232448  # dynamic shared memory a Hopper block can opt into
 
 _INPUTS = ("ids", "proj_over", "p_ids", "p_node_min", "p_node_end",
@@ -127,18 +136,22 @@ def slice_cells(ids, proj_over, p_ids, p_node_min, p_node_end, p_cell_send,
 
 def slice_smem(Nm: int, Cm: int, lanes: int, K_in: int = 1) -> int:
     """Shared bytes of a ``slice_cells`` block of ``lanes`` lanes: 21
-    [Nm] slot tables (the node-end buffer's 7 and one plane each of
-    pred_tab and pred_prev among them), the further pred planes, 2 [Cm]
-    cell tables and 12 words a lane (csrc/banded_cell.cu)."""
-    extra = 2 * (pred_words(K_in) - 1)
-    return 4 * lanes * ((21 + extra) * Nm + 2 * Cm + 12)
+    [Nm] slot tables (the node-end buffer's 7 among them), 2 [Cm] cell
+    tables and 12 words a lane; on the wide route (K_in past 5) also a
+    hash table of 2 HT_SIZE words and the in-band lists, Nm bytes a slot
+    (csrc/banded_cell.cu)."""
+    words = 21 * Nm + 2 * Cm + 12
+    if K_in <= NARROW_K_IN:
+        return 4 * lanes * words
+    return lanes * (4 * (words + 2 * HT_SIZE) + Nm * Nm)
 
 
 def slice_lanes(Nm: int, Cm: int, K_in: int) -> int:
-    """Lanes a ``slice_cells`` block carries: SLICE_LANES, halved until the
-    block's tables fit in shared memory. Raises NotImplementedError, naming
-    the limit, where one lane's do not."""
-    LB = SLICE_LANES
+    """Lanes a ``slice_cells`` block carries: SLICE_LANES (WIDE_LANES past
+    5 in-neighbours), halved until the block's tables fit in shared
+    memory. Raises NotImplementedError, naming the limit, where one lane's
+    do not."""
+    LB = WIDE_LANES if K_in > NARROW_K_IN else SLICE_LANES
     while LB > 1 and slice_smem(Nm, Cm, LB, K_in) > SMEM_LIMIT:
         LB //= 2
     if slice_smem(Nm, Cm, LB, K_in) > SMEM_LIMIT:

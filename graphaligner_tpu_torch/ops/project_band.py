@@ -22,9 +22,13 @@ batch, as in the JAX ``while_loop``.
 A CUDA tensor launches ``csrc/project_band.cu``: one warp a lane relaxes
 it to its own stop and marks the batch's iteration count in a device word;
 a second launch takes the lanes that are not live on to that count. The
-host never waits. A CPU tensor runs ``project_band_plain``: the same
-relaxation in torch ops, with the dedup as one stable sort on an int64
-(rank, pri) key, at ``I_PROJ`` fixed trips masked by a device-side flag.
+host never waits. Each trip the kernel sorts the lane's valid entries on
+one 64-bit key (``sort_key``), which orders them as the plain version's
+stable sort does; it reads each out-neighbour row up to its first -1, as
+``core/tables.py`` pads them. A CPU tensor runs ``project_band_plain``:
+the same relaxation in torch ops, with the dedup as one stable sort on an
+int64 (rank, pri) key, at ``I_PROJ`` fixed trips masked by a device-side
+flag.
 """
 
 from __future__ import annotations
@@ -48,6 +52,10 @@ LAUNCHES = 0
 # read lanes a block carries, one warp each; fewer when a block's entry
 # tables would not fit in shared memory
 PROJ_LANES = 4
+# the kernel's sort key: topo rank in bits 32-62, pri in bits 22-31, the
+# entry's concatenation index in bits 0-21
+KEY_PRI_SHIFT = 22
+KEY_RANK_SHIFT = 32
 SMEM_LIMIT = 232448  # dynamic shared memory a Hopper block can opt into
 
 _INPUTS = ("p_ids", "p_node_min", "p_node_end", "p_min", "bw", "act",
@@ -63,7 +71,9 @@ def project_band(p_ids, p_node_min, p_node_end, p_min, bw, act, out_nbrs,
     minimum), bw [B] (this slice's bandwidth), act [B] bool (the lane is
     active this slice); the graph tables out_nbrs [N, K_out] (-1 pad),
     node_len and topo_rank [N] (ranks unique). int32 unless noted; the
-    [B, Nm] inputs may be views of any strides.
+    [B, Nm] inputs may be views of any strides. A slot's end score is at
+    least the band's minimum (as the scan's carries are), so every pri
+    lies in [0, INF_PRI), as the kernel's sort key needs.
 
     Returns (ids [B, Nm] int32, topo-sorted with EMPTY pad; over [B]
     bool). On the card ids is a view of an [Nm, B] tensor."""
@@ -91,11 +101,35 @@ def project_band(p_ids, p_node_min, p_node_end, p_min, bw, act, out_nbrs,
     return _launch(*args)
 
 
+def sort_key(rank, pri, idx):
+    """The kernel's sort key of an entry (int64 tensors or ints): its
+    node's topo rank (< 2**31), its pri (0 to PRI_RANGE - 1) and its
+    concatenation index (< 2**22: the slots, then each slot's
+    out-neighbours, slot-major). Keys are unique, and their order is the
+    order of a stable sort on (rank, pri) over the concatenated entries."""
+    return (rank << KEY_RANK_SHIFT) | (pri << KEY_PRI_SHIFT) | idx
+
+
 def project_smem(Nm: int, K_out: int, lanes: int) -> int:
-    """Shared bytes of a ``project_band`` block of ``lanes`` lanes: four
-    int32 fields (id, pri, outp, rank) of the E = Nm * (1 + K_out) entries
-    and three of the Nm new slots a lane (csrc/project_band.cu)."""
-    return 4 * lanes * (4 * Nm * (1 + K_out) + 3 * Nm)
+    """Shared bytes of a ``project_band`` block of ``lanes`` lanes: an
+    int64 key and two int32 fields (id, outp) of the E = Nm * (1 + K_out)
+    entries, and four [Nm] slot tables a lane (csrc/project_band.cu)."""
+    return lanes * (16 * Nm * (1 + K_out) + 16 * Nm)
+
+
+def project_lanes(Nm: int, K_out: int) -> int:
+    """Lanes a ``project_band`` block carries: PROJ_LANES, halved until the
+    block's tables fit in shared memory. Raises NotImplementedError, naming
+    the limit, where one lane's do not (past out-degree 452 at Nm=32)."""
+    LB = PROJ_LANES
+    while LB > 1 and project_smem(Nm, K_out, LB) > SMEM_LIMIT:
+        LB //= 2
+    if project_smem(Nm, K_out, LB) > SMEM_LIMIT:
+        raise NotImplementedError(
+            f"project_band: one lane's entries at out-degree {K_out}, "
+            f"Nm={Nm} take {project_smem(Nm, K_out, 1)} bytes of shared "
+            f"memory, past the {SMEM_LIMIT} a block holds")
+    return LB
 
 
 def _launch(p_ids, p_node_min, p_node_end, p_min, bw, act, out_nbrs,
@@ -103,13 +137,7 @@ def _launch(p_ids, p_node_min, p_node_end, p_min, bw, act, out_nbrs,
     global LAUNCHES
     B, Nm = p_ids.shape
     N, K_out = out_nbrs.shape
-    LB = PROJ_LANES
-    while LB > 1 and project_smem(Nm, K_out, LB) > SMEM_LIMIT:
-        LB //= 2
-    if project_smem(Nm, K_out, LB) > SMEM_LIMIT:
-        raise NotImplementedError(
-            f"project_band at out-degree {K_out} does not fit in shared "
-            "memory")
+    LB = project_lanes(Nm, K_out)
     dev = p_ids.device
     i32_ = torch.int32
     # the [B] vectors are read as they lie; the [B, Nm] ones by strides

@@ -118,17 +118,48 @@ def test_slice_cells_kernel_matches_plain_on_cyclic_back_edges(
         _k1_matches_plain(args, P_fix=1)
 
 
+def _repeat_in_neighbours(args, reps):
+    """Rewrites the in_nbrs rows of three nodes of the fullest lane's band:
+    each row lists a node of that band ``reps[i]`` times, then the row's
+    first other entries (``core/tables.py::pad_adj`` keeps an edge listed
+    twice, so a row may repeat an in-neighbour; rows stay -1 padded at
+    their end)."""
+    ids, in_nbrs = args[0], args[14]
+    K_in = in_nbrs.shape[1]
+    lane = int(np.argmax((ids < 2**31 - 1).sum(0)))
+    band = ids[:, lane][ids[:, lane] < 2**31 - 1]
+    assert len(band) > len(reps)
+    for i, n in enumerate(reps):
+        v, u = band[i + 1], band[i]
+        row = [x for x in in_nbrs[v] if x >= 0 and x != u][: K_in - n]
+        in_nbrs[v] = -1
+        in_nbrs[v, : n + len(row)] = [u] * n + row
+
+
 @pytest.mark.cuda
-@pytest.mark.parametrize("K_in", [2, 5, 8, 32])
-def test_slice_cells_kernel_matches_plain_random(cuda, K_in):
+@pytest.mark.parametrize("K_in,Cm,B", [(2, 288, 512), (5, 288, 512),
+                                       (8, 288, 512), (32, 288, 512),
+                                       (80, 288, 64), (80, 1152, 64),
+                                       (200, 1152, 64)],
+                         ids=["2", "5", "8", "32", "80", "80-Cm1152",
+                              "200-Cm1152"])
+def test_slice_cells_kernel_matches_plain_random(cuda, K_in, Cm, B):
     """The fused K1 on a seeded random graph of in-degree K_in, random
-    bands, carries and Eq windows, at Cm=288, Nm=32, B=512: the narrow
-    route at 2 and 5, the wide one (two and seven pred planes) at 8 and
-    32."""
-    rng = np.random.default_rng(K_in)
-    args = [torch.from_numpy(a).to(cuda)
-            for a in _random_slice_args(rng, 60, K_in, 32, 288, 512)]
-    _k1_matches_plain(args)
+    bands, carries and Eq windows, at Nm=32: the narrow route at 2 and 5,
+    the wide one at 8 and 32 (B=512, Cm=288) and at 80 and 200 (B=64, Cm
+    288 and 1152). Past 32 most rows keep 3 in-neighbours and every tenth
+    node its whole row (a joining node; the plain version's cost grows
+    with the in-neighbours any lane merges at a cell), and three rows
+    repeat an in-band in-neighbour: twice, three times and 40 times (more
+    in-band entries than a slot's list holds, so that node start reads its
+    row again)."""
+    rng = np.random.default_rng(K_in + Cm - 288)
+    args = _random_slice_args(rng, max(60, K_in + 40), K_in, 32, Cm, B)
+    if K_in > 32:
+        in_nbrs = args[14]
+        in_nbrs[np.arange(len(in_nbrs)) % 10 != 0, 3:] = -1
+        _repeat_in_neighbours(args, [2, 3, 40])
+    _k1_matches_plain([torch.from_numpy(a).to(cuda) for a in args])
 
 
 def _decode(graph, args, moves, used, lanes):
@@ -525,6 +556,58 @@ def test_project_band_kernel_matches_plain_past_32_out_neighbours(
         assert pb.LAUNCHES == n0 + 2
         p_ids, p_over = pb.project_band_plain(*args)
         assert torch.equal(ids, p_ids) and torch.equal(over, p_over)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("K_out", [2, 80, 452])
+def test_project_band_kernel_matches_plain_random(cuda, K_out):
+    """The projection kernel against project_band_plain, bit for bit, on a
+    seeded random graph of out-degree K_out (452: the most one lane's
+    entries fit in a block at Nm=32) with topo ranks near the big graph's
+    (2,625,000): 64 lanes of 32 slots, some inactive, some with few
+    slots; two slots of each lane share an out-neighbour and their end
+    score, so that node's entries tie in pri. Some lanes go over beside
+    live ones."""
+    from graphaligner_tpu_torch.ops import project_band as pb
+
+    rng = np.random.default_rng(K_out)
+    N, B, Nm, empty = 2 * K_out + 400, 64, 32, 2**31 - 1
+    node_len = rng.integers(1, 40, N)
+    topo_rank = 2_625_000 - N + rng.permutation(N)
+    out_nbrs = np.full((N, K_out), -1)
+    for v in range(N):
+        deg = int(rng.choice([0, 1, 2, K_out, rng.integers(0, K_out + 1)]))
+        out_nbrs[v, :deg] = rng.choice(N, deg, replace=False)
+    p_ids = np.full((B, Nm), empty)
+    p_nmin = rng.integers(0, 60, (B, Nm))
+    p_nend = p_nmin + rng.integers(0, 30, (B, Nm))
+    for b in range(B):
+        k = int(rng.integers(2, Nm + 1)) if b % 4 else int(rng.integers(2, 5))
+        band = rng.choice(N, k, replace=False)
+        p_ids[b, :k] = band[np.argsort(topo_rank[band])]
+        s1, s2 = rng.choice(k, 2, replace=False)
+        x = int(rng.integers(N))
+        for s in (s1, s2):
+            row = [y for y in out_nbrs[p_ids[b, s]] if y >= 0 and y != x]
+            out_nbrs[p_ids[b, s]] = -1
+            out_nbrs[p_ids[b, s], : len(row[: K_out - 1]) + 1] = \
+                [x] + row[: K_out - 1]
+        p_nend[b, s2] = p_nend[b, s1]
+        p_nmin[b, s2] = min(p_nmin[b, s2], p_nend[b, s2])
+    t = lambda a: torch.as_tensor(np.ascontiguousarray(a, np.int32),  # noqa
+                                  device=cuda)
+    p_min = np.where(p_ids < empty, p_nmin, 99).min(1)  # the band's minimum
+    args = (t(p_ids), t(p_nmin), t(p_nend), t(p_min),
+            t(rng.choice([5, 20, 35], B)),
+            torch.as_tensor(rng.random(B) < 0.85, device=cuda),
+            t(out_nbrs), t(node_len), t(topo_rank))
+    n0 = pb.LAUNCHES
+    ids, over = pb.project_band(*args)
+    torch.cuda.synchronize()
+    assert pb.LAUNCHES == n0 + 2
+    p_ids_, p_over = pb.project_band_plain(*args)
+    assert torch.equal(ids, p_ids_) and torch.equal(over, p_over)
+    assert bool(over.any()) and bool((~over & args[5]).any())
 
 
 @pytest.mark.cuda

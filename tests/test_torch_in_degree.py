@@ -610,21 +610,34 @@ def test_in_degree_33_aligns(tmp_path, monkeypatch):
 
 
 def test_launch_past_shared_memory_raises_naming_its_limit():
-    """What bounds the in-degree now is the card's shared memory: where
-    one lane's K1 tables do not fit in a block, the launch raises and
-    names the in-degree, the tier's Cm and Nm, and the bytes (K2's raise:
-    test_torch_walk_moves.py); below that the block's lanes halve."""
+    """What bounds the wide route is the card's shared memory, and its
+    tables no longer grow with the in-degree (a hash table of the bands'
+    ids and a list of Nm bytes a slot, the pred planes written straight
+    out): WIDE_LANES lanes a block at any in-degree and every tier; only a
+    Cm past any tier makes one lane's tables pass a block, and the launch
+    raises naming the in-degree, Cm, Nm and bytes (K2's raise:
+    test_torch_walk_moves.py); below that a block's lanes halve to fit (the
+    narrow route's 8 at Cm=4608)."""
     from graphaligner_tpu_torch.ops import banded_cell as k1
 
-    assert k1.slice_lanes(32, 288, 8) == k1.SLICE_LANES
-    assert 1 < k1.slice_lanes(32, 2304, 200) < k1.SLICE_LANES
-    K_in = 5 * (k1.SMEM_LIMIT // (8 * 32) + 2)
-    need = k1.slice_smem(32, 288, 1, K_in)
-    assert need > k1.SMEM_LIMIT
+    assert k1.slice_lanes(32, 288, 5) == k1.SLICE_LANES
+    assert k1.slice_lanes(32, 288, 8) == k1.WIDE_LANES
+    for K_in in (6, 200, 4131, 100_000):
+        assert k1.slice_smem(32, 2304, 1, K_in) == k1.slice_smem(32, 2304, 1,
+                                                                 6)
+        assert k1.slice_lanes(32, 2304, K_in) == k1.WIDE_LANES
+    assert k1.slice_smem(32, 288, 1, 6) == (
+        4 * (21 * 32 + 2 * 288 + 12 + 2 * k1.HT_SIZE) + 32 * 32)
+    assert 1 < k1.slice_lanes(32, 4608, 5) < k1.SLICE_LANES
+    Cm = 2304
+    while k1.slice_smem(32, Cm, 1, 80) <= k1.SMEM_LIMIT:
+        Cm += 64
+    assert k1.slice_lanes(32, Cm - 64, 80) == k1.WIDE_LANES
+    need = k1.slice_smem(32, Cm, 1, 80)
     with pytest.raises(NotImplementedError,
-                       match=f"in-degree {K_in}, Cm=288, Nm=32 take {need} "
+                       match=f"in-degree 80, Cm={Cm}, Nm=32 take {need} "
                              "bytes"):
-        k1.slice_lanes(32, 288, K_in)
+        k1.slice_lanes(32, Cm, 80)
 
 
 if __name__ == "__main__":

@@ -194,6 +194,49 @@ def test_project_band_wrapper_takes_plain_on_cpu():
         pb.project_band(*args[:5], args[5].int(), *args[6:])
 
 
+@pytest.mark.parametrize("top_rank", [2_625_000, 2**31 - 2])
+def test_sort_key_orders_as_the_stable_rank_pri_sort(top_rank):
+    """The kernel's packed key (rank << 32 | pri << 22 | concatenation
+    index) orders a lane's entries exactly as project_band_plain's stable
+    sort on rank * PRI_RANGE + pri: at the big graph's top rank and at the
+    int32 ceiling, pri 0 to INF_PRI - 1 with ties within a node, and
+    indices up to 2**22 - 1 (the entries a subsequence of the
+    concatenation, in its order)."""
+    rng = np.random.default_rng(top_rank % 1000)
+    n = 20_000
+    idx = np.sort(rng.choice(2**22, n, replace=False))
+    idx[0], idx[-1] = 0, 2**22 - 1
+    ranks = np.array([0, 1, top_rank - 1, top_rank] +
+                     list(rng.integers(0, top_rank, 60)), np.int64)
+    rank = torch.as_tensor(rng.choice(ranks, n))
+    pri = torch.as_tensor(rng.choice([0, 1, 511, 1021, pb.INF_PRI - 1], n))
+    key = pb.sort_key(rank, pri, torch.as_tensor(idx))
+    assert int(key.max()) < 2**63 and len(key.unique()) == n
+    want = torch.sort(rank * pb.PRI_RANGE + pri, stable=True).indices
+    assert torch.equal(torch.sort(key).indices, want)
+    assert pb.sort_key(top_rank, pb.INF_PRI - 1, 2**22 - 1) < \
+        pb.sort_key(top_rank + 1, 0, 0)
+
+
+def test_project_smem_and_its_raise_name_the_out_degree_limit():
+    """A projection block's shared bytes (an int64 key and two int32
+    fields an entry, four slot tables a lane), its lanes halving to fit,
+    and past out-degree 452 at Nm=32 the raise naming out-degree, Nm and
+    bytes."""
+    assert pb.project_smem(32, 2, 1) == 16 * 32 * 3 + 16 * 32
+    assert pb.project_lanes(32, 2) == pb.PROJ_LANES == 4
+    assert pb.project_lanes(32, 80) == 4
+    assert pb.project_lanes(32, 200) == 2
+    assert pb.project_lanes(32, 452) == 1
+    assert pb.project_smem(32, 452, 1) <= pb.SMEM_LIMIT
+    need = pb.project_smem(32, 453, 1)
+    assert need > pb.SMEM_LIMIT
+    with pytest.raises(NotImplementedError,
+                       match=f"out-degree 453, Nm=32 take {need} bytes"):
+        pb.project_lanes(32, 453)
+    assert pb.project_lanes(8, 453) == 2
+
+
 def test_reach_fits_at_the_packed_key_ceiling():
     assert reach_fits(CEILING - 2)
     assert not reach_fits(CEILING - 1)  # JAX: N >= I32MAX // PRI_RANGE - 1
