@@ -472,7 +472,7 @@ def compare_k1(call, rate, what):
     return err, ms, plain_ms, bms, by
 
 
-def k2_work(args, outs, decode, traces):
+def k2_work(args, outs, decode, traces, K_in):
     """(bytes, int32 operations) that one K2 call's walk needs, counted
     from the walk that ran. Bytes, per lane with a decoded trace: the packed
     column (20 B) of each cell (slice, position) the trace visits and of
@@ -483,10 +483,13 @@ def k2_work(args, outs, decode, traces):
     without a trace (its walk failed) counts one column and one code a step.
     Every lane reads its 19 state words and writes its moves up to its last
     step and 18 words of flags and state. Operations: K2_OPS_STEP a step,
-    K2_OPS_SLOT a band slot of each walked slice."""
+    K2_OPS_SLOT a band slot of each walked slice. The tables are in the
+    layout of the route at in-degree K_in (``walk_moves.lane_major``)."""
     import numpy as np
 
-    Nm = args[1].shape[1]
+    from graphaligner_tpu_torch.ops import walk_moves as k2
+
+    Nm = k2.table_dims(args, K_in)[2]
     used = outs[3][0].cpu().numpy().astype(np.int64)
     sk_in = args[10][0].cpu().numpy().astype(np.int64)
     sk_out = outs[2][0].cpu().numpy().astype(np.int64)
@@ -536,11 +539,16 @@ def k2_equal(got, want, what):
     return err
 
 
-def k2_lanes(args, n):
-    """A K2 call's first n lanes (every argument is lane-last but
-    bits_lut)."""
-    return [a if i == 6 else a[..., :n].contiguous()
-            for i, a in enumerate(args)]
+def k2_lanes(args, n, K_in=1):
+    """A K2 call's first n lanes at in-degree K_in (every argument is
+    lane-last but bits_lut and, on the wide route, the six tables, whose
+    lanes are axis 1); or of its four outputs."""
+    from graphaligner_tpu_torch.ops.walk_moves import lane_major
+
+    major = lane_major(K_in)
+    return [a if i == 6 and len(args) > 4
+            else a[:, :n].contiguous() if major and i < 6
+            else a[..., :n].contiguous() for i, a in enumerate(args)]
 
 
 def k2_decode(moves, used, decode):
@@ -601,11 +609,12 @@ def compare_k2(rec, rate, label="walk_moves"):
     args, kw, outs, decode, traces = largest
     if decode is None:
         fail("no lane of the widest K2 call was decoded")
-    K1_, _, Cm, B = args[0].shape
-    Nm, R = args[1].shape[1], args[6].shape[0]
-    smem = k2.smem_bytes(Cm, Nm, R, kw["K_in"])
+    K_in = kw["K_in"]
+    K, Cm, Nm, B = k2.table_dims(args, K_in)
+    buffers = 2 if k2.lane_major(K_in) else 1  # the wide route's two
+    smem = k2.smem_bytes(Cm, Nm, args[6].shape[0], K_in)
     ms = cuda_ms(lambda: k2.walk_moves(*args, **kw), 3)
-    moved, ops = k2_work(args, outs, decode, traces)
+    moved, ops = k2_work(args, outs, decode, traces, K_in)
     bms, by = bound(moved, ops, rate)
     steps = int(outs[3].max())
     print(f"K2 {label} (K_in {kw['K_in']}) vs walk_moves_plain(Bb=1) over "
@@ -613,19 +622,19 @@ def compare_k2(rec, rate, label="walk_moves"):
           f"calls: moves, fail, state_out and used bit-identical on all "
           f"{n_lanes} lanes (max abs err {err}); the plain walk's moves decode "
           f"to the main run's {n_traces} traces; "
-          f"one lane a block, one slice buffer, {smem} B shared; at "
-          f"K={K1_ - 1} Cm={Cm} B={B} kernel {ms:.3f} ms ({steps} steps in "
+          f"one lane a block, {buffers} slice buffer(s), {smem} B shared; "
+          f"at K={K} Cm={Cm} B={B} kernel {ms:.3f} ms ({steps} steps in "
           f"the longest lane, {ms * 1e6 / steps:.1f} ns a step), plain "
           f"{plain_ms:.1f} ms; bound {bms:.5f} ms by {by} ({moved} B, {ops} "
           f"int32 ops), share {bms / ms:.4f}", flush=True)
     n = min(256, B)
-    sub = k2_lanes(args, n)
+    sub = k2_lanes(args, n, K_in)
     ms_sub = cuda_ms(lambda: k2.walk_moves(*sub, **kw), 5)
     (lanes, *rest), dkw = decode
     keep = lanes < n
     sub_decode = ((lanes[keep], *[x[keep] for x in rest[:2]], *rest[2:]), dkw)
     m_sub, o_sub = k2_work(sub, k2_lanes(outs, n), sub_decode,
-                           tuple(x[keep] for x in traces))
+                           tuple(x[keep] for x in traces), K_in)
     b_sub, by_sub = bound(m_sub, o_sub, rate)
     print(f"K2 {label} at {n} of those lanes: kernel {ms_sub:.3f} ms; bound "
           f"{b_sub:.5f} ms by {by_sub} ({m_sub} B, {o_sub} int32 ops), share "
@@ -634,6 +643,64 @@ def compare_k2(rec, rate, label="walk_moves"):
         if "registers" in line or "stack" in line or "spill" in line:
             print(f"  [walk_moves ptxas] {line.strip()}", flush=True)
     return err, ms, plain_ms, bms, by
+
+
+class ConsolidationRecorder:
+    """Keeps, while ``corpus`` is set, the arguments of the widest call
+    (by gathered elements) of BandedBatchAligner._consolidate_walk, one a
+    corpus, and runs it again once that corpus's run has ended (``time``),
+    so that the run's wall holds no extra work. The kept lanes hold their
+    rounds' outputs on the card until then."""
+
+    def __init__(self):
+        from graphaligner_tpu_torch.core import batch_align as ba
+
+        self.corpus = None
+        self.calls = {}
+        self._cls = ba.BandedBatchAligner
+        orig = self.orig = self._cls._consolidate_walk
+
+        def rec(aligner, *args, **kw):
+            res = orig(aligner, *args, **kw)
+            old = self.calls.get(self.corpus)
+            if self.corpus is not None and (old is None
+                                            or res[0].numel() > old[0]):
+                self.calls[self.corpus] = (res[0].numel(),
+                                           tuple(res[0].shape), aligner,
+                                           args, kw)
+            return res
+
+        self._cls._consolidate_walk = rec
+
+    def close(self):
+        self._cls._consolidate_walk = self.orig
+
+    def time(self, corpus, fns, reps=3):
+        """(shape, [(name, seconds)]): the corpus's widest call through
+        each (name, consolidate function) of fns in turn, each the least
+        of reps runs on the host clock, synchronised before and after.
+        Drops the call."""
+        import torch
+
+        _, shape, aligner, args, kw = self.calls.pop(corpus)
+        times = []
+        for name, fn in fns:
+            best = float("inf")
+            for _ in range(reps):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                fn(aligner, *args, **kw)
+                torch.cuda.synchronize()
+                best = min(best, time.perf_counter() - t0)
+            times.append((name, best))
+        return shape, times
+
+
+def consolidation_line(what, shape, times, card):
+    return (f"_consolidate_walk on {what}'s widest walk call {shape}: "
+            + ", ".join(f"{k} {v:.4f} s" for k, v in times)
+            + f" (least of 3, host clock, synchronised, after the timed "
+              f"run) [{card}]")
 
 
 def k2_window_chain(rec):
@@ -1180,10 +1247,11 @@ def profile_seeded(device, corpus, card, label="with reach tables",
           f"aligner's set-up, {setup:.3f} s) "
           f"{1 - busy / (wall - setup):.3f} (profiled wall "
           f"{wall_prof:.3f} s) [{card}]", flush=True)
-    for kernel in ("slice_cells", "walk_moves", "project_band"):
+    for kernel in ("slice_cells", "walk_moves_kernel", "walk_moves_wide",
+                   "project_band"):
         ev = [e for e in events if kernel in e.name]
         if ev:
-            print(f"  {kernel}_kernel: {len(ev)} launches, "
+            print(f"  {kernel}: {len(ev)} launches, "
                   f"{sum(dev_us(e) for e in ev) / 1e3:.3f} ms summed device "
                   f"time [{card}]", flush=True)
     by_name = {}
@@ -1547,6 +1615,7 @@ def run_wide_path(device, card):
     pb.LAUNCHES = 0
     fb0 = ba.host_fallback_count()
     rec = Recorder()
+    cons = ConsolidationRecorder()
     try:
         for reach in (True, False):
             if not reach:
@@ -1554,8 +1623,10 @@ def run_wide_path(device, card):
             try:
                 for name, bw, ramp, golden in MA_CORPORA:
                     rec.on = reach and bw == 35
+                    cons.corpus = name if rec.on else None
                     results, wall, cells, info = run_corpus(
                         device, graph, reads, seeds, bw, ramp)
+                    cons.corpus = None
                     tag = "" if reach else ", GA_REACH_MAXN=0"
                     n_ok = check_golden(
                         name + tag, reads, names, results,
@@ -1568,9 +1639,14 @@ def run_wide_path(device, card):
                           f"Mbp in {wall:.2f} s (set-up {info['set-up']:.3f}"
                           f" s), peak device memory {info['peak'] / 2**20:.0f}"
                           f" MiB above the set-up [{card}]", flush=True)
+                    if name in cons.calls:
+                        print(consolidation_line(name, *cons.time(
+                            name, [("lane-major", cons.orig)]), card),
+                            flush=True)
             finally:
                 os.environ.pop("GA_REACH_MAXN", None)
     finally:
+        cons.close()
         rec.close()
     launches = {"slice_cells_wide": k1.LAUNCHES_WIDE,
                 "walk_moves_wide": k2.LAUNCHES_WIDE,
@@ -1615,8 +1691,10 @@ class ShapeRecorder:
             return self._orig[0](*args, **kw)
 
         def k2(*args, **kw):
-            count(("K2", args[0].shape[2], args[1].shape[1],
-                   args[6].shape[0], kw["K_in"]))
+            from graphaligner_tpu_torch.ops import walk_moves as k2mod
+
+            _, Cm, Nm, B = k2mod.table_dims(args, kw["K_in"])
+            count(("K2", Cm, Nm, args[6].shape[0], kw["K_in"], B))
             return self._orig[1](*args, **kw)
 
         def proj(*args, **kw):
@@ -1644,9 +1722,9 @@ class ShapeRecorder:
                         f"launches, {LB} lanes a block, "
                         f"{k1.slice_smem(Nm, Cm, LB, K_in)} B shared")
             elif key[0] == "K2":
-                _, Cm, Nm, R, K_in = key
-                what = (f"K2 wide at Cm={Cm} Nm={Nm} K_in={K_in}: {n} "
-                        f"launches, one lane a block, "
+                _, Cm, Nm, R, K_in, B = key
+                what = (f"K2 wide at Cm={Cm} Nm={Nm} K_in={K_in} B={B}: {n} "
+                        f"launches, one lane a block, two slice buffers, "
                         f"{k2.smem_bytes(Cm, Nm, R, K_in)} B shared "
                         f"({32 // k2.codes_per_word(K_in)}-bit move codes)")
             else:
@@ -1719,6 +1797,7 @@ def run_converging_path(device, card):
     rec.k1_tiers = {}
     prec = ProjRecorder()
     shapes = ShapeRecorder()
+    cons = ConsolidationRecorder()
     modes = [True, False]
     walls = None  # the first run's (wall, set-up), for the profile
     try:
@@ -1730,9 +1809,11 @@ def run_converging_path(device, card):
                 for name, bw, ramp, golden, corpus, host in corpora:
                     graph, reads, seeds, names = corpus
                     rec.on = rec.k1 is None
+                    cons.corpus = name if rec.on else None
                     prec.corpus = None if reach or prec.calls else name
                     results, wall, cells, info = run_corpus(
                         device, graph, reads, seeds, bw, ramp)
+                    cons.corpus = None
                     walls = walls or (wall, info["set-up"])
                     if reach and not info["reach"]:
                         # ensure_reach rejected the graph: every band is
@@ -1758,9 +1839,14 @@ def run_converging_path(device, card):
                           f"Mbp in {wall:.2f} s (set-up {info['set-up']:.3f}"
                           f" s), peak device memory {info['peak'] / 2**20:.0f}"
                           f" MiB above the set-up [{card}]", flush=True)
+                    if name in cons.calls:
+                        print(consolidation_line(name, *cons.time(
+                            name, [("lane-major", cons.orig)]), card),
+                            flush=True)
             finally:
                 os.environ.pop("GA_REACH_MAXN", None)
     finally:
+        cons.close()
         shapes.close()
         prec.close()
         rec.close()

@@ -1028,7 +1028,10 @@ class BandedBatchAligner:
         round's outputs (each shard's lanes from its device): (cols
         [K_max+1, 7, Cm, Bp], band, lens, pred, pred_prev [K_max+1, Nm,
         Bp], codes [K_max+1, 64, Bp] uint8), lane-padded to Bp, with entry
-        0 the walk's below-window pad slice."""
+        0 the walk's below-window pad slice; in the layout of K2's route
+        (``walk_moves.lane_major``): past 4 in-neighbours as the gather
+        yields them, lanes second (cols [K_max+1, Bp, 7, Cm], the others
+        [K_max+1, Bp, *])."""
         rounds = []
         for li in blk:
             for rec in lanes[li].accepted:
@@ -1053,24 +1056,29 @@ class BandedBatchAligner:
                     if rec.rnd is rnd:
                         lane_pos[bi] = rec.lane_in_round
                         break
-            m3 = torch.as_tensor(mask, device=dev)[:, None, :]
+            m = torch.as_tensor(mask, device=dev)
             gathered = [
-                rnd.out.take(key, steps, lane_pos, dev).permute(0, 2, 1)
+                rnd.out.take(key, steps, lane_pos, dev)
                 for key in ("band_ids", "lens_tab", "pred_tab", "pred_prev",
                             "codes")
             ]
-            cols = rnd.out.take("cols", steps, lane_pos, dev).permute(
-                0, 2, 3, 1)
+            cols = rnd.out.take("cols", steps, lane_pos, dev)
+            if _k2.lane_major(self.tables.k_in):
+                m3, m4 = m[:, :, None], m[:, :, None, None]
+            else:
+                m3, m4 = m[:, None, :], m[:, None, None, :]
+                gathered = [g_.permute(0, 2, 1) for g_ in gathered]
+                cols = cols.permute(0, 2, 3, 1)
             if tabs is None:
                 fills = (int(EMPTY), 0, 0, 0, 0)
                 tabs = [
                     torch.where(m3, g_, torch.full_like(g_, f))
                     for g_, f in zip(gathered, fills)
                 ]
-                cols_t = torch.where(m3[:, None], cols, torch.zeros_like(cols))
+                cols_t = torch.where(m4, cols, torch.zeros_like(cols))
             else:
                 tabs = [torch.where(m3, g_, a) for g_, a in zip(gathered, tabs)]
-                cols_t = torch.where(m3[:, None], cols, cols_t)
+                cols_t = torch.where(m4, cols, cols_t)
         band_t, lens_t, pred_t, pprev_t, codes_t = (
             t_.contiguous() for t_ in tabs
         )

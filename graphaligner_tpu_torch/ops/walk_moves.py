@@ -21,12 +21,17 @@ lane on its own: its plain version always has per-lane semantics
 ``W_cap = steps``.
 
 A CUDA tensor launches ``csrc/walk_moves.cu``: one lane a one-warp block,
-four threads weighing its in-neighbours (the wide route: the warp's 32,
-a chunk of 32 in-neighbours at a time), each slice's walk tables staged
+four threads weighing its in-neighbours, each slice's walk tables staged
 in shared memory (``smem_bytes``: 9.5 KB at Cm=288, 66 KB at Cm=2304),
 each lane with its own step budget, so a lane's moves carry no PAD
 nibbles. It reads the engine's 7-field columns and the uint8 codes as they
-are. A CPU tensor runs ``walk_moves_plain``, which keeps the TPU kernel's
+are. The wide route takes the six tables lane-major (``lane_major``, the
+layout of ``lane_major_tables``), on the card and on the CPU alike: the
+warp stages each slice in 16-byte pieces into one of two slice buffers,
+one slice ahead of the walk, and a node start weighs its slot's list of
+candidate in-neighbours, read from the pred planes as the slice lands;
+its shared bytes do not grow with the in-degree (70,720 at Cm=1152). A
+CPU tensor runs ``walk_moves_plain``, which keeps the TPU kernel's
 lockstep semantics block by block (``Bb`` lanes share one step counter and
 budget), so at the same block width its raw moves, fail flags and ``used``
 equal the JAX kernel's; at ``Bb=1`` it has the kernel's per-lane semantics
@@ -51,6 +56,7 @@ LAUNCHES = 0  # the 4-bit route's launches (K_in <= 4)
 LAUNCHES_WIDE = 0  # the wide route's launches (K_in past 4)
 NIBBLE_K_IN = 4  # the widest in-degree of the 4-bit move code
 BYTE_K_IN = 64  # the widest in-degree of the byte move code
+WIDEST_K_IN = 0x4000  # the widest in-degree of the 16-bit move code
 
 
 def codes_per_word(K_in: int) -> int:
@@ -105,6 +111,42 @@ def max_window_slices(Cm, Nm):
     return k
 
 
+def lane_major(K_in: int) -> bool:
+    """Whether a call at in-degree K_in takes its six tables lane-major
+    (``lane_major_tables``): the wide route, past NIBBLE_K_IN, does; the
+    narrow route takes them lane-last."""
+    return K_in > NIBBLE_K_IN
+
+
+def lane_major_tables(tables):
+    """The six walk tables of a call (cols [K+1, 7, Cm, B]; band, lens,
+    pred, pred_prev [K+1, *, B]; codes [K+1, 64, B]) in the lane-major
+    layout the wide route reads: cols [K+1, B, 7, Cm], the others [K+1, B,
+    *], so that a lane's slice is a few contiguous runs."""
+    cols, *rest = tables
+    return (cols.permute(0, 3, 1, 2).contiguous(),
+            *(t.permute(0, 2, 1).contiguous() for t in rest))
+
+
+def lane_last_tables(tables):
+    """The inverse of ``lane_major_tables``: the six tables lane-last, the
+    layout of the plain walk and the narrow route."""
+    cols, *rest = tables
+    return (cols.permute(0, 2, 3, 1).contiguous(),
+            *(t.permute(0, 2, 1).contiguous() for t in rest))
+
+
+def table_dims(args, K_in):
+    """(K, Cm, Nm, B) of a call's tables at in-degree K_in, in its
+    route's layout."""
+    cols, band = args[0], args[1]
+    if lane_major(K_in):
+        K1, B, _, Cm = cols.shape
+        return K1 - 1, Cm, band.shape[2], B
+    K1, _, Cm, B = cols.shape
+    return K1 - 1, Cm, band.shape[1], B
+
+
 def _prologue(cols_tab, codes8, bits_lut):
     """The plain version's inputs: the match-mask table [K+1, 64, B] and
     the 6-field columns [K+1, 6, Cm, B] (field 4 = sbs | e << 24, field 5 =
@@ -125,22 +167,32 @@ def _prologue(cols_tab, codes8, bits_lut):
 
 def _check(cols_tab, band_tab, lens_tab, pred_tab, pred_prev_tab, codes8,
            bits_lut, seq_len, seed_node, win_base, init_state, K_in):
-    K1, F, Cm, B = cols_tab.shape
-    Nm = band_tab.shape[1]
+    if cols_tab.dim() != 4 or band_tab.dim() != 3:
+        raise ValueError("walk_moves: cols_tab must be 4-D, band_tab 3-D")
+    major = lane_major(K_in)
+    K, Cm, Nm, B = table_dims((cols_tab, band_tab), K_in)
+    K1 = K + 1
     PN = pred_words(K_in) * Nm
-    if F != 7:
-        raise ValueError("walk_moves: cols_tab must be [K+1, 7, Cm, B]")
-    if K_in < 1:
-        raise ValueError("walk_moves: K_in must be at least 1")
+    if cols_tab.shape[2 if major else 1] != 7:
+        raise ValueError("walk_moves: cols_tab must be [K+1, 7, Cm, B], or "
+                         f"[K+1, B, 7, Cm] past {NIBBLE_K_IN} in-neighbours")
+    if not 1 <= K_in <= WIDEST_K_IN:
+        raise ValueError(f"walk_moves: K_in must be 1 to {WIDEST_K_IN} "
+                         "(16-bit move codes)")
     if Nm > 32:
         raise NotImplementedError("walk_moves packs pred slots in 5 bits")
+
+    def tab(n):
+        return (K1, B, n) if major else (K1, n, B)
+
     named = {
-        "cols_tab": (cols_tab, (K1, 7, Cm, B), torch.int32),
-        "band_tab": (band_tab, (K1, Nm, B), torch.int32),
-        "lens_tab": (lens_tab, (K1, Nm, B), torch.int32),
-        "pred_tab": (pred_tab, (K1, PN, B), torch.int32),
-        "pred_prev_tab": (pred_prev_tab, (K1, PN, B), torch.int32),
-        "codes8": (codes8, (K1, 64, B), torch.uint8),
+        "cols_tab": (cols_tab, (K1, B, 7, Cm) if major
+                     else (K1, 7, Cm, B), torch.int32),
+        "band_tab": (band_tab, tab(Nm), torch.int32),
+        "lens_tab": (lens_tab, tab(Nm), torch.int32),
+        "pred_tab": (pred_tab, tab(PN), torch.int32),
+        "pred_prev_tab": (pred_prev_tab, tab(PN), torch.int32),
+        "codes8": (codes8, tab(64), torch.uint8),
         "seq_len": (seq_len, (1, B), torch.int32),
         "seed_node": (seed_node, (1, B), torch.int32),
         "win_base": (win_base, (1, B), torch.int32),
@@ -164,7 +216,8 @@ def walk_moves(cols_tab, band_tab, lens_tab, pred_tab, pred_prev_tab, codes8,
     """cols_tab [K+1, 7, Cm, B] (entry 0 = the slice below the window),
     band/lens [K+1, Nm, B], pred/pred_prev [K+1, P * Nm, B], codes8 [K+1,
     64, B] uint8, bits_lut [R], seq_len/seed_node/win_base [1, B],
-    init_state [16, B]."""
+    init_state [16, B]; past NIBBLE_K_IN in-neighbours the six tables in
+    the layout of ``lane_major_tables``."""
     args = (cols_tab, band_tab, lens_tab, pred_tab, pred_prev_tab, codes8,
             bits_lut, seq_len, seed_node, win_base, init_state)
     _check(*args, K_in)
@@ -180,24 +233,29 @@ def walk_moves(cols_tab, band_tab, lens_tab, pred_tab, pred_prev_tab, codes8,
 
 
 SMEM_LIMIT = 232448  # dynamic shared memory a Hopper block can opt into
+LIST_CAP = 32  # node-start candidates a slot's list holds (csrc LCAP)
 
 
 def smem_bytes(Cm: int, Nm: int, R: int, K_in: int = 1) -> int:
-    """Shared memory of a launch (one lane a block): bits_lut, then the
-    lane's tables of one slice, 7 Cm column words, 9 (Nm + 1) band-table
-    words with one plane each of pred and pred_prev, their further planes
-    (Nm + 1 words each) and 64 code words."""
-    extra = 2 * (pred_words(K_in) - 1) * (Nm + 1)
-    return 4 * (-(-R // 4) * 4 + 7 * Cm + 9 * (Nm + 1) + extra + 64)
+    """Shared memory of a launch (one lane a block). The narrow route:
+    bits_lut, then the lane's tables of one slice, 7 Cm column words, 9
+    (Nm + 1) band-table words and 64 code words. The wide route, whatever
+    its in-degree: two slice buffers (the next slice lands while the lane
+    walks this one) of 7 Cm column words, four band tables and 16 code
+    words, then the derived tables (offsets, slot map, list counts, 64
+    match masks) and LIST_CAP candidates a slot."""
+    if K_in <= NIBBLE_K_IN:
+        return 4 * (-(-R // 4) * 4 + 7 * Cm + 9 * (Nm + 1) + 64)
+    nb = (Nm + 4) & ~3  # a slot table, in whole 16-byte pieces
+    return 4 * (2 * (7 * Cm + 4 * nb + 16) + 4 * nb + 64 + Nm * LIST_CAP)
 
 
 def _launch(cols_tab, band_tab, lens_tab, pred_tab, pred_prev_tab, codes8,
             bits_lut, seq_len, seed_node, win_base, init_state, *, K_in,
             W_cap, steps):
     global LAUNCHES, LAUNCHES_WIDE
-    K1, _, Cm, B = cols_tab.shape
-    K = K1 - 1
-    Nm = band_tab.shape[1]
+    wide = K_in > NIBBLE_K_IN
+    K, Cm, Nm, B = table_dims((cols_tab, band_tab), K_in)
     R = bits_lut.shape[0]
     if R > 256:
         raise ValueError("walk_moves: bits_lut has more than 256 entries")
@@ -208,6 +266,10 @@ def _launch(cols_tab, band_tab, lens_tab, pred_tab, pred_prev_tab, codes8,
             f"Nm={Nm} take {smem} bytes of shared memory, past the "
             f"{SMEM_LIMIT} a block holds"
         )
+    if wide and (Cm % 4 or cols_tab.data_ptr() % 16
+                 or codes8.data_ptr() % 16):
+        raise ValueError("walk_moves: the wide route copies 16-byte pieces: "
+                         "Cm a multiple of 4, tables 16-byte aligned")
     T_total = steps + 1
     per = codes_per_word(K_in)
     T_w = (T_total + per - 1) // per
@@ -216,7 +278,6 @@ def _launch(cols_tab, band_tab, lens_tab, pred_tab, pred_prev_tab, codes8,
     fail = torch.empty((1, B), dtype=torch.int32, device=dev)
     state_out = torch.empty((16, B), dtype=torch.int32, device=dev)
     used = torch.empty((1, B), dtype=torch.int32, device=dev)
-    wide = K_in > NIBBLE_K_IN
     lib = _build.library("walk_moves")
     fn = lib.ga_walk_moves_wide if wide else lib.ga_walk_moves
     fn.restype = ctypes.c_int
@@ -256,7 +317,13 @@ def walk_moves_plain(cols_tab, band_tab, lens_tab, pred_tab, pred_prev_tab,
     slice by slice from the top of the window, sharing one step counter
     (the move stream position) and one budget; an idle lane emits PAD.
     At Bb=1 every lane steps on its own, as the CUDA kernel and the JAX
-    package's XLA walk do."""
+    package's XLA walk do. It takes the tables in the route's layout
+    (``lane_major``) and walks lane-major ones after
+    ``lane_last_tables``."""
+    if lane_major(K_in):
+        (cols_tab, band_tab, lens_tab, pred_tab, pred_prev_tab,
+         codes8) = lane_last_tables((cols_tab, band_tab, lens_tab, pred_tab,
+                                     pred_prev_tab, codes8))
     K1, _, Cm, B = cols_tab.shape
     K = K1 - 1
     Nm = band_tab.shape[1]

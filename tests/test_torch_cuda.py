@@ -165,12 +165,14 @@ def test_slice_cells_kernel_matches_plain_random(cuda, K_in, Cm, B):
 def _decode(graph, args, moves, used, lanes):
     """Decoded traces {lane: (w, r)} of a K2 call's ``lanes`` (through
     native.decode_moves_batch, as core.batch_align decodes a walk block),
-    each from its start in the call's init_state; tensors or arrays."""
+    each from its start in the call's init_state; tensors or arrays, the
+    tables in the layout of the graph's route (``lane_major``)."""
     from graphaligner_tpu_torch.core.tables import build_graph_tables
     from graphaligner_tpu_torch.io import native
     from graphaligner_tpu_torch.ops.walk_moves import (
         code_bits,
         codes_per_word,
+        lane_major,
     )
 
     band, st = (np.asarray(a.cpu() if hasattr(a, "cpu") else a)
@@ -178,9 +180,10 @@ def _decode(graph, args, moves, used, lanes):
     moves = np.asarray(moves.cpu() if hasattr(moves, "cpu") else moves)
     used = np.asarray(used.cpu() if hasattr(used, "cpu") else used)
     lanes = np.asarray(lanes)
-    node = band[st[0, lanes], st[2, lanes], lanes]
-    start_w = np.asarray(graph.node_start)[node].astype(np.int64) + st[3, lanes]
     k_in = build_graph_tables(graph).k_in
+    node = (band[st[0, lanes], lanes, st[2, lanes]] if lane_major(k_in)
+            else band[st[0, lanes], st[2, lanes], lanes])
+    start_w = np.asarray(graph.node_start)[node].astype(np.int64) + st[3, lanes]
     per = codes_per_word(k_in)
     rows = min(moves.shape[0], int(np.max(used)) // per + 1)
     w, r, n = native.decode_moves_batch(
@@ -504,7 +507,10 @@ def test_walk_kernel_matches_plain_past_32_in_neighbours(cuda, monkeypatch,
     in-degree K x 64 reads of 1,000 bp, aligned on the card with no host
     fallback. Every K2 call bit for bit, codes included, equal to the
     plain walk at Bb=1, with moves through in-neighbours past 32 (past 64
-    at 70) among them; the decoded traces equal the plain walk's."""
+    at 70) among them; the decoded traces equal the plain walk's. Then the
+    widest call again with rows that repeat an in-band in-neighbour 2, 3
+    and 40 times (as the K1 random test's rows do), so that node-start
+    candidate lists pass 32: bit for bit the plain walk's."""
     from graphaligner_tpu_torch.core.tables import build_graph_tables
     from graphaligner_tpu_torch.ops import walk_moves as k2
 
@@ -533,6 +539,197 @@ def test_walk_kernel_matches_plain_past_32_in_neighbours(cuda, monkeypatch,
         _assert_traces_equal(_decode(graph, args, moves, used, live),
                              _decode(graph, args, plain[0], plain[3], live))
     assert max(ks) >= (64 if K > 64 else 32)
+    # the widest call with each slot's first in-band in-neighbour repeated
+    # 2, 3 or 40 times (by slot) before its row: node-start lists of up
+    # to 32 candidates with repeats, and past 32 (the whole row, in chunks)
+    args, kw, _ = max(walks, key=lambda w: w[0][0].numel())
+    rargs, rkw = _with_fields(args, kw, _repeat_first_in_band)
+    fp = _pred_fields(k2.lane_last_tables(rargs[:6])[3], rkw["K_in"],
+                      args[1].shape[2])
+    assert bool((((fp >> 5) & 1).sum(1) > 32).any())
+    out = _k2_matches_per_lane_plain(rargs, rkw)
+    assert not bool(out[1].all())
+
+
+def _pred_fields(planes, K, Nm):
+    """A lane-last [S, P * Nm, B] pred table as [S, K, Nm, B] int64 6-bit
+    fields (in-neighbour k's slot | valid << 5)."""
+    S, PN, B = planes.shape
+    w = planes.reshape(S, PN // Nm, Nm, B).to(torch.int64)
+    k = torch.arange(K, device=planes.device)
+    return (w[:, k // 5] >> (6 * (k % 5))[None, :, None, None]) & 63
+
+
+def _pred_planes(fields):
+    """The inverse of _pred_fields: [S, K, Nm, B] fields as [S, P * Nm, B]
+    int32 planes."""
+    S, K, Nm, B = fields.shape
+    w = torch.zeros((S, -(-K // 5), Nm, B), dtype=torch.int64,
+                    device=fields.device)
+    for k in range(K):
+        w[:, k // 5] |= fields[:, k] << (6 * (k % 5))
+    return w.to(torch.int32).reshape(S, -1, B)
+
+
+def _with_fields(args, kw, fn):
+    """A lane-major K2 call whose pred and pred_prev fields ([S, K, Nm, B]
+    each) fn rewrites, maybe to another in-degree: (args, kwargs)."""
+    from graphaligner_tpu_torch.ops import walk_moves as k2
+
+    assert k2.lane_major(kw["K_in"])
+    tabs = list(k2.lane_last_tables(args[:6]))
+    Nm = tabs[1].shape[1]
+    fp, fq = fn(_pred_fields(tabs[3], kw["K_in"], Nm),
+                _pred_fields(tabs[4], kw["K_in"], Nm))
+    tabs[3], tabs[4] = _pred_planes(fp), _pred_planes(fq)
+    return (list(k2.lane_major_tables(tabs)) + list(args[6:]),
+            {**kw, "K_in": fp.shape[1]})
+
+
+def _repeat_first_in_band(fp, fq, reps=(2, 3, 40)):
+    """Slot j's first in-band field (pred and pred_prev) put reps[j % 3]
+    times before its row, the rest of max(reps) front fields empty."""
+    ok = (fp >> 5) & 1
+    first = ok.argmax(1, keepdim=True)
+    has = ok.amax(1, keepdim=True)
+    j = torch.arange(fp.shape[2], device=fp.device)
+    n = torch.tensor(reps, device=fp.device)[j % len(reps)]
+    i = torch.arange(max(reps), device=fp.device)
+    take = (i[:, None] < n[None, :])[None, :, :, None]
+
+    def front(f):
+        return torch.cat([torch.where(take, f.gather(1, first) * has, 0), f],
+                         1)
+
+    return front(fp), front(fq)
+
+
+def _codes(moves, bits, n):
+    """The first n move codes of each lane of a [T_w, B] move stream."""
+    m = moves.to(torch.int64) & 0xFFFFFFFF
+    per = 32 // bits
+    c = torch.stack([(m >> (bits * j)) & ((1 << bits) - 1)
+                     for j in range(per)], 1)
+    return c.reshape(-1, moves.shape[1])[:n]
+
+
+def _row0_diagonals_made_prev_only(graph, args, kw, out):
+    """A lane-major wide K2 call in which each row-0 diagonal its walk
+    (outputs ``out``) took at a node start, from node v's first cell at
+    row 0 of slice q to in-neighbour u's last at row 63 of slice q - 1,
+    with u in band in both slices, goes through u as a prev-only
+    in-neighbour: for that lane, u's pred valid bit at v's slot of slice q
+    cleared, its pred_prev field kept. No H or D through u was legal at v's
+    start in q above row 0 (the walk went on to row 0 there), and the
+    prev-only D weighs and lands as the in-band one, so the walk stays the
+    same. Returns (args, kwargs, the number of diagonals changed)."""
+    from graphaligner_tpu_torch.core.tables import build_graph_tables
+
+    in_nbrs = build_graph_tables(graph).in_nbrs
+    start, end = np.asarray(graph.node_start), np.asarray(graph.node_end)
+    pos2node = np.asarray(graph.pos_to_node)
+    st = args[10].cpu().numpy()
+    live = np.nonzero((out[1][0].cpu().numpy() == 0) & (st[5] == 0))[0]
+    band = args[1].cpu().numpy()  # [K+1, B, Nm]
+    edits = []
+    for b, (w, r) in _decode(graph, args, out[0], out[3], live).items():
+        for i in range(1, len(w)):
+            v, u = pos2node[w[i]], pos2node[w[i - 1]]
+            if (r[i] % 64 or r[i - 1] != r[i] - 1 or w[i] != start[v]
+                    or w[i - 1] != end[u] - 1):
+                continue
+            ks = np.nonzero(in_nbrs[v] == u)[0]
+            js = np.nonzero(band[r[i] // 64 + 1, b] == v)[0]
+            if len(ks) and len(js):
+                edits.append((r[i] // 64 + 1, ks[0], js[0], b))
+    made = []
+
+    def fn(fp, fq):
+        fp = fp.clone()
+        for e in edits:
+            if fp[e] & 32 and fq[e] & 32:
+                fp[e] &= 31
+                made.append(e)
+        return fp, fq
+
+    args, kw = _with_fields(args, kw, fn)
+    return args, kw, len(made)
+
+
+@pytest.mark.cuda
+def test_walk_kernel_takes_prev_only_diagonal_past_32(cuda, monkeypatch,
+                                                      tmp_path):
+    """K2's wide route takes a row-0 diagonal into an in-neighbour present
+    only in the previous band (pred_prev), through an in-neighbour index
+    past 32: every K2 call of 64 reads over a seeded converging-tree graph
+    of in-degree 33, each row-0 diagonal its walk took at a node start
+    made prev-only (_row0_diagonals_made_prev_only), then its pred and
+    pred_prev fields moved 33 places up (in-degree 66, 16-bit codes; the
+    first 33 fields empty). Each call is bit for bit the plain walk's at
+    Bb=1 and the same walk as the recorded one (fail, state_out and used
+    equal, each node-start code through in-neighbour k there k + 33
+    here); and removing its prev-only fields changes the outputs, so the
+    prev-only diagonals were taken."""
+    from graphaligner_tpu_torch.ops import walk_moves as k2
+
+    graph, reads, seeds = _converging(33, 64, tmp_path, 233)
+    _, walks = _recorded_walks(cuda, graph, reads, seeds, 35, 0, monkeypatch)
+    shift = 33
+
+    def up(fp, fq):
+        z = torch.zeros_like(fp[:, :shift])
+        return torch.cat([z, fp], 1), torch.cat([z, fq], 1)
+
+    def no_prev_only(fp, fq):
+        return fp, torch.where((fp >> 5) & 1 == 1, fq, 0)
+
+    h0, d0 = k2.move_bases(33)
+    h1, d1 = k2.move_bases(33 + shift)
+    made = taken = 0
+    for args, kw, out in walks:
+        pargs, pkw, n = _row0_diagonals_made_prev_only(graph, args, kw, out)
+        sargs, skw = _with_fields(pargs, pkw, up)
+        assert skw["K_in"] == 66 and k2.code_bits(66) == 16
+        got = _k2_matches_per_lane_plain(sargs, skw)
+        for g, w in zip(got[1:], out[1:]):
+            assert torch.equal(g, w)
+        steps = int(out[3].max()) + 1
+        c = _codes(out[0], 8, steps)
+        want = torch.where((c >= h0) & (c < d0), c - h0 + h1 + shift, c)
+        want = torch.where(c >= d0, c - d0 + d1 + shift, want)
+        assert torch.equal(_codes(got[0], 16, steps), want)
+        nargs, nkw = _with_fields(sargs, skw, no_prev_only)
+        alt = k2.walk_moves(*nargs, **nkw)
+        made += n
+        taken += any(not torch.equal(a, b) for a, b in zip(got, alt))
+    assert made and taken
+
+
+@pytest.mark.cuda
+def test_wide_walk_kernel_at_top_capacity_tier(cuda, monkeypatch, tmp_path):
+    """K2's wide route at the top of the capacity ladder: the widest call
+    below it of 64 reads over a seeded converging-tree graph of in-degree
+    70, its first 128 lanes with their columns padded to Cm=2304 (two
+    slice buffers of them): bit for bit equal to the plain walk at Bb=1
+    and to the unpadded call's outputs."""
+    from graphaligner_tpu_torch.ops import walk_moves as k2
+
+    graph, reads, seeds = _converging(70, 64, tmp_path, 270)
+    _, walks = _recorded_walks(cuda, graph, reads, seeds, 35, 0, monkeypatch)
+    args, kw, _ = max((w for w in walks if w[0][0].shape[3] < 2304),
+                      key=lambda w: w[0][0].numel())
+    sub = [a if i == 6 else
+           (a[:, :128] if i < 6 else a[..., :128]).contiguous()
+           for i, a in enumerate(args)]
+    K1, B, F, Cm = sub[0].shape
+    assert Cm < 2304 and k2.lane_major(kw["K_in"])
+    padded = torch.zeros((K1, B, F, 2304), dtype=torch.int32, device=cuda)
+    padded[..., :Cm] = sub[0]
+    Nm = sub[1].shape[2]
+    assert k2.smem_bytes(2304, Nm, 0, 70) > 2 * 7 * 2304 * 4
+    out = _k2_matches_per_lane_plain([padded] + sub[1:], kw)
+    for g, w in zip(out, k2.walk_moves(*sub, **kw)):
+        assert torch.equal(g, w)
 
 
 @pytest.mark.cuda

@@ -448,7 +448,9 @@ def test_plain_wide_walk_matches_walk_batch(K, jobs):
     walk_batch on the same tables: every lane's trace and fail flag at
     walk_batch's budget (all lanes walk, through in-neighbours past 4) and
     at one the longest lane cannot meet (it fails in both, shorter lanes
-    walk)."""
+    walk). The stored tables are lane-last; the wide route takes them
+    lane-major (lane_major_tables), and the plain walk turns them back
+    (lane_last_tables), which inverts it."""
     from graphaligner_tpu_torch.core.batch_align import _walk_init_state
     from graphaligner_tpu_torch.io import native
     from graphaligner_tpu_torch.ops import walk_moves as k2
@@ -461,6 +463,9 @@ def test_plain_wide_walk_matches_walk_batch(K, jobs):
     B = len(steps)
     ref = runner.get(f"walk{K}")
     tabs = [torch.from_numpy(np.ascontiguousarray(a)) for a in ptabs]
+    major = k2.lane_major_tables(tabs)
+    assert all(torch.equal(g, w)
+               for g, w in zip(k2.lane_last_tables(major), tabs))
     row1 = lambda a: torch.from_numpy(  # noqa: E731
         np.ascontiguousarray(a, dtype=np.int32)[None])
     init = torch.from_numpy(_walk_init_state(
@@ -470,7 +475,7 @@ def test_plain_wide_walk_matches_walk_batch(K, jobs):
     for i, T in enumerate(budgets):
         n0 = k2.LAUNCHES + k2.LAUNCHES_WIDE
         moves, fail, _, used = k2.walk_moves(
-            *tabs, dt.bt_bits_lut, row1(args[1]), row1(seed_nodes),
+            *major, dt.bt_bits_lut, row1(args[1]), row1(seed_nodes),
             row1(np.zeros(B)), init, K_in=K, steps=T, W_cap=T)
         assert k2.LAUNCHES + k2.LAUNCHES_WIDE == n0  # the plain version
         assert moves.shape[0] == -(-(T + 1) // 4)

@@ -157,13 +157,15 @@ def test_plain_wide_walk_matches_walk_batch_past_32(K, tmp_path):
     lane walks) and at one the longest lane cannot meet (it fails in both,
     shorter lanes walk). Byte codes at 33, 16-bit codes at 70; moves
     through in-neighbours past 32 (past 64 at 70), so through K2's second
-    (third) chunk."""
+    (third) chunk. The stored tables are lane-last; the wide route takes
+    them lane-major (lane_major_tables)."""
     from graphaligner_tpu_torch.io import native
     from graphaligner_tpu_torch.ops import walk_moves as k2
 
     z, graph, tables = _unit(f"walk{K}", tmp_path)
     assert tables.k_in == K == int(z["k_in"])
     args = [torch.from_numpy(z[f"a{i}"]) for i in range(11)]
+    args[:6] = k2.lane_major_tables(args[:6])
     keeps = z["a10"][0].astype(np.int64)
     B = len(keeps)
     bits = k2.code_bits(K)

@@ -89,26 +89,88 @@ def test_walk_moves_plain_matches_jax_with_tight_budget(recorded):
 
 
 def test_walk_moves_refuses_wide_in_degree(recorded):
-    """The wide route's limit is shared memory, not a count of
-    in-neighbours: at in-degree 33 the call's one-plane pred tables are
-    refused for their shape (it takes seven), and a launch whose slice
-    tables do not fit in a block's shared memory raises, naming the
-    in-degree, Cm, Nm and bytes."""
+    """The wide route's limit is shared memory, and its shared bytes no
+    longer grow with the in-degree (its pred planes are read into
+    node-start lists, not staged): at in-degree 33 the call's one-plane
+    pred tables are refused for their shape (it takes seven), and past the
+    16-bit codes' 16,384 for the code width; a slice's tables at any
+    in-degree take what they take at 5; its two slice buffers fit the top
+    capacity tier (Cm=2304); only a Cm past any tier makes them pass a
+    block, and the launch raises, naming the in-degree, Cm, Nm and
+    bytes."""
     from graphaligner_tpu_torch.ops import walk_moves as k2
 
     args, kw = recorded[0]
     tensors = [torch.from_numpy(np.ascontiguousarray(a)) for a in args]
+    major = [*k2.lane_major_tables(tensors[:6]), *tensors[6:]]
     with pytest.raises(ValueError, match="pred_tab"):
-        walk_moves(*tensors, K_in=33)
-    K1, _, Cm, B = tensors[0].shape
-    Nm = tensors[1].shape[1]
-    K_in = 5 * (k2.SMEM_LIMIT // (8 * (Nm + 1)) + 2)
-    smem = k2.smem_bytes(Cm, Nm, tensors[6].shape[0], K_in)
-    assert smem > k2.SMEM_LIMIT
+        walk_moves(*major, K_in=33)
+    with pytest.raises(ValueError, match="16-bit move codes"):
+        walk_moves(*major, K_in=k2.WIDEST_K_IN + 1)
+    R = tensors[6].shape[0]
+    for K_in in (33, 200, k2.WIDEST_K_IN):
+        assert k2.smem_bytes(2304, 32, R, K_in) == k2.smem_bytes(
+            2304, 32, R, 5)
+    assert k2.smem_bytes(2304, 32, R, 80) <= k2.SMEM_LIMIT
+    Cm = 2304
+    while k2.smem_bytes(Cm, 32, R, 80) <= k2.SMEM_LIMIT:
+        Cm += 64
+    need = k2.smem_bytes(Cm, 32, R, 80)
+    z = torch.zeros
+    small = [z((2, 1, 7, Cm), dtype=torch.int32)] + [
+        z((2, 1, n), dtype=torch.int32) for n in (32, 32, 16 * 32, 16 * 32)
+    ] + [z((2, 1, 64), dtype=torch.uint8), tensors[6]] + [
+        z((1, 1), dtype=torch.int32)] * 3 + [z((16, 1), dtype=torch.int32)]
     with pytest.raises(NotImplementedError,
-                       match=f"in-degree {K_in}, Cm={Cm}, Nm={Nm} take "
-                             f"{smem} bytes"):
-        k2._launch(*tensors, K_in=K_in, W_cap=448, steps=100)
+                       match=f"in-degree 80, Cm={Cm}, Nm=32 take {need} "
+                             "bytes"):
+        k2._launch(*small, K_in=80, W_cap=448, steps=100)
+
+
+def _codes(moves, per, n):
+    """The first n move codes of each lane of a [T_w, B] int32 stream of
+    ``per`` codes a word: [n, B]."""
+    m = moves.to(torch.int64) & 0xFFFFFFFF
+    bits = 32 // per
+    shift = bits * torch.arange(per)
+    c = (m[:, None, :] >> shift[None, :, None]) & ((1 << bits) - 1)
+    return c.reshape(-1, m.shape[1])[:n]
+
+
+def test_walk_moves_lane_major_tables(recorded):
+    """The layout is the route's: lane_major_tables and lane_last_tables
+    invert each other and table_dims reads each route's layout. A narrow
+    call's tables, made lane-major and walked at in-degree 5 (the wide
+    route, byte codes; no table holds an in-neighbour 4), walk as the
+    narrow route walks them lane-last at Bb=1: the same fail flags, state
+    and used, and the same moves once each nibble code is recoded as its
+    byte code."""
+    from graphaligner_tpu_torch.ops import walk_moves as k2
+
+    args, kw = recorded[0]
+    tensors = [torch.from_numpy(np.ascontiguousarray(a)) for a in args]
+    major = k2.lane_major_tables(tensors[:6])
+    K1, _, Cm, B = tensors[0].shape
+    assert major[0].shape == (K1, B, 7, Cm) and major[0].is_contiguous()
+    for a, b in zip(k2.lane_last_tables(major), tensors[:6]):
+        assert torch.equal(a, b)
+    K_in = kw["K_in"]
+    assert K_in <= k2.NIBBLE_K_IN and not k2.lane_major(K_in)
+    assert k2.lane_major(k2.NIBBLE_K_IN + 1)
+    dims = k2.table_dims(tensors, K_in)
+    assert dims == k2.table_dims(major, 5) == (K1 - 1, Cm,
+                                               tensors[1].shape[1], B)
+    rest = {k: v for k, v in kw.items() if k != "K_in"}
+    want = walk_moves_plain(*tensors, K_in=K_in, Bb=1, **rest)
+    got = walk_moves(*major, *tensors[6:], K_in=5, **rest)
+    for g, w in zip(got[1:], want[1:]):
+        assert torch.equal(g, w)
+    n = int(want[3].max()) + 1
+    nib = _codes(want[0], 8, n)
+    recoded = torch.where(nib >= 12, nib - 12 + 128,
+                          torch.where(nib >= 8, nib - 8 + 64, nib))
+    assert torch.equal(_codes(got[0], 4, n), recoded)
+    assert (nib >= 8).any()  # moves through in-neighbours
 
 
 # ---------------------------------------------------------------- per lane
