@@ -73,6 +73,18 @@ GA_NO_FALLBACK=1:
   graph closed into a circle x 16 reads of 640 bp, half across the seam,
   every read byte for byte against the JAX-made goldens of
   tests/fixtures/torch/.
+- the per-read host path (``--backend oracle``, no device) through
+  align_reads on smallexample, sim -b 35 and sim -b 5 -B 20, the GAM and
+  the per-read GAM and trace files against the reference binary's goldens,
+  with the wall a read on the host clock; a named limit, with
+  GA_NO_FALLBACK unset for it alone and then set: multiallelic_small at
+  LONG_WINDOW 4 on the card launches the wide K1 and raises
+  NotImplementedError where the long walk would start, its message naming
+  --backend oracle, and nothing is realigned on the host; and the tools:
+  simulate_reads -> the CLI on the card (its first 8 reads byte for byte
+  against --backend oracle's) -> compare_alignments, with its counts.
+  These phases' launches are printed apart and not added to the kernels
+  line. Each phase's share of the wall is printed as it ends ([phase]).
 
 Each path's kernel launches are counted over its run (each must be > 0,
 the long path's K1 and K2 launches in long mode too; host-fallback lanes
@@ -111,7 +123,9 @@ when CUDA is unavailable or the repository is not beside this script.
 
 from __future__ import annotations
 
+import contextlib
 import copy
+import io
 import json
 import os
 import subprocess
@@ -143,6 +157,8 @@ CV_READS = 1000
 # past the 2,097,150 nodes from which the scan projects without reach
 BIG_SEGMENTS = 1_050_000
 BIG_MIN_NODES = 2_097_150
+# reads of the tools phase that the scalar oracle aligns again
+ORACLE_READS = 8
 
 # bound_ms: HBM rate of the H100 SXM (NVIDIA data sheet), and Hopper's 64
 # INT32 lanes per SM (the architecture white paper), times the SM count and
@@ -601,6 +617,7 @@ def compare_k2(rec, rate, label="walk_moves"):
         err = max(err, k2_equal(got, want, "from walk_moves_plain(Bb=1)"))
         if call is largest:
             plain_ms = ms_p
+            rec.k2_plain = want  # k2_top_tier holds its lanes against it
         n_lanes += got[1].shape[1]
         if decode is not None:
             k2_traces_equal(k2_decode(want[0], want[3], decode), traces,
@@ -743,8 +760,9 @@ def k2_window_chain(rec):
 
 def k2_top_tier(rec):
     """The widest call's first 128 lanes with their columns padded from Cm
-    to 2304, the top of the capacity ladder: bit for bit against
-    walk_moves_plain(Bb=1) and the unpadded call's outputs; timed."""
+    to 2304, the top of the capacity ladder: bit for bit against the
+    unpadded call's outputs and those lanes of the widest call's plain walk
+    (compare_k2's; at Bb=1 every lane walks alone); timed."""
     import torch
 
     from graphaligner_tpu_torch.ops import walk_moves as k2
@@ -757,7 +775,7 @@ def k2_top_tier(rec):
     padded[:, :, :Cm] = sub[0]
     top = [padded] + sub[1:]
     got = k2.walk_moves(*top, **kw)
-    k2_equal(got, k2.walk_moves_plain(*top, **kw, Bb=1),
+    k2_equal(got, k2_lanes(rec.k2_plain, 128),
              "from walk_moves_plain(Bb=1) at Cm=2304")
     k2_equal(got, k2.walk_moves(*sub, **kw), "at Cm=2304 from Cm=288")
     smem = k2.smem_bytes(2304, sub[1].shape[1], sub[6].shape[0])
@@ -2199,12 +2217,247 @@ def run_parallel_path(device, card, longsim, sim):
     return launches
 
 
+def _messages(path):
+    from graphaligner_tpu_torch.runtime.aligner import stream, vg
+
+    return [a.encode() for a in stream.read_messages(path, vg.Alignment)]
+
+
+def run_oracle_path(card):
+    """``--backend oracle``, the per-read host path (no device), through
+    align_reads on smallexample, sim -b 35 and sim -b 5 -B 20: the GAM and
+    every per-read GAM and trace file the golden directory holds, byte for
+    byte against the reference binary's goldens. Prints the wall a read on
+    the host clock (align_reads's, graph loading included)."""
+    from graphaligner_tpu_torch.core.params import AlignerParams
+    from graphaligner_tpu_torch.runtime.aligner import align_reads, load_fastq
+
+    sim = (f"{FIX}/sim/bubbles.vg", f"{FIX}/sim/sim.fastq",
+           f"{FIX}/sim/seeds.gam")
+    corpora = [
+        ("smallexample -b 35", (f"{FIX}/smallexample/sub_test.vg",
+                                f"{FIX}/smallexample/read.fastq",
+                                f"{FIX}/smallexample/seedalignment.gam"),
+         35, 0, f"{FIX}/golden/seeded.gam"),
+        ("sim -b 35", sim, 35, 0, f"{FIX}/sim/golden_b35/out.gam"),
+        ("sim -b 5 -B 20", sim, 5, 20, f"{FIX}/sim/golden_b5_B20/out.gam"),
+    ]
+    build = os.path.join(ROOT, "build")
+    os.makedirs(build, exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=build) as tmp:
+        for i, (name, (g, f, s), bw, ramp, golden) in enumerate(corpora):
+            work = os.path.join(tmp, str(i))
+            params = AlignerParams(
+                graph_file=g, fastq_file=f, seed_file=s,
+                alignment_file=os.path.join(work, "out.gam"),
+                initial_bandwidth=bw, ramp_bandwidth=ramp)
+            t0 = time.perf_counter()
+            alns = align_reads(params, log=lambda *a: None, output_dir=work,
+                               backend="oracle")
+            wall = time.perf_counter() - t0
+            with open(params.alignment_file, "rb") as a, \
+                    open(golden, "rb") as b:
+                if a.read() != b.read():
+                    fail(f"oracle {name}: the GAM differs from the golden")
+            files = 0
+            for read in load_fastq(f):
+                for fn in (f"alignment_0_{read.seq_id}.gam",
+                           f"trace_0_{read.seq_id}.trace"):
+                    want = os.path.join(os.path.dirname(golden), fn)
+                    if not os.path.exists(want):
+                        continue
+                    with open(os.path.join(work, fn), "rb") as a, \
+                            open(want, "rb") as b:
+                        if a.read() != b.read():
+                            fail(f"oracle {name}: {fn} differs from the "
+                                 "golden")
+                    files += 1
+            n = len(load_fastq(f))
+            print(f"oracle {name}: {len(alns)}/{n} aligned on the host, the "
+                  f"GAM and {files} per-read files byte-identical to the "
+                  f"reference goldens; {wall:.3f} s, {wall / n:.4f} s a read "
+                  f"on the host clock, graph loading included [{card}]",
+                  flush=True)
+
+
+def run_limit_path(device, card):
+    """A named limit of the device path: multiallelic_small (in-degree 8)
+    at -b 35 on ``device`` with LONG_WINDOW 4, so that the batched path
+    runs its wide K1 in long mode and raises NotImplementedError where the
+    long walk would start (it takes in-degree <= 4). The error reaches the
+    caller, its message naming --backend oracle, with GA_NO_FALLBACK unset
+    (for this phase only) and set alike: no read is realigned on the host
+    and no GAM is written. Returns the first run's launches, counted apart
+    from every other phase's."""
+    from graphaligner_tpu_torch.core import batch_align as ba
+    from graphaligner_tpu_torch.core.params import AlignerParams
+    from graphaligner_tpu_torch.ops import banded_cell as k1
+    from graphaligner_tpu_torch.ops import project_band as pb
+    from graphaligner_tpu_torch.ops import walk_moves as k2
+    from graphaligner_tpu_torch.runtime import aligner
+
+    d = f"{FIX}/torch/multiallelic_small"
+    saved_env = os.environ.pop("GA_NO_FALLBACK", None)
+    saved_window = ba.BandedBatchAligner.LONG_WINDOW
+    ba.BandedBatchAligner.LONG_WINDOW = 4
+    build = os.path.join(ROOT, "build")
+    os.makedirs(build, exist_ok=True)
+    raised = {}
+    try:
+        with tempfile.TemporaryDirectory(dir=build) as tmp:
+            for no_fallback in (None, "1"):
+                if no_fallback:
+                    os.environ["GA_NO_FALLBACK"] = no_fallback
+                work = os.path.join(tmp, str(no_fallback))
+                params = AlignerParams(
+                    graph_file=f"{d}/graph.gfa",
+                    fastq_file=f"{d}/reads.fastq",
+                    seed_file=f"{d}/seeds.gam",
+                    alignment_file=os.path.join(work, "out.gam"),
+                    initial_bandwidth=35)
+                k1.LAUNCHES = k1.LAUNCHES_WIDE = k2.LAUNCHES = 0
+                k2.LAUNCHES_WIDE = pb.LAUNCHES = 0
+                t0 = time.perf_counter()
+                try:
+                    aligner.align_reads(params, log=lambda *a: None,
+                                        output_dir=work, backend=device)
+                except NotImplementedError as e:
+                    raised[no_fallback] = (str(e), time.perf_counter() - t0)
+                else:
+                    fail(f"limit: the run went through (GA_NO_FALLBACK="
+                         f"{no_fallback})")
+                if no_fallback is None:
+                    launches = {"slice_cells": k1.LAUNCHES,
+                                "slice_cells_wide": k1.LAUNCHES_WIDE,
+                                "walk_moves": k2.LAUNCHES,
+                                "walk_moves_wide": k2.LAUNCHES_WIDE,
+                                "project_band": pb.LAUNCHES}
+                msg = raised[no_fallback][0]
+                if "in-degree <= 4" not in msg \
+                        or "--backend oracle" not in msg:
+                    fail(f"limit: the error does not name the limit and "
+                         f"--backend oracle: {msg}")
+                if os.path.exists(params.alignment_file) or (
+                        os.path.isdir(work) and any(
+                            n.startswith("alignment_0_")
+                            for n in os.listdir(work))):
+                    fail("limit: the run that raised wrote alignments")
+            if launches["slice_cells_wide"] < 1:
+                fail(f"limit: the wide K1 never launched before the raise: "
+                     f"{launches}")
+    finally:
+        ba.BandedBatchAligner.LONG_WINDOW = saved_window
+        if saved_env is None:
+            os.environ.pop("GA_NO_FALLBACK", None)
+        else:
+            os.environ["GA_NO_FALLBACK"] = saved_env
+    print(f"limit, multiallelic_small -b 35 at LONG_WINDOW 4 on {device}: "
+          f"the batched path raised after {launches['slice_cells_wide']} "
+          f"wide K1 launches ({launches}) in {raised[None][1]:.3f} s, with "
+          f"GA_NO_FALLBACK unset and set alike, nothing realigned or "
+          f"written [{card}]: {raised[None][0]}", flush=True)
+    return launches
+
+
+def run_tools_path(device, card):
+    """The tools around the aligner (tests/test_tools.py:169 at a larger
+    size): simulate_reads draws 50 reads of 300 bp from sim/bubbles.vg with
+    seeds, the CLI aligns them on ``device``, and compare_alignments scores
+    the device's GAM against the truth; every forward-strand read must
+    reach identity 0.7, as the test asks. The CLI with --backend oracle
+    aligns the first ORACLE_READS of them (the scalar oracle takes about
+    0.1 s a read), each message byte for byte the device's. Prints the
+    counts."""
+    from graphaligner_tpu_torch.ops import banded_cell as k1
+    from graphaligner_tpu_torch.ops import walk_moves as k2
+    from graphaligner_tpu_torch.runtime import cli
+    from graphaligner_tpu_torch.runtime.aligner import stream, vg
+    from graphaligner_tpu_torch.tools import compare_alignments, simulate_reads
+
+    graph = f"{FIX}/sim/bubbles.vg"
+    build = os.path.join(ROOT, "build")
+    os.makedirs(build, exist_ok=True)
+    cwd = os.getcwd()
+    with tempfile.TemporaryDirectory(dir=build) as tmp:
+        truth, reads, seeds = (os.path.join(tmp, n) for n in
+                               ("truth.gam", "reads.fastq", "seeds.gam"))
+        simulate_reads.main([graph, truth, reads, "50", "300", "0.02", "0.02",
+                             seeds, "0.02", "7"])
+        subset = os.path.join(tmp, "subset.fastq")
+        with open(reads) as src, open(subset, "w") as dst:
+            dst.writelines(src.readlines()[:4 * ORACLE_READS])
+        outs = {}
+        k1.LAUNCHES = k2.LAUNCHES = 0
+        for backend, fastq in ((device, reads), ("oracle", subset)):
+            work = os.path.join(tmp, backend)
+            os.makedirs(work)
+            os.chdir(work)  # the CLI writes its per-read files here
+            try:
+                t0 = time.perf_counter()
+                with contextlib.redirect_stdout(io.StringIO()):
+                    rc = cli.main(["-g", graph, "-f", fastq, "-s", seeds,
+                                   "-b", "35", "-a", "out.gam",
+                                   "--backend", backend])
+                outs[backend] = (os.path.join(work, "out.gam"),
+                                 time.perf_counter() - t0)
+            finally:
+                os.chdir(cwd)
+            if rc != 0:
+                fail(f"tools: the CLI exited {rc} on {backend}")
+            if backend == device:
+                launches = (k1.LAUNCHES, k2.LAUNCHES)
+        if min(launches) < 1:
+            fail(f"tools: K1 or K2 never launched on {device}: {launches}")
+        on_device = {a.name: a.encode() for a in stream.read_messages(
+            outs[device][0], vg.Alignment)}
+        host = stream.read_messages(outs["oracle"][0], vg.Alignment)
+        if len(host) != ORACLE_READS or any(
+                on_device.get(a.name) != a.encode() for a in host):
+            fail(f"tools: the {device} GAM differs from the oracle's on its "
+                 f"first {ORACLE_READS} reads")
+        printed = io.StringIO()
+        with contextlib.redirect_stdout(printed):
+            compare_alignments.main([truth, outs[device][0], graph])
+        # its last two lines: "good matches: N", "bad matches: M"
+        good, bad = (int(line.split(": ")[1])
+                     for line in printed.getvalue().splitlines()[-2:])
+        truths = stream.read_messages(truth, vg.Alignment)
+        pred = {a.name: a for a in stream.read_messages(outs[device][0],
+                                                        vg.Alignment)}
+        sizes = compare_alignments.node_sizes(
+            compare_alignments.load_vg_graph(graph))
+        forward = [t for t in truths
+                   if not t.path.mapping[0].position.is_reverse]
+        low = [t.name for t in forward if t.name not in pred
+               or compare_alignments.identity_percent(
+                   compare_alignments.alignment_identity(
+                       t, pred[t.name], sizes)) < 0.7]
+        if not forward or low:
+            fail(f"tools: forward-strand reads under identity 0.7: {low}")
+    print(f"tools: simulate_reads 50 x 300 bp -> CLI on {device} "
+          f"({outs[device][1]:.3f} s, K1 {launches[0]}, K2 {launches[1]} "
+          f"launches; its first {ORACLE_READS} reads byte-identical to "
+          f"--backend oracle's, {outs['oracle'][1]:.3f} s for those) -> "
+          f"compare_alignments: "
+          f"{len(pred)} aligned, good matches {good}, bad matches {bad}; all {len(forward)} forward-strand"
+          f" reads at identity >= 0.7 [{card}]", flush=True)
+
+
 def main() -> int:
     t_start = time.time()
     if not os.path.isdir(os.path.join(ROOT, "graphaligner_tpu_torch")):
         fail("graphaligner_tpu_torch/ is not beside this script")
     sys.path.insert(0, ROOT)
     os.environ["GA_NO_FALLBACK"] = "1"
+    t_phase = [t_start]
+
+    def stamp(phase):
+        """Splits the smoke's wall: each phase's share on the host clock."""
+        now = time.time()
+        print(f"[phase] {phase}: {now - t_phase[0]:.1f} s, {now - t_start:.0f}"
+              " s into the smoke", flush=True)
+        t_phase[0] = now
+
     import torch
 
     if not torch.cuda.is_available():
@@ -2245,6 +2498,7 @@ def main() -> int:
     for name, (secs, log) in _build.BUILD_LOG.items():
         for line in log.strip().splitlines():
             print(f"  [{name}] {line}", flush=True)
+    stamp("start-up and kernel builds")
 
     sim = load_corpus(f"{FIX}/sim/bubbles.vg", f"{FIX}/sim/sim.fastq",
                       f"{FIX}/sim/seeds.gam")
@@ -2295,17 +2549,22 @@ def main() -> int:
         fail(f"{fallbacks} lanes fell back to the host oracle")
     if rec.k1 is None or not rec.k2:
         fail("kernel arguments were not recorded")
+    stamp("seeded corpora")
     long_launches, lrec = run_long_path(device, card, ont)
+    stamp("long-read path")
     nr_launches, pb_calls, big = run_no_reach_path(device, card, longsim,
                                                    sim, ont)
+    stamp("no-reach path and the big graph")
     for name in ("slice_cells", "walk_moves"):
         launches[name] += long_launches[name] + nr_launches[name]
     launches["project_band"] = nr_launches["project_band"]
     wide_launches, wrec, ma = run_wide_path(device, card)
+    stamp("wide path (multiallelic)")
     for name in ("slice_cells_wide", "walk_moves_wide"):
         launches[name] = wide_launches[name]
     cv_launches, cvrec, cv_pb, cv, cv_walls = run_converging_path(device,
                                                                   card)
+    stamp("converging path")
     for name in ("slice_cells_wide", "walk_moves_wide", "project_band"):
         launches[name] += cv_launches[name]
 
@@ -2367,11 +2626,22 @@ def main() -> int:
         fail("a K3 route never launched on the -i path")
     if fallbacks:
         fail(f"{fallbacks} lanes fell back to the host oracle")
+    stamp("exhaustive -i")
 
     mesh_launches = run_parallel_path(device, card, longsim, sim)
     print(f"parallel path, longsim x10 on 2 shards: K1 {mesh_launches[0]}, "
           f"K2 {mesh_launches[1]}, projection {mesh_launches[2]} launches",
           flush=True)
+    stamp("parallel path")
+
+    # the per-read host path, a named limit and the tools; their launches
+    # are counted apart from the kernels line's
+    run_oracle_path(card)
+    stamp("per-read host path")
+    run_limit_path("cuda", card)
+    stamp("limit")
+    run_tools_path("cuda", card)
+    stamp("tools")
 
     check_redispatch(lrec)
     k2_long_err = compare_k2_long(lrec, card)
@@ -2379,16 +2649,19 @@ def main() -> int:
         fail("no long-mode K1 call of huge's widest tier was recorded")
     k1_long_err = compare_k1(lrec.k1, rate, "the last call of huge's widest "
                              "long-mode tier")[0]
+    stamp("long-mode checks against the plain versions")
     results = {
         "slice_cells": compare_k1(rec.k1, rate, "its widest longsim call"),
         "walk_moves": compare_k2(rec, rate),
         "exhaustive_wavefront": compare_k3(rec3, rate),
         "exhaustive_serial": compare_k3_cyclic(rec3, rate, card),
     }
+    stamp("K1, K2, K3 against the plain versions")
     results["slice_cells_wide"] = compare_k1(
         wrec.k1, rate, "the wide route's widest multiallelic call (K_in 8)")
     results["walk_moves_wide"] = compare_k2(wrec, rate, "walk_moves (wide)")
     results["project_band"], big_ms = compare_pb(pb_calls, rate, card)
+    stamp("wide K1, wide K2 and the projection against the plain versions")
     del pb_calls
     # the converging phase (in-degree 80): one recorded call of each
     cv_k_in = cvrec.k1[0][14].shape[1]
@@ -2407,6 +2680,7 @@ def main() -> int:
                  f"{cv_pb[0][6].shape[1]})")[0],
     ]
     del cvrec, cv_pb
+    stamp("the converging calls against the plain versions")
     for name, e in zip(("slice_cells_wide", "walk_moves_wide",
                         "project_band"), cv_errs):
         err, *rest = results[name]
@@ -2417,6 +2691,7 @@ def main() -> int:
           flush=True)
     k2_window_chain(rec)
     k2_top_tier(rec)
+    stamp("K2 window chain and top tier")
     profile_seeded(device, longsim, card)
     profile_seeded(device, ma, card, name="multiallelic x10")
     profile_seeded(device, cv, card, "no reach table",
@@ -2427,6 +2702,7 @@ def main() -> int:
         profile_seeded(device, longsim, card, "GA_REACH_MAXN=0")
     finally:
         del os.environ["GA_REACH_MAXN"]
+    stamp("profiles")
     pallas = "graphaligner_tpu/ops/pallas"
     sources = {
         "slice_cells": ("banded_cell.cu", f"{pallas}/banded_cell.py:44"),

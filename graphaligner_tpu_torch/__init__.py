@@ -17,13 +17,17 @@ counterpart is easy to find:
   graph/    graph loading and the runtime graph index
   io/       reads, vg messages, GAM streams, and the native host library
             (native/ga_native.cpp, built by io/native.py)
-  runtime/  align_reads and the CLI (seeded banded mode and -i)
+  runtime/  align_reads and the CLI (seeded banded mode and -i on a
+            device, and the per-read host path, --backend oracle)
+  parallel/ the device mesh and multi-process runs
+  tools/    the ecosystem tools (python -m graphaligner_tpu_torch.tools.X)
+  utils/    line-atomic logging and alignment metrics
 
 The port is self-contained: it imports neither jax nor
 ``graphaligner_tpu``. The jax-free host modules are copies of the JAX
 package's, each naming its source in its first line. Every entry point
 takes an explicit device: ``cuda`` runs the kernels, ``cpu`` runs their
-plain versions.
+plain versions, and the CLI's ``oracle`` aligns on the host alone.
 """
 
 __version__ = "0.1.0"

@@ -7,10 +7,12 @@ Replicates the reference's pipeline (GraphAligner.h):
                          BacktraceOverride windows (memory optimizations,
                          not value changes) are unnecessary host-side
   remove_wrongly_aligned_end ≡ 2554-2569
-  get_split_alignment  ≡ getSplitAlignment (2969-3024)
-  get_piecewise_traces_from_split ≡ getPiecewiseTracesFromSplit (3026-3098)
+  align_one_way_*      ≡ AlignOneWay (387-491), getSplitAlignment
+                         (2969-3024), getPiecewiseTracesFromSplit
+                         (3026-3098), getBacktraceFullStart (3100-3133)
   trace_to_alignment   ≡ traceToAlignment (782-847)
   get_trace_info       ≡ getTraceInfo/Inner (690-780)
+  merge_alignments     ≡ mergeAlignments (648-688)
 
 The slice computation is pluggable: the scalar oracle (core.oracle) is
 the specification; the batched TPU engine produces identical SliceScores.
@@ -18,6 +20,7 @@ the specification; the batched TPU engine produces identical SliceScores.
 
 from __future__ import annotations
 
+import time as _time
 from dataclasses import dataclass, field
 
 from ..graph.alignment_graph import AlignmentGraph
@@ -28,10 +31,12 @@ from .band import project_forward_from_min_score
 from .oracle import (
     SliceScores,
     compute_slice,
+    make_initial_slice_full_band,
     make_initial_slice_one_node,
 )
 from .params import BACKTRACE_OVERRIDE_CUTOFF, WORD_SIZE
 from .result import (
+    INT32_MAX,
     AlignmentResult,
     TraceItem,
     TraceMatchType,
@@ -331,6 +336,63 @@ def trace_to_alignment(
     return AlignmentResult(aln, False, cells_processed, INT_MAX)
 
 
+def merge_alignments(
+    graph: AlignmentGraph, first: AlignmentResult, second: AlignmentResult
+) -> AlignmentResult:
+    """Concatenate backward+forward piece alignments
+    (reference mergeAlignments, GraphAligner.h:648-688)."""
+    assert not first.alignment_failed or not second.alignment_failed
+    if first.alignment_failed:
+        return second
+    if second.alignment_failed:
+        return first
+    if not first.alignment.path.mapping:
+        return second
+    if not second.alignment.path.mapping:
+        return first
+    fa = first.alignment
+    # shallow merge: a fresh Alignment/Path with a fresh mapping LIST
+    # (shared Mapping objects — both pieces are discarded by callers);
+    # the old decode(encode()) deep copy cost ~2ms per long read
+    merged = vg.Alignment(
+        sequence=fa.sequence,
+        name=fa.name,
+        quality=fa.quality,
+        mapping_quality=fa.mapping_quality,
+        score=fa.score + second.alignment.score,
+        query_position=fa.query_position,
+        path=vg.Path(
+            name=fa.path.name,
+            mapping=list(fa.path.mapping),
+            is_circular=fa.path.is_circular,
+            length=fa.path.length,
+        ),
+    )
+    result = AlignmentResult(
+        alignment=merged,
+        alignment_failed=False,
+        cells_processed=first.cells_processed + second.cells_processed,
+        elapsed_milliseconds=first.elapsed_milliseconds + second.elapsed_milliseconds,
+    )
+    start = 0
+    first_end = first.alignment.path.mapping[-1].position
+    second_start = second.alignment.path.mapping[0].position
+    first_node = graph.node_lookup.get(first_end.node_id)
+    second_node = graph.node_lookup.get(second_start.node_id)
+    if (
+        first_end.node_id == second_start.node_id
+        and first_end.is_reverse == second_start.is_reverse
+    ):
+        start = 1
+    elif first_node is not None and second_node is not None and second_node in set(
+        int(x) for x in graph.out_neighbors(first_node)
+    ):
+        start = 0
+    for m in second.alignment.path.mapping[start:]:
+        result.alignment.path.mapping.append(m)
+    return result
+
+
 def get_trace_info(
     graph: AlignmentGraph, sequence: str, bwtrace: list, fwtrace: list
 ) -> list:
@@ -394,3 +456,130 @@ def _get_trace_info_inner(graph: AlignmentGraph, sequence: str, trace: list) -> 
             )
         )
     return result
+
+
+def align_one_way_full_band(
+    graph: AlignmentGraph,
+    seq_id: str,
+    sequence: str,
+    initial_bandwidth: int,
+    ramp_bandwidth: int,
+    slice_backend=compute_slice,
+) -> AlignmentResult:
+    """Full-band alignment: initial band = every node at score 0
+    (reference AlignOneWay/getBacktraceFullStart, GraphAligner.h:387-406,
+    3100-3133)."""
+    t0 = _time.time()
+    padded = _pad_to_word(sequence)
+    padding = len(padded) - len(sequence)
+    initial = make_initial_slice_full_band(graph)
+    table = get_table(
+        graph,
+        padded,
+        initial,
+        len(padded) // WORD_SIZE,
+        initial_bandwidth,
+        ramp_bandwidth,
+        slice_backend,
+    )
+    remove_wrongly_aligned_end(table)
+    score, trace = get_trace_from_table(graph, padded, table)
+    elapsed = int((_time.time() - t0) * 1000)
+    if score >= INT_MAX or not trace:
+        return empty_alignment(elapsed, 0)
+    while trace and trace[-1][1] >= len(padded) - padding:
+        trace.pop()
+    result = trace_to_alignment(graph, seq_id, sequence, score, trace, 0)
+    # the reference's no-seed path leaves AlignmentResult.trace empty
+    # (GraphAligner.h:387-406 never fills it) — replicated for parity
+    result.alignment_start = trace[0][1]
+    result.alignment_end = trace[-1][1]
+    result.elapsed_milliseconds = elapsed
+    return result
+
+
+def align_one_way_seeded(
+    graph: AlignmentGraph,
+    seq_id: str,
+    sequence: str,
+    initial_bandwidth: int,
+    ramp_bandwidth: int,
+    seed_hits: list,
+    slice_backend=compute_slice,
+    logger=None,
+) -> AlignmentResult:
+    """Seed-and-extend alignment over (node id, read pos, reverse) seeds
+    (reference AlignOneWay seeded, GraphAligner.h:408-491)."""
+    t0 = _time.time()
+    assert seed_hits
+    best_estimated = 0
+    best_seed = None
+    best_trace = None
+    tried: list = []  # (start read pos, end read pos, node index)
+    for i, (node_id, pos, reverse) in enumerate(seed_hits):
+        node_index = graph.node_lookup[node_id * 2]
+        if any(s <= pos <= e and n == node_index for (s, e, n) in tried):
+            if logger:
+                logger(f"seed {i} already aligned")
+            continue
+        if logger:
+            logger(
+                f"seed {i}/{len(seed_hits)} {node_id}{'-' if reverse else '+'},{pos}"
+            )
+        split = get_split_alignment(
+            graph,
+            sequence,
+            node_id,
+            reverse,
+            pos,
+            initial_bandwidth,
+            ramp_bandwidth,
+            slice_backend,
+        )
+        trace = get_piecewise_traces_from_split(graph, split, sequence)
+        _add_alignment_nodes(graph, tried, trace)
+        if best_trace is None or split.estimated_correctly_aligned() > best_estimated:
+            best_trace = trace
+            best_seed = (node_id, pos, reverse)
+            best_estimated = split.estimated_correctly_aligned()
+    elapsed = int((_time.time() - t0) * 1000)
+    if best_trace is None:
+        return empty_alignment(elapsed, 0)
+    (fw_score, fw_trace), (bw_score, bw_trace) = best_trace
+    if fw_score >= INT_MAX and bw_score >= INT_MAX:
+        return empty_alignment(elapsed, 0)
+    trace_vector = get_trace_info(graph, sequence, bw_trace, fw_trace)
+    fwresult = trace_to_alignment(graph, seq_id, sequence, fw_score, fw_trace, 0)
+    bwresult = trace_to_alignment(graph, seq_id, sequence, bw_score, bw_trace, 0)
+    if fwresult.alignment_failed and bwresult.alignment_failed:
+        return empty_alignment(elapsed, 0)
+    result = merge_alignments(graph, bwresult, fwresult)
+    result.trace = trace_vector
+    if bw_trace:
+        last_aligned = bw_trace[0][1]
+    else:
+        last_aligned = best_seed[1]
+    result.alignment.query_position = last_aligned
+    result.alignment_start = last_aligned
+    result.alignment_end = result.alignment_start + best_estimated
+    result.elapsed_milliseconds = elapsed
+    return result
+
+
+def _add_alignment_nodes(graph: AlignmentGraph, tried: list, trace) -> None:
+    """Record per-node read intervals of a trace so later seeds inside an
+    already-aligned region are skipped (reference addAlignmentNodes,
+    GraphAligner.h:593-633)."""
+    for _, t in (trace[0], trace[1]):
+        if not t:
+            continue
+        old_node = graph.index_to_node(t[0][0])
+        start_idx = end_idx = t[0][1]
+        for w, r in t[1:]:
+            node = graph.index_to_node(w)
+            if node != old_node:
+                tried.append((start_idx, end_idx, old_node))
+                start_idx = r
+                old_node = node
+            end_idx = r
+        tried.append((start_idx, end_idx, old_node))

@@ -6,6 +6,15 @@ through the batched engine (``core.batch_align``), and exhaustive mode
 Reads are aligned in chunks; per-read GAM and trace files and the final
 concatenated GAM are written exactly as the JAX package writes them.
 
+``backend="oracle"`` aligns read by read on the host through the scalar
+oracle (``core.align.align_one_way_seeded`` / ``align_one_way_full_band``),
+as the JAX package's ``--backend oracle`` does; it needs no device. It
+runs only when asked for: a ``NotImplementedError`` of the device paths
+(one of the port's named limits, such as the long walk past in-degree 4
+or a launch whose tables pass a block's shared memory) propagates, its
+message naming ``--backend oracle``, and nothing is realigned on the host
+(the JAX package realigns the run after any exception).
+
 ``mesh_axis="dp"`` splits every scan round's lanes over a device mesh
 (``parallel.mesh``; the seeded path only, as in the JAX package). With
 ``process_count`` > 1 each process aligns its share of the reads (strided,
@@ -17,9 +26,12 @@ and process 0 merges the shards after a barrier (``parallel.distributed``).
 from __future__ import annotations
 
 import os
+import sys
+import traceback
 from dataclasses import replace
 
 from .._device import get_device
+from ..core.align import align_one_way_full_band, align_one_way_seeded
 from ..core.params import AlignerParams
 from ..core.result import INT32_MAX
 from ..graph.bigraph import load_alignment_graph
@@ -98,8 +110,9 @@ def align_reads(
     process_count: int | None = None,
     shard_mode: str = "reads",
 ) -> list:
-    """Align all reads on ``backend`` ("cuda", or "cpu" for the kernels'
-    plain versions); returns the list of this process's output alignments.
+    """Align all reads on ``backend`` ("cuda", "cpu" for the kernels'
+    plain versions, or "oracle" for the per-read host path); returns the
+    list of this process's output alignments.
 
     mesh_axis "dp" runs the seeded path on a mesh of every visible card
     (of the one CPU device for backend "cpu"). With
@@ -137,9 +150,12 @@ def align_reads(
 def _align_reads_impl(params, log, output_dir, backend, device_batch,
                       mesh_axis, process_index, process_count, shard_mode,
                       shard_info) -> list:
-    device = get_device(backend)
+    # the per-read host path takes no device and no mesh, as in the JAX
+    # package
+    oracle = backend == "oracle"
+    device = None if oracle else get_device(backend)
     mesh = None
-    if mesh_axis and mesh_axis != "none":
+    if not oracle and mesh_axis and mesh_axis != "none":
         from ..parallel.mesh import make_mesh
 
         mesh = make_mesh(axis=mesh_axis,
@@ -204,15 +220,27 @@ def _align_reads_impl(params, log, output_dir, backend, device_batch,
     s = graph.stats
     log(f"{s.nodes} nodes\n{s.bp}bp\n{s.edges} edges\n"
         f"{s.high_in_degree_nodes} nodes with in-degree >= 2")
-    if seed_hits is None:
-        alignments = _align_reads_batched(
-            graph, fastqs, log, output_dir, device_batch, device
-        )
+    if oracle:
+        alignments = _align_reads_per_read(params, graph, fastqs, seed_hits,
+                                           log, output_dir)
     else:
-        alignments = _align_reads_seeded_batched(
-            params, graph, fastqs, seed_hits, log, output_dir, device_batch,
-            device, mesh,
-        )
+        try:
+            if seed_hits is None:
+                alignments = _align_reads_batched(
+                    graph, fastqs, log, output_dir, device_batch, device
+                )
+            else:
+                alignments = _align_reads_seeded_batched(
+                    params, graph, fastqs, seed_hits, log, output_dir,
+                    device_batch, device, mesh,
+                )
+        except NotImplementedError as e:
+            # a named limit of the device path: the host path is the
+            # caller's choice, never a silent one
+            raise NotImplementedError(
+                f"{e}; --backend oracle aligns these reads on the host, one "
+                "at a time"
+            ) from e
     log(f"final result has {len(alignments)} alignments")
     if params.alignment_file:
         stream.write_messages(params.alignment_file, alignments)
@@ -232,6 +260,61 @@ def _write_read(fastq, aln, trace, output_dir) -> None:
         os.path.join(output_dir, f"alignment_0_{name}.gam"), [aln]
     )
     write_trace(trace, os.path.join(output_dir, f"trace_0_{name}.trace"))
+
+
+def _align_reads_per_read(params, graph, fastqs, seed_hits, log,
+                          output_dir) -> list:
+    """The per-read host loop (JAX runtime/aligner.py:257-331): reads
+    popped from the back, each through the scalar oracle, a failure
+    failing only its read."""
+    from ..io import native
+
+    alignments: list = []
+    queue = list(fastqs)
+    while queue:
+        fastq = queue.pop()  # back-first, like the reference's shared stack
+        log(f"thread 0 {len(queue)} left")
+        log(f"read {fastq.seq_id} size {len(fastq.sequence)}bp")
+        # native crash attribution (reference assertSetRead,
+        # Aligner.cpp:121): a SIGSEGV inside a native call names this read
+        # and fails only it
+        native.set_read(fastq.seq_id)
+        try:
+            if seed_hits is None:
+                result = align_one_way_full_band(
+                    graph, fastq.seq_id, fastq.sequence,
+                    params.initial_bandwidth, params.ramp_bandwidth,
+                )
+            else:
+                if not seed_hits.get(fastq.seq_id):
+                    log(f"read {fastq.seq_id} has no seed hits")
+                    log(f"read {fastq.seq_id} alignment failed")
+                    continue
+                result = align_one_way_seeded(
+                    graph, fastq.seq_id, fastq.sequence,
+                    params.initial_bandwidth, params.ramp_bandwidth,
+                    seed_hits[fastq.seq_id], logger=log,
+                )
+        except Exception:
+            log(f"read {fastq.seq_id} alignment failed (exception!)")
+            traceback.print_exc(file=sys.stderr)
+            continue
+        log(f"read {fastq.seq_id} took {result.elapsed_milliseconds}ms")
+        if result.alignment_failed or result.alignment.score == INT32_MAX:
+            log(f"read {fastq.seq_id} alignment failed")
+            continue
+        log(f"read {fastq.seq_id} score {result.alignment.score}")
+        if result.alignment.score > len(fastq.sequence) * 0.25:
+            log(f"read {fastq.seq_id} score is poor: {result.alignment.score}")
+        log(
+            f"read {fastq.seq_id} alignment positions: "
+            f"{result.alignment_start}-{result.alignment_end} "
+            f"(read {len(fastq.sequence)}bp)"
+        )
+        replace_digraph_node_ids(result.alignment)
+        alignments.append(result.alignment)
+        _write_read(fastq, result.alignment, result.trace, output_dir)
+    return alignments
 
 
 def _align_reads_seeded_batched(params, graph, fastqs, seed_hits, log,

@@ -2,15 +2,16 @@
 
     python -m graphaligner_tpu_torch.runtime.cli -g graph.vg -f reads.fastq
         -a out.gam -t N -b band [-B rampband] (-s seeds.gam | -i)
-        [-A auggraph.vg] [--backend cuda|cpu] [--mesh dp]
+        [-A auggraph.vg] [--backend cuda|cpu|oracle] [--mesh dp]
         [--coordinator host:port --num-processes N --process-id I
          [--shard reads|components]]
 
 Seeded banded mode (-s) and exhaustive mode (-i, which ignores -s, as
-graphaligner_tpu's CLI does). --mesh dp splits the seeded path's scan
-rounds over every visible card; --coordinator starts one process of a
-multi-process run (one per host, or one per card with
-CUDA_VISIBLE_DEVICES), whose GAM shards process 0 merges into -a.
+graphaligner_tpu's CLI does). --backend oracle aligns read by read on the
+host (the JAX package's --backend oracle) and takes no --mesh. --mesh dp
+splits the seeded path's scan rounds over every visible card;
+--coordinator starts one process of a multi-process run (one per host,
+or one per card with CUDA_VISIBLE_DEVICES), whose GAM shards process 0 merges into -a.
 """
 
 from __future__ import annotations
@@ -40,9 +41,11 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument(
         "--backend",
         default="cuda",
-        choices=["cuda", "cpu"],
+        choices=["cuda", "cpu", "oracle"],
         help="cuda (default) runs the CUDA kernels and fails without a "
-        "card; cpu runs their plain torch versions",
+        "card; cpu runs their plain torch versions; oracle is the scalar "
+        "host pipeline of the JAX package's --backend oracle, one read at "
+        "a time, with no device",
     )
     p.add_argument(
         "--coordinator",
@@ -65,7 +68,8 @@ def build_parser() -> argparse.ArgumentParser:
         default="none",
         choices=["none", "dp"],
         help="split the seeded path's scan rounds data-parallel over every "
-        "visible card (one CPU device with --backend cpu)",
+        "visible card (one CPU device with --backend cpu; --backend oracle "
+        "takes no mesh)",
     )
     return p
 

@@ -69,19 +69,28 @@ def test_cli_i_writes_jax_golden_gam(tmp_path, monkeypatch):
         assert (tmp_path / f"trace_0_{a.name}.trace").exists()
 
 
-_NO_JAX = r"""
+# The head of a script run with the repository root as its first argument:
+# ``import jax`` and ``import graphaligner_tpu`` fail in it. A script that
+# ends with NO_JAX_LOADED fails if any module of either was loaded anyway.
+BLOCK_JAX = r"""
 import sys
 sys.modules["jax"] = None
 sys.modules["graphaligner_tpu"] = None
 sys.path.insert(0, sys.argv[1])
+"""
+NO_JAX_LOADED = r"""
+loaded = [m for m in sys.modules if sys.modules[m] is not None and (
+    m.split(".")[0] in ("jax", "graphaligner_tpu"))]
+assert not loaded, f"imported {loaded}"
+"""
+
+_NO_JAX = BLOCK_JAX + r"""
 import graphaligner_tpu_torch.parallel.components  # noqa: F401
 import graphaligner_tpu_torch.parallel.distributed  # noqa: F401
 import graphaligner_tpu_torch.parallel.mesh  # noqa: F401
 from graphaligner_tpu_torch.runtime import cli
 rc = cli.main(sys.argv[2:])
-loaded = [m for m in sys.modules if sys.modules[m] is not None and (
-    m.split(".")[0] in ("jax", "graphaligner_tpu"))]
-assert not loaded, f"imported {loaded}"
+""" + NO_JAX_LOADED + r"""
 sys.exit(rc)
 """
 
