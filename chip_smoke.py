@@ -18,7 +18,7 @@ GA_NO_FALLBACK=1:
   reads of 30 kb) and the 2 of huge's 4 reads of 100 kb (on a
   150,000-node graph) whose lanes fit 32 band nodes, at -b 35, and ONT at
   -b 5 -B 20 forced into it with LONG_WINDOW 48, against the same goldens,
-  each corpus's wall split (from batch_align.LONG_STATS) into set-up, scan
+  each corpus's wall split (from the port's tracer) into set-up, scan
   rounds, their replay, the walk's recompute and K2 windows, and the rest,
   with the windows a lane and the peak device memory above what the
   aligner's set-up holds; giant again in one normal-mode scan
@@ -1289,6 +1289,35 @@ def bucket(S):
     return b
 
 
+def long_split(snap) -> dict:
+    """A long-mode run's split from the tracer's snapshot: host seconds of
+    the scan rounds (their ``scan.*`` spans but the replay, not those of
+    the walk's recomputes), their replay and the walk; the device seconds
+    of the recomputes and K2 windows; the launches, lanes, lane-windows
+    and allocator peaks."""
+    from graphaligner_tpu_torch.utils.trace import seconds
+
+    c = snap["counters"]
+    out = {
+        "scan rounds": seconds(snap, "scan.")
+        - seconds(snap, "scan.", inside="walk.recompute")
+        - seconds(snap, "scan.replay"),
+        "replay": seconds(snap, "scan.replay"),
+        "walk": seconds(snap, "walk."),
+    }
+    for key, name in (("recompute", "long.recompute_s"),
+                      ("K2 windows", "long.k2_windows_s"),
+                      ("k1 rounds", "long.k1_rounds"),
+                      ("k1 recompute", "long.k1_recompute"),
+                      ("k2", "long.k2"), ("lanes", "long.lanes"),
+                      ("lane windows", "long.lane_windows"),
+                      ("peak scan", "long.peak_scan_bytes"),
+                      ("peak walk", "long.peak_walk_bytes")):
+        if name in c:
+            out[key] = c[name]
+    return out
+
+
 def run_long_path(device, card, ont):
     """The long-read path under GA_NO_FALLBACK=1: giant (3 reads of 30 kb,
     ~468 slices) and the 2 of huge's 4 reads of 100 kb (~1,560 slices, on a
@@ -1303,6 +1332,7 @@ def run_long_path(device, card, ont):
     from graphaligner_tpu_torch.core import batch_align as ba
     from graphaligner_tpu_torch.ops import banded_cell as k1
     from graphaligner_tpu_torch.ops import walk_moves as k2
+    from graphaligner_tpu_torch.utils import trace
 
     giant = load_corpus(f"{FIX}/longsim/graph.vg",
                         f"{FIX}/longsim/giant/giant_reads.fastq",
@@ -1327,12 +1357,17 @@ def run_long_path(device, card, ont):
     fb0 = ba.host_fallback_count()
     long_k1 = long_k2 = 0
     for name, (graph, reads, seeds, names), bw, ramp, window, golden in corpora:
-        ba.LONG_STATS.clear()
         rw0 = ba.rewind_count()
-        results, wall, cells, info = run_corpus(device, graph, reads, seeds,
-                                                bw, ramp, window)
+        trace.enable()
+        trace.reset()
+        try:
+            results, wall, cells, info = run_corpus(device, graph, reads,
+                                                    seeds, bw, ramp, window)
+            st = long_split(trace.snapshot())
+        finally:
+            trace.disable()
+            trace.reset()
         n_ok = check_golden(name, reads, names, results, golden)
-        st = dict(ba.LONG_STATS)
         if not st.get("k1 rounds") or not st.get("k2"):
             fail(f"{name}: did not run in long mode ({st})")
         long_k1 += st["k1 rounds"] + st.get("k1 recompute", 0)

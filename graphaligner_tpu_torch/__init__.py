@@ -21,7 +21,7 @@ counterpart is easy to find:
             device, and the per-read host path, --backend oracle)
   parallel/ the device mesh and multi-process runs
   tools/    the ecosystem tools (python -m graphaligner_tpu_torch.tools.X)
-  utils/    line-atomic logging and alignment metrics
+  utils/    line-atomic logging and the tracer (spans and counters)
 
 The port is self-contained: it imports neither jax nor
 ``graphaligner_tpu``. The jax-free host modules are copies of the JAX

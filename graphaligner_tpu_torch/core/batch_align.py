@@ -73,6 +73,7 @@ from ..ops.walk_moves import (
     moves_walk_fits,
     walk_moves,
 )
+from ..utils import trace
 from . import hmm as _hmm
 from .align import _pad_to_word
 from .engine import _ENCODE_LUT, _READ_CODE
@@ -97,28 +98,15 @@ _REWIND_COUNT = 0
 # lanes that fell back to the host oracle (process-wide count)
 _HOST_FALLBACKS = 0
 _HOST_THREADS = 0
-# the long-read mode's work since a caller last cleared this: host seconds
-# of the scan rounds ("scan rounds"), their control replay ("replay") and
-# the whole walk ("walk"); seconds of the walk's recomputes ("recompute")
-# and K2 windows ("K2 windows"), from CUDA events read once the walk has
-# synchronized (the host clock on the CPU); the kernels' launches in the
-# scan rounds ("k1 rounds"), the recomputes ("k1 recompute") and the
-# windows ("k2"); the lanes walked ("lanes") and lane-windows ("lane
-# windows"); and on the card the allocator's peak since the caller last
-# reset it, read as the scan rounds end ("peak scan") and as the walk ends
-# ("peak walk")
-LONG_STATS: dict = {}
 
 
-def _long_add(key, value) -> None:
-    LONG_STATS[key] = LONG_STATS.get(key, 0) + value
-
-
-def _long_peak(key, devices) -> None:
-    for dev in devices:
-        if dev.type == "cuda":
-            LONG_STATS[key] = max(LONG_STATS.get(key, 0),
-                                  torch.cuda.max_memory_allocated(dev))
+def _memory_peak(name, devices) -> None:
+    """Counter ``name`` keeps the allocator's peak on the cards among
+    ``devices`` (while tracing is on)."""
+    if trace.on():
+        for dev in devices:
+            if dev.type == "cuda":
+                trace.peak(name, torch.cuda.max_memory_allocated(dev))
 
 
 def _mark(dev):
@@ -377,7 +365,10 @@ class BandedBatchAligner:
         self.mesh = mesh
         self.mesh_axis = mesh_axis
         self.device = self.shard_devices[0]
-        self.tables = _tables if _tables is not None else build_graph_tables(graph)
+        if _tables is None:
+            with trace.span("setup.tables", sync=self.device):
+                _tables = build_graph_tables(graph)
+        self.tables = _tables
         self.initial_bandwidth = int(initial_bandwidth)
         self.ramp_bandwidth = int(ramp_bandwidth)
         ew = max(self.initial_bandwidth, self.ramp_bandwidth) + WORD_SIZE
@@ -406,21 +397,24 @@ class BandedBatchAligner:
         else:
             from .trace_ops import build_reverse_pos
 
-            self.rev_pos = build_reverse_pos(graph)
+            with trace.span("setup.reverse_pos", sync=self.device):
+                self.rev_pos = build_reverse_pos(graph)
         self._bigger = None
         # 8-bit tie-break deltas whenever every replay threshold fits
         self._tie8 = ew <= 254
         if _dts is None:
             # past reach_fits the JAX package builds the table and then
             # projects without it: it is not built here
-            reach = (ensure_reach(self.tables, ew - 1)
-                     if reach_fits(self.tables.num_nodes) else None)
-            dt = device_tables(self.tables, reach, self.device)
-            # one copy a distinct device, the reach table with it, as the
-            # JAX package's shard_map replicates them
-            _dts = {}
-            for dev in self.shard_devices:
-                _dts.setdefault(dev, dt.to(dev))
+            with trace.span("setup.reach", sync=self.device):
+                reach = (ensure_reach(self.tables, ew - 1)
+                         if reach_fits(self.tables.num_nodes) else None)
+            with trace.span("setup.device_tables", sync=self.device):
+                dt = device_tables(self.tables, reach, self.device)
+                # one copy a distinct device, the reach table with it, as
+                # the JAX package's shard_map replicates them
+                _dts = {}
+                for dev in self.shard_devices:
+                    _dts.setdefault(dev, dt.to(dev))
         self._dts = _dts
         self._dt = _dts[self.device]
         # the most bytes one round's outputs held on each shard's device
@@ -482,34 +476,37 @@ class BandedBatchAligner:
         S_max, long_mode, rounds_cap, true_S = self._plan(problems)
         self._long_mode = long_mode
         self._chunk_rounds = []
-        lanes = [
-            _LaneState(num_slices=len(seq) // WORD_SIZE) for seq, _ in problems
-        ]
-        cw = max(S_max, true_S)
-        codes = np.full((n, cw * WORD_SIZE), _READ_CODE["N"], dtype=np.uint8)
-        seq_lens = np.fromiter((len(seq) for seq, _ in problems), np.int64, n)
-        joined = "".join(seq for seq, _ in problems).encode("latin-1")
-        enc = _ENCODE_LUT[np.frombuffer(joined, np.uint8)]
-        if len(enc) and enc.max(initial=0) == 255:
-            bad = joined[int(np.argmax(enc == 255))]
-            raise ValueError(f"unsupported read character {chr(bad)!r}")
-        offs = np.zeros(n + 1, np.int64)
-        np.cumsum(seq_lens, out=offs[1:])
-        for i in range(n):
-            codes[i, : seq_lens[i]] = enc[offs[i] : offs[i + 1]]
-        seq_lens = seq_lens.astype(np.int32)
+        with trace.span("scan.pack"):
+            lanes = [
+                _LaneState(num_slices=len(seq) // WORD_SIZE)
+                for seq, _ in problems
+            ]
+            cw = max(S_max, true_S)
+            codes = np.full((n, cw * WORD_SIZE), _READ_CODE["N"],
+                            dtype=np.uint8)
+            seq_lens = np.fromiter((len(seq) for seq, _ in problems),
+                                   np.int64, n)
+            joined = "".join(seq for seq, _ in problems).encode("latin-1")
+            enc = _ENCODE_LUT[np.frombuffer(joined, np.uint8)]
+            if len(enc) and enc.max(initial=0) == 255:
+                bad = joined[int(np.argmax(enc == 255))]
+                raise ValueError(f"unsupported read character {chr(bad)!r}")
+            offs = np.zeros(n + 1, np.int64)
+            np.cumsum(seq_lens, out=offs[1:])
+            for i in range(n):
+                codes[i, : seq_lens[i]] = enc[offs[i] : offs[i + 1]]
+            seq_lens = seq_lens.astype(np.int32)
         self._codes = codes
         self._seq_lens = seq_lens
         requests = [(i, 0, "init", 0) for i in range(n)]
         for round_no in range(rounds_cap):
             if not requests:
                 break
-            t0, n0 = time.perf_counter(), _k1.LAUNCHES
+            n0 = _k1.LAUNCHES
             rnd = self._round(problems, codes, seq_lens, requests, S_max)
-            t1 = time.perf_counter()
+            trace.count("scan.rounds")
             if long_mode:
-                _long_add("scan rounds", t1 - t0)
-                _long_add("k1 rounds", _k1.LAUNCHES - n0)
+                trace.count("long.k1_rounds", _k1.LAUNCHES - n0)
                 # this round took its carries from the one before: that
                 # one's columns can go, and the round before it feeds no
                 # rewind any more (JAX :805-818)
@@ -520,42 +517,47 @@ class BandedBatchAligner:
                     old.drop("sends", "node_min", "node_end")
                     old.dropped = True
                 self._chunk_rounds.append(rnd)
-            for pos, (i, start, _, _) in enumerate(requests):
-                lane = lanes[i]
-                l, s0, m = rnd.req_meta[pos]
-                lane.chain = [
-                    _Rec(rnd, s0 + t, l, start + t, int(rnd.bw[s0 + t, l]), pos)
-                    for t in range(m)
-                ]
-                lane.cursor = 0
-            if round_no == 0:
-                self._replay_bulk(lanes, requests, rnd)
-            requests = []
-            for i, lane in enumerate(lanes):
-                if lane.done or lane.failed:
-                    continue
-                req = self._replay(lane)
-                if req is not None:
-                    if long_mode and req[1] != "init" and req[1].rnd.dropped:
-                        # a rewind into a round whose carries were dropped
-                        lane.failed = True
+            with trace.span("scan.unpack"):
+                for pos, (i, start, _, _) in enumerate(requests):
+                    lane = lanes[i]
+                    l, s0, m = rnd.req_meta[pos]
+                    lane.chain = [
+                        _Rec(rnd, s0 + t, l, start + t,
+                             int(rnd.bw[s0 + t, l]), pos)
+                        for t in range(m)
+                    ]
+                    lane.cursor = 0
+            with trace.span("scan.replay"):
+                if round_no == 0:
+                    self._replay_bulk(lanes, requests, rnd)
+                requests = []
+                for i, lane in enumerate(lanes):
+                    if lane.done or lane.failed:
                         continue
-                    requests.append((i, req[0], req[1], req[2]))
-            if long_mode:
-                # where the replay cut a chain mid-window (HMM break, ramp
-                # rewind), the next window's walk starts below the last
-                # ACCEPTED step, the carry, not the last computed one
-                overrides = {
-                    carry.lane_in_round: carry.step
-                    for (_, _, carry, _) in requests
-                    if carry != "init" and carry.rnd is rnd
-                }
-                self._stash_round_boundary(rnd, overrides)
-                _long_add("replay", time.perf_counter() - t1)
+                    req = self._replay(lane)
+                    if req is not None:
+                        if (long_mode and req[1] != "init"
+                                and req[1].rnd.dropped):
+                            # a rewind into a round whose carries were
+                            # dropped
+                            lane.failed = True
+                            continue
+                        requests.append((i, req[0], req[1], req[2]))
+                if long_mode:
+                    # where the replay cut a chain mid-window (HMM break,
+                    # ramp rewind), the next window's walk starts below the
+                    # last ACCEPTED step, the carry, not the last computed
+                    # one
+                    overrides = {
+                        carry.lane_in_round: carry.step
+                        for (_, _, carry, _) in requests
+                        if carry != "init" and carry.rnd is rnd
+                    }
+                    self._stash_round_boundary(rnd, overrides)
         if long_mode:
             # the walk recomputes every round, the newest one too
             self._chunk_rounds[-1].drop("cols", "codes")
-            _long_peak("peak scan", self._dts)
+            _memory_peak("long.peak_scan_bytes", self._dts)
         for lane in lanes:
             if not lane.done:
                 lane.failed = True
@@ -578,40 +580,44 @@ class BandedBatchAligner:
         batches chunk by chunk (shortest first). Failed lanes are withheld
         until the capacity-retry tier resolves them; the last batch maps
         the remainder (None = host fallback needed)."""
-        order = sorted(
-            range(len(problems)),
-            key=lambda i: len(problems[i][0]),
-            reverse=True,
-        )
-        chunks = []
-        i = 0
-        while i < len(order):
-            S0 = max(1, len(problems[order[i]][0]) // WORD_SIZE)
-            S_bucket = 32
-            while S_bucket < S0:
-                S_bucket = S_bucket + 64 if S_bucket < 160 else S_bucket * 2
-            # cap each chunk so one round's packed columns stay ~1.5 GB
-            lane_target = min(
-                chunk_size, max(8, int(1.5e9 // (S_bucket * 7 * self.Cm * 4)))
+        with trace.span("align.chunks"):
+            order = sorted(
+                range(len(problems)),
+                key=lambda i: len(problems[i][0]),
+                reverse=True,
             )
-            group = []
-            fill: list = []
+            chunks = []
+            i = 0
             while i < len(order):
-                n = max(1, len(problems[order[i]][0]) // WORD_SIZE)
-                placed = False
-                for l in range(len(fill)):
-                    if fill[l] + n <= S_bucket:
-                        fill[l] += n
-                        placed = True
-                        break
-                if not placed:
-                    if len(fill) >= lane_target:
-                        break
-                    fill.append(n)
-                group.append(order[i])
-                i += 1
-            chunks.append((group, [problems[j] for j in group]))
-        chunks.reverse()  # smallest first
+                S0 = max(1, len(problems[order[i]][0]) // WORD_SIZE)
+                S_bucket = 32
+                while S_bucket < S0:
+                    S_bucket = (S_bucket + 64 if S_bucket < 160
+                                else S_bucket * 2)
+                # cap each chunk so one round's packed columns stay ~1.5 GB
+                lane_target = min(
+                    chunk_size,
+                    max(8, int(1.5e9 // (S_bucket * 7 * self.Cm * 4))),
+                )
+                group = []
+                fill: list = []
+                while i < len(order):
+                    n = max(1, len(problems[order[i]][0]) // WORD_SIZE)
+                    placed = False
+                    for l in range(len(fill)):
+                        if fill[l] + n <= S_bucket:
+                            fill[l] += n
+                            placed = True
+                            break
+                    if not placed:
+                        if len(fill) >= lane_target:
+                            break
+                        fill.append(n)
+                    group.append(order[i])
+                    i += 1
+                chunks.append((group, [problems[j] for j in group]))
+            chunks.reverse()  # smallest first
+        trace.count("scan.chunks", len(chunks))
         unresolved: list = []
         for idxs, ch in chunks:
             lanes = self._run(ch)
@@ -645,21 +651,22 @@ class BandedBatchAligner:
         B = len(lanes)
         results: list = [None] * B
         keeps = np.zeros(B, dtype=np.int32)
-        for i, lane in enumerate(lanes):
-            if lane.failed:
-                continue
-            corr = list(lane.corr_list)
-            ok = corr[-1].currently_correct() if corr else False
-            while not ok:
-                if not corr:
-                    break
-                corr.pop()
-                if not corr:
-                    break
-                ok = corr[-1].false_from_correct()
-            keeps[i] = len(corr)
-            if len(corr) == 0:
-                results[i] = (INT_MAX, [], 0, 0)
+        with trace.span("walk.tail"):
+            for i, lane in enumerate(lanes):
+                if lane.failed:
+                    continue
+                corr = list(lane.corr_list)
+                ok = corr[-1].currently_correct() if corr else False
+                while not ok:
+                    if not corr:
+                        break
+                    corr.pop()
+                    if not corr:
+                        break
+                    ok = corr[-1].false_from_correct()
+                keeps[i] = len(corr)
+                if len(corr) == 0:
+                    results[i] = (INT_MAX, [], 0, 0)
         walk_idx = [
             i for i, lane in enumerate(lanes) if not lane.failed and keeps[i] > 0
         ]
@@ -679,12 +686,28 @@ class BandedBatchAligner:
                     f"(the JAX package's too); this graph's is "
                     f"{self.tables.k_in}"
                 )
-            t0 = time.perf_counter()
             self._walk_long(problems, lanes, keeps, walk_idx,
                             list(self._chunk_rounds), results)
-            _long_add("walk", time.perf_counter() - t0)
             return results
-        big_dev, st = self._gather_walk_inputs(lanes, keeps)
+        with trace.span("walk.gather"):
+            big_dev, st = self._gather_walk_inputs(lanes, keeps)
+        with trace.span("walk.starts"):
+            starts_map = self._walk_starts_all(problems, lanes, keeps,
+                                               walk_idx, big_dev, st)
+        if len(starts_map) < len(walk_idx):
+            walk_idx = [i for i in walk_idx if i in starts_map]
+            if not walk_idx:
+                return results
+        starts = [starts_map[i] for i in walk_idx]
+        self._walk_moves(problems, lanes, keeps, walk_idx, starts, results)
+        return results
+
+    def _walk_starts_all(self, problems, lanes, keeps, walk_idx, big_dev,
+                         st):
+        """{lane: (position, slot, offset)} of the walk lanes whose start
+        is found: unique minima and same-node ties from the device summary
+        ``st``, multi-node ties by the native band-order replay."""
+        B = len(lanes)
         starts_map: dict = {}
         slow_idx = []
         for i in walk_idx:
@@ -718,12 +741,7 @@ class BandedBatchAligner:
                         lanes[i].failed = True
                     else:
                         starts_map[i] = s
-            walk_idx = [i for i in walk_idx if i in starts_map]
-            if not walk_idx:
-                return results
-        starts = [starts_map[i] for i in walk_idx]
-        self._walk_moves(problems, lanes, keeps, walk_idx, starts, results)
-        return results
+        return starts_map
 
     def _walk_moves(self, problems, lanes, keeps, walk_idx, starts, results):
         """Lanes grouped by quantized table length (sparse rungs ride the
@@ -772,9 +790,10 @@ class BandedBatchAligner:
         TPU kernel's), then the native decode of every live lane."""
         n = len(blk)
         Bp = max(128, -(-n // 128) * 128)
-        cols_tab, band_tab, lens_tab, pred_tab, pprev_tab, codes8 = (
-            self._consolidate_walk(lanes, keeps, K_max, blk, Bp, dev)
-        )
+        with trace.span("walk.consolidate"):
+            cols_tab, band_tab, lens_tab, pred_tab, pprev_tab, codes8 = (
+                self._consolidate_walk(lanes, keeps, K_max, blk, Bp, dev)
+            )
 
         def row1(a):
             a = np.ascontiguousarray(a, dtype=np.int32)
@@ -782,35 +801,46 @@ class BandedBatchAligner:
                 a = np.pad(a, (0, Bp - len(a)))
             return torch.as_tensor(a[None, :], device=dev)
 
-        keeps_b = np.zeros(n, np.int32)
-        sslot = np.zeros(n, np.int32)
-        soff = np.zeros(n, np.int32)
-        sscore = np.zeros(n, np.int32)
-        sw = np.zeros(n, np.int64)
-        for bi, i in enumerate(blk):
-            w0, slot0, off0 = starts_map[i]
-            keeps_b[bi] = keeps[i]
-            sslot[bi] = slot0
-            soff[bi] = off0
-            sw[bi] = w0
-            sscore[bi] = lanes[i].accepted[int(keeps[i]) - 1].min_score
-        seed_nodes = np.array([problems[i][1] for i in blk], dtype=np.int32)
-        pad = lambda a: np.pad(a, (0, Bp - n))  # noqa: E731
-        init_state = _walk_init_state(
-            Bp, pad(keeps_b), pad(sslot), pad(soff), pad(sscore)
-        )
-        # whole-table walk = one window with base 0 (the consolidation
-        # grew the leading below-window pad slice)
-        moves_dev, fail_dev, _state, used_dev = walk_moves(
-            cols_tab, band_tab, lens_tab, pred_tab, pprev_tab, codes8,
-            self._dts[dev].bt_bits_lut,
-            row1(self._seq_lens[blk]),
-            row1(seed_nodes),
-            torch.zeros((1, Bp), dtype=torch.int32, device=dev),
-            torch.as_tensor(init_state, device=dev),
-            K_in=self.tables.k_in,
-            **({} if steps is None else {"steps": steps, "W_cap": steps}),
-        )
+        with trace.span("walk.issue"):
+            keeps_b = np.zeros(n, np.int32)
+            sslot = np.zeros(n, np.int32)
+            soff = np.zeros(n, np.int32)
+            sscore = np.zeros(n, np.int32)
+            sw = np.zeros(n, np.int64)
+            for bi, i in enumerate(blk):
+                w0, slot0, off0 = starts_map[i]
+                keeps_b[bi] = keeps[i]
+                sslot[bi] = slot0
+                soff[bi] = off0
+                sw[bi] = w0
+                sscore[bi] = lanes[i].accepted[int(keeps[i]) - 1].min_score
+            seed_nodes = np.array([problems[i][1] for i in blk],
+                                  dtype=np.int32)
+            pad = lambda a: np.pad(a, (0, Bp - n))  # noqa: E731
+            init_state = _walk_init_state(
+                Bp, pad(keeps_b), pad(sslot), pad(soff), pad(sscore)
+            )
+            # whole-table walk = one window with base 0 (the consolidation
+            # grew the leading below-window pad slice)
+            moves_dev, fail_dev, _state, used_dev = walk_moves(
+                cols_tab, band_tab, lens_tab, pred_tab, pprev_tab, codes8,
+                self._dts[dev].bt_bits_lut,
+                row1(self._seq_lens[blk]),
+                row1(seed_nodes),
+                torch.zeros((1, Bp), dtype=torch.int32, device=dev),
+                torch.as_tensor(init_state, device=dev),
+                K_in=self.tables.k_in,
+                **({} if steps is None else {"steps": steps,
+                                              "W_cap": steps}),
+            )
+        with trace.span("walk.decode"):
+            self._decode_block(lanes, keeps, blk, K_max, results, steps, sw,
+                               moves_dev, fail_dev, used_dev)
+
+    def _decode_block(self, lanes, keeps, blk, K_max, results, steps, sw,
+                      moves_dev, fail_dev, used_dev):
+        """K2's moves of block ``blk`` fetched and decoded natively into
+        each live lane's (score, trace, table slices, cells)."""
         T_w = moves_dev.shape[0]
         per = codes_per_word(self.tables.k_in)
         rows = min(T_w, int(used_dev.max()) // per + 1)
@@ -1101,8 +1131,253 @@ class BandedBatchAligner:
         NO_BASE = -(10**6)
         marks: list = []  # (key, start, end) of each recompute and window
 
-        # each lane's table as straight segments, one a round:
-        # [rnd, first step, slices, first slice, lane_in_round]
+        with trace.span("walk.gather"):
+            lane_segs = self._lane_segments(lanes, keeps, walk_idx)
+        live = [i for i in walk_idx if i in lane_segs]
+        if not live:
+            return
+        trace.count("long.lanes", len(live))
+        rounds = [
+            r for r in chunk_rounds
+            if any(s_[0] is r for i in live for s_ in lane_segs[i])
+        ]
+
+        seeds = np.array([p[1] for p in problems], dtype=np.int32)
+        state = np.zeros((16, B), np.int32)
+        state[5] = 1  # idle until the lane's last window starts it
+        sw = np.zeros(B, dtype=np.int64)
+        move_parts: list = []
+        S_g = self._codes.shape[1] // WORD_SIZE
+        codes_all = self._codes.reshape(B, S_g, WORD_SIZE)
+
+        for rnd in reversed(rounds):
+            segs_here = {
+                i: s_
+                for i in live
+                for s_ in lane_segs[i]
+                if s_[0] is rnd and not lanes[i].failed
+            }
+            if not segs_here:
+                continue
+            n0 = _k1.LAUNCHES
+            with trace.span("walk.recompute"):
+                m0 = _mark(dev0) if trace.on() else None
+                out = self._redispatch_round(rnd)
+                if m0 is not None:
+                    marks.append(("long.recompute_s", m0, _mark(dev0)))
+            trace.count("long.k1_recompute", _k1.LAUNCHES - n0)
+            trace.count("long.lane_windows", len(segs_here))
+            with trace.span("walk.consolidate"):
+                K_w = max(s_[2] for s_ in segs_here.values())
+                steps_map = np.zeros((K_w, B), np.int64)
+                valid_map = np.zeros((K_w, B), bool)
+                base = np.full(B, NO_BASE, np.int32)
+                lr = np.zeros(B, np.int64)
+                for i, (_, step0, n, g0, lane_r) in segs_here.items():
+                    base[i] = g0
+                    lr[i] = lane_r
+                    steps_map[:n, i] = step0 + np.arange(n)
+                    valid_map[:n, i] = True
+                by_shard: dict = {}
+                for i in range(B):
+                    d = int(lr[i]) // rnd.out.width if i in segs_here else 0
+                    by_shard.setdefault(d, []).append(i)
+
+                # entry 0 of a window, the slice below it, is the lane's
+                # previous segment's last slice from that round's stash; a
+                # stash miss (a rewind moved an older round's segment end
+                # after its stash was taken) fails the lane to the retry
+                # ladder (JAX :2042-2057)
+                by_prev: dict = {}
+                for i, s_ in segs_here.items():
+                    segs = lane_segs[i]
+                    k = segs.index(s_)
+                    if k > 0:
+                        p_ = segs[k - 1]
+                        by_prev.setdefault(id(p_[0]), (p_[0], []))[1].append(
+                            (i, p_))
+                stash = []
+                for prnd, pairs in by_prev.values():
+                    good, reqpos = [], []
+                    for i, p_ in pairs:
+                        hits = np.nonzero(
+                            (prnd.last_lanes == p_[4])
+                            & (prnd.last_steps == p_[1] + p_[2] - 1)
+                        )[0]
+                        if len(hits) == 0:
+                            lanes[i].failed = True
+                            continue
+                        good.append((i, p_))
+                        reqpos.append(int(hits[0]))
+                    if good:
+                        stash.append((prnd, good, reqpos))
+                windows = {
+                    d: self._long_window(rnd, out, stash, sub, steps_map,
+                                         valid_map, lr, K_w,
+                                         self.shard_devices[d])
+                    for d, sub in by_shard.items()
+                }
+
+            with trace.span("walk.starts"):
+                # lanes whose table ends in this window start walking here
+                starters = [
+                    i
+                    for i, s_ in segs_here.items()
+                    if s_[3] + s_[2] == int(keeps[i]) and not lanes[i].failed
+                ]
+                if starters:
+                    fin_step = [segs_here[i][1] + segs_here[i][2] - 1
+                                for i in starters]
+                    fin_lane = [segs_here[i][4] for i in starters]
+                    final_sends = np.zeros((B, Cm), np.int32)
+                    final_band = np.full((B, Nm), int(EMPTY), np.int32)
+                    final_sends[starters] = (
+                        out.take("sends", fin_step, fin_lane, dev0).cpu()
+                        .numpy()
+                    )
+                    final_band[starters] = rnd.out.take(
+                        "band_ids", fin_step, fin_lane, dev0).cpu().numpy()
+                    try:
+                        starts = self._walk_starts(
+                            problems, lanes, keeps, starters, final_sends,
+                            final_band,
+                        )
+                    except AssertionError:
+                        for i in starters:
+                            lanes[i].failed = True
+                        starts = []
+                    for i, s0_ in zip(starters, starts):
+                        if s0_ is None:
+                            lanes[i].failed = True
+                            continue
+                        sw[i] = s0_[0]
+                        state[:, i] = 0
+                        state[0, i] = int(keeps[i])
+                        state[1, i] = 63
+                        state[2, i] = s0_[1]
+                        state[3, i] = s0_[2]
+                        state[4, i] = lanes[i].accepted[
+                            int(keeps[i]) - 1].min_score
+                        state[7, i] = 1
+            del out
+
+            codes_rows = np.clip(
+                base[:, None] + np.arange(K_w + 1, dtype=np.int32)[None, :] - 1,
+                0, S_g - 1,
+            )
+            moves_win = None
+            for d_i, sub in sorted(by_shard.items()):
+                d = self.shard_devices[d_i]
+                # lanes padded as _walk_block pads them, on every device:
+                # the plain walk's lockstep blocks are then the TPU
+                # kernel's, and on the card the pad lanes are idle warps
+                # (state[5] = 1)
+                n = len(sub)
+                Bp = max(128, -(-n // 128) * 128)
+                sub_a = np.asarray(sub)
+
+                def row1(a):
+                    out_ = np.zeros((1, Bp), np.int32)
+                    out_[0, :n] = a
+                    return torch.as_tensor(out_, device=d)
+
+                with trace.span("walk.issue"):
+                    base_row = np.full((1, Bp), NO_BASE, np.int32)
+                    base_row[0, :n] = base[sub_a]
+                    codes8 = np.zeros((K_w + 1, WORD_SIZE, Bp), np.uint8)
+                    codes8[:, :, :n] = codes_all[
+                        sub_a[:, None], codes_rows[sub_a]
+                    ].transpose(1, 2, 0)
+                    state_d = np.zeros((16, Bp), np.int32)
+                    state_d[5] = 1
+                    state_d[:, :n] = state[:, sub_a]
+                    cols_w, (band_w, lens_w, pred_w, pprev_w) = windows.pop(
+                        d_i)
+                    n0 = _k2.LAUNCHES
+                    with device_guard(d):
+                        m0 = _mark(d) if trace.on() else None
+                        moves_dev, fail_dev, state_dev, _ = walk_moves(
+                            cols_w, band_w, lens_w, pred_w, pprev_w,
+                            torch.as_tensor(codes8, device=d),
+                            self._dts[d].bt_bits_lut,
+                            row1(self._seq_lens[sub_a]), row1(seeds[sub_a]),
+                            torch.as_tensor(base_row, device=d),
+                            torch.as_tensor(state_d, device=d),
+                            K_in=self.tables.k_in,
+                        )
+                        if m0 is not None:
+                            marks.append(("long.k2_windows_s", m0,
+                                          _mark(d)))
+                trace.count("long.k2", _k2.LAUNCHES - n0)
+                with trace.span("walk.decode"):
+                    state[:, sub_a] = state_dev.cpu().numpy()[:, :n]
+                    fail = fail_dev.cpu().numpy()[0, :n]
+                    for j, i in enumerate(sub):
+                        if fail[j] and i in segs_here:
+                            lanes[i].failed = True
+                            state[5, i] = 1
+                    moves_d = moves_dev.cpu().numpy().view(np.uint32)
+                    if moves_win is None:
+                        moves_win = np.zeros((moves_d.shape[0], B), np.uint32)
+                    moves_win[:, sub_a] = moves_d[:, :n]
+                    # the next window's recompute comes after these go
+                    del cols_w, band_w, lens_w, pred_w, pprev_w
+            move_parts.append(moves_win)
+        # the last window's copies above synchronized every mark
+        for key, a, b in marks:
+            trace.count(key, _between(a, b))
+        _memory_peak("long.peak_walk_bytes", self._dts)
+
+        with trace.span("walk.decode"):
+            final_live = []
+            for i in live:
+                if lanes[i].failed:
+                    continue
+                if state[5, i] == 1:
+                    final_live.append(i)
+                else:
+                    lanes[i].failed = True  # never finished across the windows
+            if not final_live:
+                return
+            moves = np.concatenate(move_parts, axis=0)
+            t = self.tables
+            node_start64 = np.ascontiguousarray(self.graph.node_start,
+                                                dtype=np.int64)
+            node_end64 = np.ascontiguousarray(self.graph.node_end,
+                                              dtype=np.int64)
+            pos2node = np.ascontiguousarray(t.pos_to_node)
+            in_nbrs = np.ascontiguousarray(t.in_nbrs)
+            # one decode a trace capacity: the JAX package decodes each lane
+            # with cap = keeps * 64 * 3 + 64 and fails it past that
+            by_cap: dict = {}
+            for i in final_live:
+                by_cap.setdefault(int(keeps[i]) * WORD_SIZE * 3 + 64,
+                                  []).append(i)
+            for cap, grp in by_cap.items():
+                out_w, out_r, n_out = native.decode_moves_batch(
+                    moves, np.array(grp, np.int32), sw[grp],
+                    keeps[grp].astype(np.int64) * WORD_SIZE - 1,
+                    node_start64, node_end64, pos2node, in_nbrs, cap,
+                    _host_threads(),
+                )
+                for j, i in enumerate(grp):
+                    m = int(n_out[j])
+                    lane = lanes[i]
+                    if m < 1 or out_r[j, 0] != 0:
+                        lane.failed = True
+                        continue
+                    arr = np.stack([out_w[j, :m], out_r[j, :m]], axis=1)
+                    score = lane.accepted[int(keeps[i]) - 1].min_score
+                    cells = sum(
+                        r.num_cells for r in lane.accepted[: int(keeps[i])]
+                    ) * WORD_SIZE
+                    results[i] = (score, arr, int(keeps[i]), cells)
+
+    @staticmethod
+    def _lane_segments(lanes, keeps, walk_idx) -> dict:
+        """{lane: its table as straight segments, one a round: [rnd, first
+        step, slices, first slice, lane_in_round]}; a lane whose segments
+        do not tile its table fails."""
         lane_segs: dict = {}
         for i in walk_idx:
             segs: list = []
@@ -1132,227 +1407,7 @@ class BandedBatchAligner:
                 lanes[i].failed = True
                 continue
             lane_segs[i] = segs
-        live = [i for i in walk_idx if i in lane_segs]
-        if not live:
-            return
-        _long_add("lanes", len(live))
-        rounds = [
-            r for r in chunk_rounds
-            if any(s_[0] is r for i in live for s_ in lane_segs[i])
-        ]
-
-        seeds = np.array([p[1] for p in problems], dtype=np.int32)
-        state = np.zeros((16, B), np.int32)
-        state[5] = 1  # idle until the lane's last window starts it
-        sw = np.zeros(B, dtype=np.int64)
-        move_parts: list = []
-        S_g = self._codes.shape[1] // WORD_SIZE
-        codes_all = self._codes.reshape(B, S_g, WORD_SIZE)
-
-        for rnd in reversed(rounds):
-            segs_here = {
-                i: s_
-                for i in live
-                for s_ in lane_segs[i]
-                if s_[0] is rnd and not lanes[i].failed
-            }
-            if not segs_here:
-                continue
-            m0, n0 = _mark(dev0), _k1.LAUNCHES
-            out = self._redispatch_round(rnd)
-            marks.append(("recompute", m0, _mark(dev0)))
-            _long_add("k1 recompute", _k1.LAUNCHES - n0)
-            _long_add("lane windows", len(segs_here))
-            K_w = max(s_[2] for s_ in segs_here.values())
-            steps_map = np.zeros((K_w, B), np.int64)
-            valid_map = np.zeros((K_w, B), bool)
-            base = np.full(B, NO_BASE, np.int32)
-            lr = np.zeros(B, np.int64)
-            for i, (_, step0, n, g0, lane_r) in segs_here.items():
-                base[i] = g0
-                lr[i] = lane_r
-                steps_map[:n, i] = step0 + np.arange(n)
-                valid_map[:n, i] = True
-            by_shard: dict = {}
-            for i in range(B):
-                d = int(lr[i]) // rnd.out.width if i in segs_here else 0
-                by_shard.setdefault(d, []).append(i)
-
-            # entry 0 of a window, the slice below it, is the lane's
-            # previous segment's last slice from that round's stash; a stash
-            # miss (a rewind moved an older round's segment end after its
-            # stash was taken) fails the lane to the retry ladder (JAX
-            # :2042-2057)
-            by_prev: dict = {}
-            for i, s_ in segs_here.items():
-                segs = lane_segs[i]
-                k = segs.index(s_)
-                if k > 0:
-                    p_ = segs[k - 1]
-                    by_prev.setdefault(id(p_[0]), (p_[0], []))[1].append(
-                        (i, p_)
-                    )
-            stash = []
-            for prnd, pairs in by_prev.values():
-                good, reqpos = [], []
-                for i, p_ in pairs:
-                    hits = np.nonzero(
-                        (prnd.last_lanes == p_[4])
-                        & (prnd.last_steps == p_[1] + p_[2] - 1)
-                    )[0]
-                    if len(hits) == 0:
-                        lanes[i].failed = True
-                        continue
-                    good.append((i, p_))
-                    reqpos.append(int(hits[0]))
-                if good:
-                    stash.append((prnd, good, reqpos))
-            windows = {
-                d: self._long_window(rnd, out, stash, sub, steps_map,
-                                     valid_map, lr, K_w, self.shard_devices[d])
-                for d, sub in by_shard.items()
-            }
-
-            # lanes whose table ends in this window start walking here
-            starters = [
-                i
-                for i, s_ in segs_here.items()
-                if s_[3] + s_[2] == int(keeps[i]) and not lanes[i].failed
-            ]
-            if starters:
-                fin_step = [segs_here[i][1] + segs_here[i][2] - 1
-                            for i in starters]
-                fin_lane = [segs_here[i][4] for i in starters]
-                final_sends = np.zeros((B, Cm), np.int32)
-                final_band = np.full((B, Nm), int(EMPTY), np.int32)
-                final_sends[starters] = (
-                    out.take("sends", fin_step, fin_lane, dev0).cpu().numpy()
-                )
-                final_band[starters] = rnd.out.take(
-                    "band_ids", fin_step, fin_lane, dev0).cpu().numpy()
-                try:
-                    starts = self._walk_starts(
-                        problems, lanes, keeps, starters, final_sends,
-                        final_band,
-                    )
-                except AssertionError:
-                    for i in starters:
-                        lanes[i].failed = True
-                    starts = []
-                for i, s0_ in zip(starters, starts):
-                    if s0_ is None:
-                        lanes[i].failed = True
-                        continue
-                    sw[i] = s0_[0]
-                    state[:, i] = 0
-                    state[0, i] = int(keeps[i])
-                    state[1, i] = 63
-                    state[2, i] = s0_[1]
-                    state[3, i] = s0_[2]
-                    state[4, i] = lanes[i].accepted[int(keeps[i]) - 1].min_score
-                    state[7, i] = 1
-            del out
-
-            codes_rows = np.clip(
-                base[:, None] + np.arange(K_w + 1, dtype=np.int32)[None, :] - 1,
-                0, S_g - 1,
-            )
-            moves_win = None
-            for d_i, sub in sorted(by_shard.items()):
-                d = self.shard_devices[d_i]
-                # lanes padded as _walk_block pads them, on every device:
-                # the plain walk's lockstep blocks are then the TPU
-                # kernel's, and on the card the pad lanes are idle warps
-                # (state[5] = 1)
-                n = len(sub)
-                Bp = max(128, -(-n // 128) * 128)
-                sub_a = np.asarray(sub)
-
-                def row1(a):
-                    out_ = np.zeros((1, Bp), np.int32)
-                    out_[0, :n] = a
-                    return torch.as_tensor(out_, device=d)
-
-                base_row = np.full((1, Bp), NO_BASE, np.int32)
-                base_row[0, :n] = base[sub_a]
-                codes8 = np.zeros((K_w + 1, WORD_SIZE, Bp), np.uint8)
-                codes8[:, :, :n] = codes_all[
-                    sub_a[:, None], codes_rows[sub_a]
-                ].transpose(1, 2, 0)
-                state_d = np.zeros((16, Bp), np.int32)
-                state_d[5] = 1
-                state_d[:, :n] = state[:, sub_a]
-                cols_w, (band_w, lens_w, pred_w, pprev_w) = windows.pop(d_i)
-                with device_guard(d):
-                    m0, n0 = _mark(d), _k2.LAUNCHES
-                    moves_dev, fail_dev, state_dev, _ = walk_moves(
-                        cols_w, band_w, lens_w, pred_w, pprev_w,
-                        torch.as_tensor(codes8, device=d),
-                        self._dts[d].bt_bits_lut, row1(self._seq_lens[sub_a]),
-                        row1(seeds[sub_a]), torch.as_tensor(base_row, device=d),
-                        torch.as_tensor(state_d, device=d),
-                        K_in=self.tables.k_in,
-                    )
-                    marks.append(("K2 windows", m0, _mark(d)))
-                _long_add("k2", _k2.LAUNCHES - n0)
-                state[:, sub_a] = state_dev.cpu().numpy()[:, :n]
-                fail = fail_dev.cpu().numpy()[0, :n]
-                for j, i in enumerate(sub):
-                    if fail[j] and i in segs_here:
-                        lanes[i].failed = True
-                        state[5, i] = 1
-                moves_d = moves_dev.cpu().numpy().view(np.uint32)
-                if moves_win is None:
-                    moves_win = np.zeros((moves_d.shape[0], B), np.uint32)
-                moves_win[:, sub_a] = moves_d[:, :n]
-                # the next window's recompute comes after these go
-                del cols_w, band_w, lens_w, pred_w, pprev_w
-            move_parts.append(moves_win)
-        # the last window's copies above synchronized every mark
-        for key, a, b in marks:
-            _long_add(key, _between(a, b))
-        _long_peak("peak walk", self._dts)
-
-        final_live = []
-        for i in live:
-            if lanes[i].failed:
-                continue
-            if state[5, i] == 1:
-                final_live.append(i)
-            else:
-                lanes[i].failed = True  # never finished across the windows
-        if not final_live:
-            return
-        moves = np.concatenate(move_parts, axis=0)
-        t = self.tables
-        node_start64 = np.ascontiguousarray(self.graph.node_start, dtype=np.int64)
-        node_end64 = np.ascontiguousarray(self.graph.node_end, dtype=np.int64)
-        pos2node = np.ascontiguousarray(t.pos_to_node)
-        in_nbrs = np.ascontiguousarray(t.in_nbrs)
-        # one decode a trace capacity: the JAX package decodes each lane
-        # with cap = keeps * 64 * 3 + 64 and fails it past that
-        by_cap: dict = {}
-        for i in final_live:
-            by_cap.setdefault(int(keeps[i]) * WORD_SIZE * 3 + 64, []).append(i)
-        for cap, grp in by_cap.items():
-            out_w, out_r, n_out = native.decode_moves_batch(
-                moves, np.array(grp, np.int32), sw[grp],
-                keeps[grp].astype(np.int64) * WORD_SIZE - 1,
-                node_start64, node_end64, pos2node, in_nbrs, cap,
-                _host_threads(),
-            )
-            for j, i in enumerate(grp):
-                m = int(n_out[j])
-                lane = lanes[i]
-                if m < 1 or out_r[j, 0] != 0:
-                    lane.failed = True
-                    continue
-                arr = np.stack([out_w[j, :m], out_r[j, :m]], axis=1)
-                score = lane.accepted[int(keeps[i]) - 1].min_score
-                cells = sum(
-                    r.num_cells for r in lane.accepted[: int(keeps[i])]
-                ) * WORD_SIZE
-                results[i] = (score, arr, int(keeps[i]), cells)
+        return lane_segs
 
     def _long_window(self, rnd, out, stash, sub, steps_map, valid_map, lr,
                      K_w, dev):
@@ -1435,90 +1490,98 @@ class BandedBatchAligner:
         """Pack the requests' slice ranges into scan lanes (segment starts
         reset the carry in-scan), run one banded_scan round and unpack its
         control words."""
-        sizes = [
-            min(S_max, max(0, (len(problems[i][0]) // WORD_SIZE) - st))
-            for (i, st, _, _) in requests
-        ]
-        opens = [carry != "init" for (_, _, carry, _) in requests]
-        lane_of, step0_of, n_lanes = self._ffd_pack(sizes, S_max, opens)
-        if n_lanes <= 32:
-            B = 32
-        elif n_lanes <= 256:
-            B = 256
-        else:
-            B = 512
-            while B < n_lanes:
-                B *= 2
-        nd = len(self.shard_devices)
-        B = -(-B // nd) * nd  # equal shards (JAX :2277-2279)
-        bw = np.full((S_max, B), self.initial_bandwidth, dtype=np.int32)
-        codes_lane = np.full(
-            (B, S_max * WORD_SIZE), _READ_CODE["N"], dtype=np.uint8
-        )
-        seg_active = np.zeros((S_max, B), dtype=np.int32)
-        seg_first = np.zeros((S_max, B), dtype=np.int32)
-        seg_slen = np.zeros((S_max, B), dtype=np.int32)
-        seg_rnode = np.full((S_max, B), -1, dtype=np.int32)
-        seg_rlen = np.zeros((S_max, B), dtype=np.int32)
-        seg_start_mask = np.zeros((S_max, B), dtype=bool)
-        init_ids = np.full((B, self.Nm), EMPTY, dtype=np.int32)
-        init_send = np.full((B, self.Cm), INF, dtype=np.int32)
-        init_nmin = np.full((B, self.Nm), INF, dtype=np.int32)
-        init_nend = np.full((B, self.Nm), INF, dtype=np.int32)
-        init_min = np.zeros(B, dtype=np.int32)
-
-        carry_groups: dict = {}  # id(rnd) -> (rnd, [(lane, rec)])
-        req_meta = []
-        for pos, (i, st, carry, ramp_until) in enumerate(requests):
-            l, s0, n = lane_of[pos], step0_of[pos], sizes[pos]
-            req_meta.append((l, s0, n))
-            codes_lane[l, s0 * WORD_SIZE : (s0 + n) * WORD_SIZE] = codes[
-                i, st * WORD_SIZE : (st + n) * WORD_SIZE
+        with trace.span("scan.pack"):
+            sizes = [
+                min(S_max, max(0, (len(problems[i][0]) // WORD_SIZE) - st))
+                for (i, st, _, _) in requests
             ]
-            seg_active[s0 : s0 + n, l] = 1
-            seg_slen[s0 : s0 + n, l] = seq_lens[i]
-            seg_start_mask[s0, l] = True
-            if st == 0:
-                seg_first[s0, l] = 1
-            hi = min(n, ramp_until - st + 1)
-            if hi > 0:
-                bw[s0 : s0 + hi, l] = self.ramp_bandwidth
-            if carry == "init":
-                node = problems[i][1]
-                seg_rnode[s0, l] = node
-                seg_rlen[s0, l] = int(self.tables.node_len[node])
+            opens = [carry != "init" for (_, _, carry, _) in requests]
+            lane_of, step0_of, n_lanes = self._ffd_pack(sizes, S_max, opens)
+            if n_lanes <= 32:
+                B = 32
+            elif n_lanes <= 256:
+                B = 256
             else:
-                rec: _Rec = carry
-                carry_groups.setdefault(id(rec.rnd), (rec.rnd, []))[1].append(
-                    (l, rec)
-                )
-                init_min[l] = rec.min_score
-        # rewind carries: one device gather + fetch per source round
-        for rnd_src, recs in carry_groups.values():
-            steps_a = [r.step for _, r in recs]
-            lanes_a = [r.lane_in_round for _, r in recs]
-            packed = torch.cat(
-                [rnd_src.out.take(key, steps_a, lanes_a, self.device)
-                 for key in ("band_ids", "node_min", "node_end", "sends")],
-                dim=1,
-            ).cpu().numpy()  # [n, 3*Nm + Cm]
-            Nm = self.Nm
-            for j, (l, _) in enumerate(recs):
-                init_ids[l] = packed[j, :Nm]
-                init_nmin[l] = packed[j, Nm : 2 * Nm]
-                init_nend[l] = packed[j, 2 * Nm : 3 * Nm]
-                init_send[l] = packed[j, 3 * Nm :]
+                B = 512
+                while B < n_lanes:
+                    B *= 2
+            nd = len(self.shard_devices)
+            B = -(-B // nd) * nd  # equal shards (JAX :2277-2279)
+            bw = np.full((S_max, B), self.initial_bandwidth, dtype=np.int32)
+            codes_lane = np.full(
+                (B, S_max * WORD_SIZE), _READ_CODE["N"], dtype=np.uint8
+            )
+            seg_active = np.zeros((S_max, B), dtype=np.int32)
+            seg_first = np.zeros((S_max, B), dtype=np.int32)
+            seg_slen = np.zeros((S_max, B), dtype=np.int32)
+            seg_rnode = np.full((S_max, B), -1, dtype=np.int32)
+            seg_rlen = np.zeros((S_max, B), dtype=np.int32)
+            seg_start_mask = np.zeros((S_max, B), dtype=bool)
+            init_ids = np.full((B, self.Nm), EMPTY, dtype=np.int32)
+            init_send = np.full((B, self.Cm), INF, dtype=np.int32)
+            init_nmin = np.full((B, self.Nm), INF, dtype=np.int32)
+            init_nend = np.full((B, self.Nm), INF, dtype=np.int32)
+            init_min = np.zeros(B, dtype=np.int32)
+
+            carry_groups: dict = {}  # id(rnd) -> (rnd, [(lane, rec)])
+            req_meta = []
+            for pos, (i, st, carry, ramp_until) in enumerate(requests):
+                l, s0, n = lane_of[pos], step0_of[pos], sizes[pos]
+                req_meta.append((l, s0, n))
+                codes_lane[l, s0 * WORD_SIZE : (s0 + n) * WORD_SIZE] = codes[
+                    i, st * WORD_SIZE : (st + n) * WORD_SIZE
+                ]
+                seg_active[s0 : s0 + n, l] = 1
+                seg_slen[s0 : s0 + n, l] = seq_lens[i]
+                seg_start_mask[s0, l] = True
+                if st == 0:
+                    seg_first[s0, l] = 1
+                hi = min(n, ramp_until - st + 1)
+                if hi > 0:
+                    bw[s0 : s0 + hi, l] = self.ramp_bandwidth
+                if carry == "init":
+                    node = problems[i][1]
+                    seg_rnode[s0, l] = node
+                    seg_rlen[s0, l] = int(self.tables.node_len[node])
+                else:
+                    rec: _Rec = carry
+                    carry_groups.setdefault(id(rec.rnd), (rec.rnd, []))[
+                        1].append((l, rec))
+                    init_min[l] = rec.min_score
+        with trace.span("scan.carry"):
+            # rewind carries: one device gather + fetch per source round
+            for rnd_src, recs in carry_groups.values():
+                steps_a = [r.step for _, r in recs]
+                lanes_a = [r.lane_in_round for _, r in recs]
+                packed = torch.cat(
+                    [rnd_src.out.take(key, steps_a, lanes_a, self.device)
+                     for key in ("band_ids", "node_min", "node_end", "sends")],
+                    dim=1,
+                ).cpu().numpy()  # [n, 3*Nm + Cm]
+                Nm = self.Nm
+                for j, (l, _) in enumerate(recs):
+                    init_ids[l] = packed[j, :Nm]
+                    init_nmin[l] = packed[j, Nm : 2 * Nm]
+                    init_nend[l] = packed[j, 2 * Nm : 3 * Nm]
+                    init_send[l] = packed[j, 3 * Nm :]
 
         seg = (seg_active, seg_first, seg_slen, seg_rnode, seg_rlen)
         out = self._scan(codes_lane, bw, init_ids, init_send, init_nmin,
                          init_nend, init_min, seg, S_max)
+        trace.count("scan.slices", S_max)
+        trace.count("scan.lane_slices", sum(sizes))
+        trace.count("scan.lane_slices_launched", S_max * B)
+        if trace.on():
+            self._count_band_nodes(out, seg_active)
         for d in range(nd):
             self.shard_bytes[d] = max(self.shard_bytes[d], out.nbytes(d))
+        with trace.span("scan.unpack"):
+            control = self._unpack_control(
+                out.host("control"), init_min, seg_active, seg_rnode
+            )
         return _Round(
             out,
-            control=self._unpack_control(
-                out.host("control"), init_min, seg_active, seg_rnode
-            ),
+            control=control,
             bw=bw,
             carry_from=[r[2] for r in requests],
             req_meta=req_meta,
@@ -1529,6 +1592,20 @@ class BandedBatchAligner:
                 init_min, seg, S_max,
             ) if self._long_mode else None,
         )
+
+    @staticmethod
+    def _count_band_nodes(out, seg_active) -> None:
+        """Counters scan.band_nodes and scan.band_nodes_max: the band
+        nodes of a round's active lane-slices, counted on each shard's
+        device."""
+        for d, part in enumerate(out.parts):
+            band = part["band_ids"]  # [S, Nm, B]
+            lo = d * out.width
+            active = torch.as_tensor(seg_active[:, lo:lo + out.width],
+                                     device=band.device)
+            nodes = (band != int(EMPTY)).sum(1, dtype=torch.int32) * active
+            trace.count("scan.band_nodes", nodes)
+            trace.peak("scan.band_nodes_max", nodes)
 
     def _scan(self, codes_lane, bw, init_ids, init_send, init_nmin,
               init_nend, init_min, seg, S_max):
@@ -1850,7 +1927,14 @@ def align_reads_seeded_batch(
     """reads: [FastQ]; seed_map: seq_id -> [(node_id, pos, reverse)].
     Returns {seq_id: AlignmentResult} identical to align_one_way_seeded.
     Each wave entry is assembled as soon as both of its extension pieces
-    have walked; a read with no seeds left is finalized immediately."""
+    have walked; a read with no seeds left is finalized immediately. While
+    tracing is on (``utils.trace``), the call is one root span, ``align``."""
+    with trace.span("align"):
+        return _align_reads_seeded_batch(graph, aligner, reads, seed_map,
+                                         logger)
+
+
+def _align_reads_seeded_batch(graph, aligner, reads, seed_map, logger):
     import time as _time
 
     from . import trace_ops
@@ -2004,34 +2088,38 @@ def align_reads_seeded_batch(
 
     active = [s for s in state.values() if s["seeds"]]
     while active:
-        wave = []  # (state, seed, fw_problem_idx|None, bw_problem_idx|None)
-        problems = []
-        for s in active:
-            seed = None
-            while s["cursor"] < len(s["seeds"]):
-                node_id, pos, reverse = s["seeds"][s["cursor"]]
-                s["cursor"] += 1
-                node_index = graph.node_lookup[node_id * 2]
-                if any(
-                    lo <= pos <= hi and n == node_index
-                    for (lo, hi, n) in s["tried"]
-                ):
-                    if logger:
-                        logger(f"seed {s['cursor'] - 1} already aligned")
+        with trace.span("align.wave"):
+            # (state, seed, fw_problem_idx|None, bw_problem_idx|None)
+            wave = []
+            problems = []
+            for s in active:
+                seed = None
+                while s["cursor"] < len(s["seeds"]):
+                    node_id, pos, reverse = s["seeds"][s["cursor"]]
+                    s["cursor"] += 1
+                    node_index = graph.node_lookup[node_id * 2]
+                    if any(
+                        lo <= pos <= hi and n == node_index
+                        for (lo, hi, n) in s["tried"]
+                    ):
+                        if logger:
+                            logger(
+                                f"seed {s['cursor'] - 1} already aligned")
+                        continue
+                    seed = (node_id, pos, reverse)
+                    break
+                if seed is None:
                     continue
-                seed = (node_id, pos, reverse)
-                break
-            if seed is None:
-                continue
-            bw, fw = seed_extension_problems(graph, s["read"].sequence, seed)
-            fw_i = bw_i = None
-            if bw is not None:
-                bw_i = len(problems)
-                problems.append(bw)
-            if fw is not None:
-                fw_i = len(problems)
-                problems.append(fw)
-            wave.append((s, seed, fw_i, bw_i))
+                bw, fw = seed_extension_problems(graph, s["read"].sequence,
+                                                 seed)
+                fw_i = bw_i = None
+                if bw is not None:
+                    bw_i = len(problems)
+                    problems.append(bw)
+                if fw is not None:
+                    fw_i = len(problems)
+                    problems.append(fw)
+                wave.append((s, seed, fw_i, bw_i))
 
         if not wave:
             break
@@ -2046,14 +2134,17 @@ def align_reads_seeded_batch(
                 if not all(x in walked for x in need):
                     continue
                 done_entries[wi] = True
-                process_entry(s, seed, fw_i, bw_i, walked)
+                with trace.span("finalize.entry"):
+                    process_entry(s, seed, fw_i, bw_i, walked)
                 if s["cursor"] >= len(s["seeds"]):
                     sid = s["read"].seq_id
-                    results[sid] = finalize_read(sid, s)
+                    with trace.span("finalize.read"):
+                        results[sid] = finalize_read(sid, s)
         assert all(done_entries)
         active = [s for s in active if s["cursor"] < len(s["seeds"])]
 
     for seq_id, s in state.items():
         if seq_id not in results:
-            results[seq_id] = finalize_read(seq_id, s)
+            with trace.span("finalize.read"):
+                results[seq_id] = finalize_read(seq_id, s)
     return results

@@ -49,6 +49,7 @@ import torch
 from ..ops.banded_cell import slice_cells
 from ..ops.project_band import project_band
 from ..ops.wordops import M32, i32
+from ..utils import trace
 from .params import WORD_SIZE
 from .tables import EMPTY, INF, INF_PRI, I32MAX, DeviceTables
 
@@ -98,131 +99,134 @@ def banded_scan(
             "yet ported"
         )
     N_nodes = dt.num_nodes
-    read_codes = torch.as_tensor(read_codes, device=dev)
-    B = read_codes.shape[0]
-    segmented = seg is not None
-    seq_len = _i32t(seq_len, dev)
-    num_steps = _i32t(num_steps, dev)
-    start_slice = _i32t(start_slice, dev)
-    bandwidth = _i32t(bandwidth, dev)
-    init_min = _i32t(init_min, dev)
-    if segmented:
-        seg_active, seg_first, seg_slen, seg_rnode, seg_rlen = (
-            _i32t(s, dev) for s in seg
-        )
-    iota_nm = torch.arange(Nm, dtype=torch.int32, device=dev)
-    iota_cm = torch.arange(Cm, dtype=torch.int32, device=dev)
-    slot0 = (iota_nm == 0)[:, None]
-    # a fresh seed's slot scores: 0 on slot 0, INF elsewhere
-    seed_score = torch.where(slot0, 0, iota_nm[:, None] * 0 + _INF)
-    rc_all = read_codes.to(torch.uint8).contiguous()
-    # each step's per-lane inputs, for all steps at once ([S, B])
-    steps = torch.arange(S_max, dtype=torch.int32, device=dev)[:, None]
-    if segmented:
-        active_all = seg_active == 1
-        first_all = seg_first == 1
-        slen_all = seg_slen
-        win_all = steps.expand(S_max, B).contiguous()
-        resetting_all = seg_rnode >= 0
-        rnode_all = torch.where(resetting_all, seg_rnode, 0)
-    else:
-        active_all = steps < num_steps[None, :]
-        win_all = start_slice[None, :] + steps
-        first_all = win_all == 0
-    tables = (dt.node_len, dt.node_start, dt.in_nbrs, dt.seq_codes,
-              dt.bits_lut)
-
-    ew_all = bandwidth + WORD_SIZE
-    first_col = torch.ones((B, 1), dtype=torch.bool, device=dev)
-
-    def project_band_reach(p_ids_bn, p_nmin_bn, p_nend_bn, p_min, bw, ew):
-        """Precomputed-reach projection (core/reach.py): band membership is
-        m s.t. some qualified seed s has outp0(s) + d*(s, m) <= ew
-        (ew = bw + 64)."""
-        valid_slot = p_ids_bn < _EMPTY
-        qualified = valid_slot & (p_nmin_bn <= (p_min + bw)[:, None])
-        outp0 = torch.where(
-            qualified & (p_nend_bn <= (p_min + ew)[:, None]),
-            p_nend_bn - p_min[:, None] + 1,
-            _INF_PRI,
-        )
-        g = dt.reach[:, p_ids_bn.clamp(0, N_nodes - 1)]  # [2, B, Nm, K]
-        rid, w1 = g[0], g[1]
-        rd = w1 & 1023
-        is_self = rd == 1023
-        valid = (
-            qualified[:, :, None]
-            & (rid >= 0)
-            & (is_self | ((outp0[:, :, None] + rd) <= ew[:, None, None]))
-        )
-        key = torch.where(valid, w1, _I32MAX).reshape(B, -1)
-        ids_f = torch.where(valid, rid, _EMPTY).reshape(B, -1)
-        key_s, perm = torch.sort(key, dim=1, stable=True)
-        id_s = ids_f.gather(1, perm)
-        first = torch.cat(
-            [first_col, id_s[:, 1:] != id_s[:, :-1]], dim=1,
-        ) & (key_s < _I32MAX)
-        cnt = first.cumsum(1, dtype=torch.int32)
-        over = cnt[:, -1] > Nm
-        pos = torch.where(first, cnt - 1, Nm).clamp(max=Nm).long()
-        out = torch.full((B, Nm + 1), _EMPTY, dtype=torch.int32, device=dev)
-        out.scatter_(1, pos, torch.where(first, id_s, _EMPTY))
-        return out[:, :Nm], over
-
-    S = S_max
-    nm_steps, ctrl_steps, cols_steps = [], [], []
-    p_ids = _i32t(init_ids, dev).T.contiguous()
-    p_cell_send = _i32t(init_cell_send, dev).T.contiguous()
-    p_node_min = _i32t(init_node_min, dev).T.contiguous()
-    p_node_end = _i32t(init_node_end, dev).T.contiguous()
-    p_min = init_min
-    for t in range(S):
+    with trace.span("scan.upload"):
+        read_codes = torch.as_tensor(read_codes, device=dev)
+        B = read_codes.shape[0]
+        segmented = seg is not None
+        seq_len = _i32t(seq_len, dev)
+        num_steps = _i32t(num_steps, dev)
+        start_slice = _i32t(start_slice, dev)
+        bandwidth = _i32t(bandwidth, dev)
+        init_min = _i32t(init_min, dev)
         if segmented:
-            # segment start: restart the carry from the seed node
-            resetting = resetting_all[t]
-            rm = resetting[None, :]
-            p_ids = torch.where(
-                rm, torch.where(slot0, rnode_all[t][None, :], _EMPTY), p_ids
+            seg_active, seg_first, seg_slen, seg_rnode, seg_rlen = (
+                _i32t(s, dev) for s in seg
             )
-            p_cell_send = torch.where(
-                rm & (iota_cm[:, None] < seg_rlen[t][None, :]), 0,
-                torch.where(rm, _INF, p_cell_send),
-            )
-            p_node_min = torch.where(rm, seed_score, p_node_min)
-            p_node_end = torch.where(rm, seed_score, p_node_end)
-            p_min = torch.where(resetting, 0, p_min)
-            seq_len_v = slen_all[t]
+    with trace.span("scan.issue"):
+        iota_nm = torch.arange(Nm, dtype=torch.int32, device=dev)
+        iota_cm = torch.arange(Cm, dtype=torch.int32, device=dev)
+        slot0 = (iota_nm == 0)[:, None]
+        # a fresh seed's slot scores: 0 on slot 0, INF elsewhere
+        seed_score = torch.where(slot0, 0, iota_nm[:, None] * 0 + _INF)
+        rc_all = read_codes.to(torch.uint8).contiguous()
+        # each step's per-lane inputs, for all steps at once ([S, B])
+        steps = torch.arange(S_max, dtype=torch.int32, device=dev)[:, None]
+        if segmented:
+            active_all = seg_active == 1
+            first_all = seg_first == 1
+            slen_all = seg_slen
+            win_all = steps.expand(S_max, B).contiguous()
+            resetting_all = seg_rnode >= 0
+            rnode_all = torch.where(resetting_all, seg_rnode, 0)
         else:
-            seq_len_v = seq_len
+            active_all = steps < num_steps[None, :]
+            win_all = start_slice[None, :] + steps
+            first_all = win_all == 0
+        tables = (dt.node_len, dt.node_start, dt.in_nbrs, dt.seq_codes,
+                  dt.bits_lut)
 
-        if dt.reach is not None:
-            ids_bn, proj_over = project_band_reach(
-                p_ids.T, p_node_min.T, p_node_end.T, p_min, bandwidth[t],
-                ew_all[t],
+        ew_all = bandwidth + WORD_SIZE
+        first_col = torch.ones((B, 1), dtype=torch.bool, device=dev)
+
+        def project_band_reach(p_ids_bn, p_nmin_bn, p_nend_bn, p_min, bw, ew):
+            """Precomputed-reach projection (core/reach.py): band membership is
+            m s.t. some qualified seed s has outp0(s) + d*(s, m) <= ew
+            (ew = bw + 64)."""
+            valid_slot = p_ids_bn < _EMPTY
+            qualified = valid_slot & (p_nmin_bn <= (p_min + bw)[:, None])
+            outp0 = torch.where(
+                qualified & (p_nend_bn <= (p_min + ew)[:, None]),
+                p_nend_bn - p_min[:, None] + 1,
+                _INF_PRI,
             )
-        else:
-            ids_bn, proj_over = project_band(
-                p_ids.T, p_node_min.T, p_node_end.T, p_min, bandwidth[t],
-                active_all[t], dt.out_nbrs, dt.node_len, dt.topo_rank,
+            g = dt.reach[:, p_ids_bn.clamp(0, N_nodes - 1)]  # [2, B, Nm, K]
+            rid, w1 = g[0], g[1]
+            rd = w1 & 1023
+            is_self = rd == 1023
+            valid = (
+                qualified[:, :, None]
+                & (rid >= 0)
+                & (is_self | ((outp0[:, :, None] + rd) <= ew[:, None, None]))
             )
-        cols, nm, ctrl, p_ids, p_cell_send, p_node_min, p_node_end, p_min = (
-            slice_cells(
+            key = torch.where(valid, w1, _I32MAX).reshape(B, -1)
+            ids_f = torch.where(valid, rid, _EMPTY).reshape(B, -1)
+            key_s, perm = torch.sort(key, dim=1, stable=True)
+            id_s = ids_f.gather(1, perm)
+            first = torch.cat(
+                [first_col, id_s[:, 1:] != id_s[:, :-1]], dim=1,
+            ) & (key_s < _I32MAX)
+            cnt = first.cumsum(1, dtype=torch.int32)
+            over = cnt[:, -1] > Nm
+            pos = torch.where(first, cnt - 1, Nm).clamp(max=Nm).long()
+            out = torch.full((B, Nm + 1), _EMPTY, dtype=torch.int32,
+                             device=dev)
+            out.scatter_(1, pos, torch.where(first, id_s, _EMPTY))
+            return out[:, :Nm], over
+
+        S = S_max
+        nm_steps, ctrl_steps, cols_steps = [], [], []
+        p_ids = _i32t(init_ids, dev).T.contiguous()
+        p_cell_send = _i32t(init_cell_send, dev).T.contiguous()
+        p_node_min = _i32t(init_node_min, dev).T.contiguous()
+        p_node_end = _i32t(init_node_end, dev).T.contiguous()
+        p_min = init_min
+        for t in range(S):
+            if segmented:
+                # segment start: restart the carry from the seed node
+                resetting = resetting_all[t]
+                rm = resetting[None, :]
+                p_ids = torch.where(
+                    rm, torch.where(slot0, rnode_all[t][None, :], _EMPTY),
+                    p_ids,
+                )
+                p_cell_send = torch.where(
+                    rm & (iota_cm[:, None] < seg_rlen[t][None, :]), 0,
+                    torch.where(rm, _INF, p_cell_send),
+                )
+                p_node_min = torch.where(rm, seed_score, p_node_min)
+                p_node_end = torch.where(rm, seed_score, p_node_end)
+                p_min = torch.where(resetting, 0, p_min)
+                seq_len_v = slen_all[t]
+            else:
+                seq_len_v = seq_len
+
+            if dt.reach is not None:
+                ids_bn, proj_over = project_band_reach(
+                    p_ids.T, p_node_min.T, p_node_end.T, p_min, bandwidth[t],
+                    ew_all[t],
+                )
+            else:
+                ids_bn, proj_over = project_band(
+                    p_ids.T, p_node_min.T, p_node_end.T, p_min, bandwidth[t],
+                    active_all[t], dt.out_nbrs, dt.node_len, dt.topo_rank,
+                )
+            (cols, nm, ctrl, p_ids, p_cell_send, p_node_min, p_node_end,
+             p_min) = slice_cells(
                 ids_bn.T.contiguous(), proj_over, p_ids, p_node_min,
                 p_node_end, p_cell_send, p_min, active_all[t], first_all[t],
                 seq_len_v, rc_all, win_all[t], *tables, P_fix=P_fix,
             )
-        )
-        nm_steps.append(nm)
-        ctrl_steps.append(ctrl)
-        cols_steps.append(cols)
+            nm_steps.append(nm)
+            ctrl_steps.append(ctrl)
+            cols_steps.append(cols)
 
-    nm_pack = torch.stack(nm_steps)  # [S, 4 + 2P, Nm, B]
-    ctrl_pack = torch.stack(ctrl_steps)  # [S, B]
-    cols_out = torch.stack(cols_steps)  # [S, 7, Cm, B]
-    return _finish_outputs(
-        nm_pack, ctrl_pack, cols_out, read_codes, init_min, num_steps,
-        (seg_active, seg_rnode) if segmented else None, tie8, Nm,
-    )
+        nm_pack = torch.stack(nm_steps)  # [S, 4 + 2P, Nm, B]
+        ctrl_pack = torch.stack(ctrl_steps)  # [S, B]
+        cols_out = torch.stack(cols_steps)  # [S, 7, Cm, B]
+        return _finish_outputs(
+            nm_pack, ctrl_pack, cols_out, read_codes, init_min, num_steps,
+            (seg_active, seg_rnode) if segmented else None, tie8, Nm,
+        )
 
 
 def _finish_outputs(nm_pack, ctrl_pack, cols, read_codes, init_min,
@@ -357,7 +361,8 @@ class LaneShards(Mapping):
 
     def host(self, key) -> np.ndarray:
         """Every lane of ``key`` as one host array."""
-        arrs = [part[key].cpu().numpy() for part in self.parts]
+        with trace.span("fetch"):
+            arrs = [part[key].cpu().numpy() for part in self.parts]
         return arrs[0] if len(arrs) == 1 else np.concatenate(arrs, axis=-1)
 
     def take(self, key, steps, lanes, device) -> torch.Tensor:

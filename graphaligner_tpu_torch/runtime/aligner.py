@@ -36,6 +36,7 @@ from ..core.params import AlignerParams
 from ..core.result import INT32_MAX
 from ..graph.bigraph import load_alignment_graph
 from ..io import load_fastq, stream, vg
+from ..utils import trace
 
 # copied from graphaligner_tpu/runtime/aligner.py:28-85 --------------------
 def replace_digraph_node_ids(alignment: vg.Alignment) -> None:
@@ -60,23 +61,26 @@ def _finalize_output_alignment(alignment):
     LazyAlignment results (the batched pipeline) encode through the
     native C++ serializer with the id division fused (~100x the Python
     object+encode path); everything else takes the object path
-    (replace ids in place, byte-identical either way)."""
+    (replace ids in place, byte-identical either way). Traced as span
+    ``finalize.gam`` and counter ``finalize.reads`` (``utils.trace``)."""
     from ..core.result import LazyAlignment, PayloadAlignment
     from ..io import native
 
-    if isinstance(alignment, LazyAlignment) and alignment._obj is None:
-        payloads = native.encode_alignments(
-            [alignment.name],
-            [alignment.sequence],
-            [alignment.score],
-            [alignment.query_position],
-            [alignment._runs],
-            div2=True,
-        )
-        if payloads is not None:
-            return PayloadAlignment(payloads[0], name=alignment.name)
-    replace_digraph_node_ids(alignment)
-    return alignment
+    trace.count("finalize.reads")
+    with trace.span("finalize.gam"):
+        if isinstance(alignment, LazyAlignment) and alignment._obj is None:
+            payloads = native.encode_alignments(
+                [alignment.name],
+                [alignment.sequence],
+                [alignment.score],
+                [alignment.query_position],
+                [alignment._runs],
+                div2=True,
+            )
+            if payloads is not None:
+                return PayloadAlignment(payloads[0], name=alignment.name)
+        replace_digraph_node_ids(alignment)
+        return alignment
 
 
 def _safe_filename(name: str) -> str:

@@ -1,5 +1,5 @@
-# Copy of graphaligner_tpu/utils/__init__.py for the torch port (imports point at graphaligner_tpu_torch).
-"""Shared utilities: line-atomic logging, timing/metrics."""
+# Port of graphaligner_tpu/utils/__init__.py: the JAX package's metrics module
+# is replaced here by the port's tracer (utils/trace.py).
+"""Shared utilities: line-atomic logging; the port's tracer (``trace``)."""
 
 from .logging import BufferedWriter  # noqa: F401
-from .metrics import AlignMetrics  # noqa: F401

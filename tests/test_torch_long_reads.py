@@ -22,6 +22,7 @@ from graphaligner_tpu.graph import load_alignment_graph as jax_graph
 from graphaligner_tpu.io import load_fastq
 from graphaligner_tpu.runtime.aligner import load_seed_hits
 from graphaligner_tpu_torch.graph import load_alignment_graph as torch_graph
+from graphaligner_tpu_torch.utils import trace
 
 SIM = pathlib.Path(__file__).parent / "fixtures" / "sim"
 CONFIGS = {"b35": (35, 0), "b5B20": (5, 20)}
@@ -72,13 +73,20 @@ def test_long_mode_matches_jax_and_normal(corpus, config, window):
     if config not in _NORMAL:
         _NORMAL[config] = _port(tg, reads, seeds, bw, ramp)[0]
     fb0 = tba.host_fallback_count()
-    tba.LONG_STATS.clear()
-    port, aligner = _port(tg, reads, seeds, bw, ramp, window)
+    trace.enable()
+    trace.reset()
+    try:
+        port, aligner = _port(tg, reads, seeds, bw, ramp, window)
+        snap = trace.snapshot()
+    finally:
+        trace.disable()
+        trace.reset()
     assert aligner._long_mode and len(aligner._chunk_rounds) >= 3
-    st = tba.LONG_STATS
-    assert st["lanes"] > 0 and st["lane windows"] > st["lanes"]
-    assert min(st[k] for k in ("scan rounds", "replay", "walk", "recompute",
-                               "K2 windows")) > 0
+    st = snap["counters"]
+    assert st["long.lanes"] > 0 and st["long.lane_windows"] > st["long.lanes"]
+    assert min(st[k] for k in ("long.recompute_s", "long.k2_windows_s")) > 0
+    assert min(trace.seconds(snap, k) for k in (
+        "scan.issue", "scan.replay", "walk.recompute", "walk.issue")) > 0
     assert tba.host_fallback_count() == fb0
     _same(reads, port, _jax(jg, reads, seeds, bw, ramp, window),
           "port long vs JAX long")

@@ -150,14 +150,20 @@ def test_long_mode_on_a_mesh(monkeypatch):
     """Long-read mode (window 4) on 4 shards, with ramp rewinds: each
     window's lanes walk with their shard; the GAM bytes equal the port's
     one-device long mode."""
-    from graphaligner_tpu_torch.core import batch_align as ba
+    from graphaligner_tpu_torch.utils import trace
 
     monkeypatch.setenv("GA_NO_FALLBACK", "1")
     graph, reads, seeds = _sim()
     corpus = (graph, reads[:10], seeds)
-    ba.LONG_STATS.clear()
-    got = _port_run(corpus, 5, 20, mesh=_cpu_mesh(4), window=4)
-    assert ba.LONG_STATS["lane windows"] > ba.LONG_STATS["lanes"] > 0
+    trace.enable()
+    trace.reset()
+    try:
+        got = _port_run(corpus, 5, 20, mesh=_cpu_mesh(4), window=4)
+        st = trace.snapshot()["counters"]
+    finally:
+        trace.disable()
+        trace.reset()
+    assert st["long.lane_windows"] > st["long.lanes"] > 0
     assert got == _port_run(corpus, 5, 20, window=4)
     assert sum(v is not None for v in got.values()) == 10
 

@@ -8,7 +8,7 @@ and tests/test_parallel.py's utils tests, on ``graphaligner_tpu_torch``).
   input, besides test_tools.py's own checks;
 - simulate_reads -> the port's ``align_one_way_seeded`` ->
   compare_alignments;
-- BufferedWriter and AlignMetrics;
+- BufferedWriter;
 - every tools and utils module imports, and compare_alignments runs, in a
   process where ``import jax`` and ``import graphaligner_tpu`` fail.
 """
@@ -327,18 +327,6 @@ def test_buffered_writer(capsys):
     assert capsys.readouterr().out == "a1bc\n"
 
 
-def test_metrics():
-    from graphaligner_tpu_torch.utils import AlignMetrics
-
-    m = AlignMetrics().start()
-    m.record_read(1000)
-    m.record_read(500, failed=True)
-    m.stop()
-    s = m.summary()
-    assert s["reads"] == 2 and s["failed"] == 1 and s["cells_processed"] == 1500
-    assert m.json_line().startswith("{")
-
-
 _IMPORT_ALL = BLOCK_JAX + r"""
 import importlib, pkgutil
 import graphaligner_tpu_torch.tools as tools
@@ -365,5 +353,7 @@ def test_tools_and_utils_import_where_jax_is_absent():
     first, rest = proc.stdout.split("\n", 1)
     want = {m.name for pkg in ("tools", "utils") for m in pkgutil.iter_modules(
         [str(ROOT / "graphaligner_tpu" / pkg)])}
+    # the port's tracer takes the place of the JAX package's metrics module
+    want = want - {"metrics"} | {"trace"}
     assert set(first.split()) == want and len(want) == 18
     assert rest == (SIM / "compare_golden.txt").read_text()
