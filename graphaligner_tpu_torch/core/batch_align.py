@@ -57,6 +57,7 @@ from __future__ import annotations
 import os as _os
 import time
 from dataclasses import dataclass, field
+from typing import NamedTuple
 
 import numpy as np
 import torch
@@ -148,34 +149,6 @@ def _host_threads() -> int:
     )
 
 
-class _CorrFlags:
-    """Interned (correct_from_correct, false_from_correct,
-    currently_correct) triple of a finished lane's correctness chain."""
-
-    __slots__ = ("cc", "ffc", "cur")
-
-    def currently_correct(self):
-        return self.cur
-
-    def correct_from_correct(self):
-        return self.cc
-
-    def false_from_correct(self):
-        return self.ffc
-
-
-_FLAGS_POOL: dict = {}
-
-
-def _corr_flags(cc, ffc, cur):
-    obj = _FLAGS_POOL.get((cc, ffc, cur))
-    if obj is None:
-        obj = _CorrFlags()
-        obj.cc, obj.ffc, obj.cur = cc, ffc, cur
-        _FLAGS_POOL[(cc, ffc, cur)] = obj
-    return obj
-
-
 def _decode_tie(traw, ms):
     """Unpack device tie deltas (int16 = 8/8 packing, int32 = 16/16)
     back to absolute (node_min, node_end) via the slice min."""
@@ -215,9 +188,12 @@ class _Round:
     """One banded_scan call: the device outputs, the unpacked control
     triple (min_score, num_cells, overflow) the host replay consumes, and
     the request layout: per-step bandwidths [S, B], each request's carry
-    ("init" or the _Rec it resumes from), (lane, first step, steps) and
-    start slice, and the segment-start mask [S, B]. Other device arrays
-    come to the host lazily, each at most once.
+    ("init" or the _Slice it resumes from), (lane, first step, steps) and
+    start slice, and the segment-start mask [S, B]. The replays write the
+    correctness HMM's state after each slice they accept into ``hmm_c``,
+    ``hmm_f`` (log odds, float64) and ``hmm_cfc``, ``hmm_ffc`` (its trace
+    flags), all [S, B]. Other device arrays come to the host lazily, each
+    at most once.
 
     In long mode a round also keeps its scan inputs (``scan_inputs``, to
     recompute it) and, after its replay, each request's last accepted
@@ -238,6 +214,11 @@ class _Round:
         self.seg_start = seg_start
         self.scan_inputs = scan_inputs
         self.dropped = False
+        shape = self.min_score.shape
+        self.hmm_c = np.zeros(shape)
+        self.hmm_f = np.zeros(shape)
+        self.hmm_cfc = np.zeros(shape, bool)
+        self.hmm_ffc = np.zeros(shape, bool)
         self._host: dict = {}
 
     def drop(self, *keys) -> None:
@@ -265,28 +246,110 @@ class _Round:
         return self.host("ids_sub")
 
 
-@dataclass
-class _Rec:
-    """Reference to one computed slice of one lane."""
+class _Slice(NamedTuple):
+    """One computed slice: its round, and its step and lane there. A round
+    computes each (step, lane) once, for one request, so two keys are
+    equal exactly when they name the same slice."""
 
     rnd: _Round
     step: int
-    lane_in_round: int
-    slice_i: int
-    bandwidth: int
-    req_i: int = -1  # index into the round's request list
+    lane: int
 
     @property
     def min_score(self) -> int:
-        return int(self.rnd.min_score[self.step, self.lane_in_round])
+        return int(self.rnd.min_score[self.step, self.lane])
 
     @property
     def num_cells(self) -> int:
-        return int(self.rnd.num_cells[self.step, self.lane_in_round])
+        return int(self.rnd.num_cells[self.step, self.lane])
 
-    @property
-    def overflow(self) -> bool:
-        return bool(self.rnd.overflow[self.step, self.lane_in_round])
+
+class _Run:
+    """A straight stretch of one lane's slices in one round: steps
+    ``step`` to ``step + n - 1`` of scan lane ``lane``, table slices
+    ``slice`` on, from the round's request ``req``. Each slice's values
+    are read from the round's [S, B] arrays."""
+
+    __slots__ = ("rnd", "lane", "step", "slice", "n", "req")
+
+    def __init__(self, rnd, lane, step, slice_, n, req):
+        self.rnd = rnd
+        self.lane = lane
+        self.step = step
+        self.slice = slice_
+        self.n = n
+        self.req = req
+
+
+def _prefix(runs, k):
+    """The first ``k`` slices of a chain of runs: [(run, its slices
+    among them)]."""
+    out = []
+    for r in runs:
+        if k <= 0:
+            break
+        m = min(r.n, k)
+        out.append((r, m))
+        k -= m
+    return out
+
+
+def _last(runs, k) -> _Slice:
+    """Slice ``k - 1`` of a chain of runs."""
+    for r in runs:
+        if k <= r.n:
+            return _Slice(r.rnd, r.step + k - 1, r.lane)
+        k -= r.n
+    raise IndexError("past the chain's end")
+
+
+def _cells(runs, k) -> int:
+    """Band cells over the first ``k`` slices of a chain of runs (a word
+    of rows each)."""
+    return sum(
+        int(r.rnd.num_cells[r.step : r.step + m, r.lane].sum(dtype=np.int64))
+        for r, m in _prefix(runs, k)
+    )
+
+
+def _keep(runs) -> int:
+    """removeWronglyAlignedEnd on an accepted chain: all of it if its last
+    slice is currently correct, else up to the last slice before that
+    whose false_from_correct flag is set, else nothing."""
+    if not runs:
+        return 0
+    n = sum(r.n for r in runs)
+    top = runs[-1]
+    s = top.step + top.n - 1
+    if top.rnd.hmm_c[s, top.lane] > top.rnd.hmm_f[s, top.lane]:
+        return n
+    ffc = [r.rnd.hmm_ffc[r.step : r.step + m, r.lane]
+           for r, m in _prefix(runs, n - 1)]
+    hit = np.flatnonzero(np.concatenate(ffc)) if ffc else ()
+    return int(hit[-1]) + 1 if len(hit) else 0
+
+
+def _truncate(runs, last_slice) -> None:
+    """A rewind: drop a chain's slices past table slice ``last_slice``."""
+    while runs and runs[-1].slice > last_slice:
+        runs.pop()
+    if runs:
+        runs[-1].n = min(runs[-1].n, last_slice - runs[-1].slice + 1)
+
+
+def _state_at(runs, k) -> CorrectnessState:
+    """The correctness state the replay accepted slice ``k`` of a chain
+    with (the initial state where there is none)."""
+    if k >= 0:
+        for r in runs:
+            if k < r.n:
+                s, l, rnd = r.step + k, r.lane, r.rnd
+                return CorrectnessState(
+                    float(rnd.hmm_c[s, l]), float(rnd.hmm_f[s, l]),
+                    bool(rnd.hmm_cfc[s, l]), bool(rnd.hmm_ffc[s, l]),
+                )
+            k -= r.n
+    return CorrectnessState()
 
 
 @dataclass
@@ -298,17 +361,18 @@ class _LaneState:
     slice_i: int = 0
     ramp_until: int = 0
     ramp_redo_index: int = -1
-    last: object = "init"  # "init" | _Rec
+    last: object = "init"  # "init" | _Slice
     ramp: object = "init"
     correctness: CorrectnessState = field(default_factory=CorrectnessState)
-    accepted: list = field(default_factory=list)  # _Rec per table slice
-    bandwidths: list = field(default_factory=list)
-    corr_list: list = field(default_factory=list)
+    # the table: runs of table slices 0, 1, ... in order
+    accepted: list = field(default_factory=list)
     done: bool = False
     failed: bool = False  # overflow/fallback
+    stepped: bool = False  # the literal replay advanced it a slice or more
 
-    # chain cursor into the current round
-    chain: list = field(default_factory=list)  # [_Rec] sequential records
+    # this round's request: its run of computed slices, and the replay's
+    # cursor into it
+    chain: _Run | None = None
     cursor: int = 0
 
 
@@ -521,11 +585,7 @@ class BandedBatchAligner:
                 for pos, (i, start, _, _) in enumerate(requests):
                     lane = lanes[i]
                     l, s0, m = rnd.req_meta[pos]
-                    lane.chain = [
-                        _Rec(rnd, s0 + t, l, start + t,
-                             int(rnd.bw[s0 + t, l]), pos)
-                        for t in range(m)
-                    ]
+                    lane.chain = _Run(rnd, l, s0, start, m, pos)
                     lane.cursor = 0
             with trace.span("scan.replay"):
                 if round_no == 0:
@@ -549,7 +609,7 @@ class BandedBatchAligner:
                     # last ACCEPTED step, the carry, not the last computed
                     # one
                     overrides = {
-                        carry.lane_in_round: carry.step
+                        carry.lane: carry.step
                         for (_, _, carry, _) in requests
                         if carry != "init" and carry.rnd is rnd
                     }
@@ -561,6 +621,9 @@ class BandedBatchAligner:
         for lane in lanes:
             if not lane.done:
                 lane.failed = True
+        if trace.on():
+            trace.count("scan.literal_lanes",
+                        sum(lane.stepped for lane in lanes))
         return lanes
 
     def get_traces(self, problems, chunk_size: int = 512):
@@ -655,23 +718,17 @@ class BandedBatchAligner:
             for i, lane in enumerate(lanes):
                 if lane.failed:
                     continue
-                corr = list(lane.corr_list)
-                ok = corr[-1].currently_correct() if corr else False
-                while not ok:
-                    if not corr:
-                        break
-                    corr.pop()
-                    if not corr:
-                        break
-                    ok = corr[-1].false_from_correct()
-                keeps[i] = len(corr)
-                if len(corr) == 0:
+                keeps[i] = _keep(lane.accepted)
+                if keeps[i] == 0:
                     results[i] = (INT_MAX, [], 0, 0)
         walk_idx = [
             i for i, lane in enumerate(lanes) if not lane.failed and keeps[i] > 0
         ]
         if not walk_idx:
             return results
+        if trace.on():
+            trace.count("walk.accepted_runs", sum(
+                len(_prefix(lanes[i].accepted, keeps[i])) for i in walk_idx))
         if self._long_mode:
             if not moves_walk_fits(self.Cm, self.Nm):
                 # the JAX walk fits no window at Cm >= 1792: fail these
@@ -711,7 +768,7 @@ class BandedBatchAligner:
         starts_map: dict = {}
         slow_idx = []
         for i in walk_idx:
-            rec_best = lanes[i].accepted[int(keeps[i]) - 1].min_score
+            rec_best = _last(lanes[i].accepted, keeps[i]).min_score
             if int(st[i, 0]) != rec_best:
                 slow_idx.append(i)  # host/device min divergence
             elif int(st[i, 1]) == 1:
@@ -770,8 +827,8 @@ class BandedBatchAligner:
             # budget
             by_shard: dict = {}
             for i in groups[kq]:
-                rec = lanes[i].accepted[int(keeps[i]) - 1]
-                by_shard.setdefault(rec.lane_in_round // rec.rnd.out.width,
+                end = _last(lanes[i].accepted, keeps[i])
+                by_shard.setdefault(end.lane // end.rnd.out.width,
                                     []).append(i)
             for d, g in sorted(by_shard.items()):
                 dev = self.shard_devices[d]
@@ -813,7 +870,7 @@ class BandedBatchAligner:
                 sslot[bi] = slot0
                 soff[bi] = off0
                 sw[bi] = w0
-                sscore[bi] = lanes[i].accepted[int(keeps[i]) - 1].min_score
+                sscore[bi] = _last(lanes[i].accepted, keeps[i]).min_score
             seed_nodes = np.array([problems[i][1] for i in blk],
                                   dtype=np.int32)
             pad = lambda a: np.pad(a, (0, Bp - n))  # noqa: E731
@@ -881,10 +938,8 @@ class BandedBatchAligner:
                 lane.failed = True
                 continue
             arr = np.stack([out_w[j, :m], out_r[j, :m]], axis=1)
-            score = lane.accepted[int(keeps[i]) - 1].min_score
-            cells = sum(
-                r.num_cells for r in lane.accepted[: int(keeps[i])]
-            ) * WORD_SIZE
+            score = _last(lane.accepted, keeps[i]).min_score
+            cells = _cells(lane.accepted, keeps[i]) * WORD_SIZE
             results[i] = (score, arr, int(keeps[i]), cells)
 
     def _gather_walk_inputs(self, lanes, keeps):
@@ -899,12 +954,15 @@ class BandedBatchAligner:
         Cm, Nm = self.Cm, self.Nm
         acc_big = torch.zeros((B, Cm + Nm), dtype=torch.int32, device=dev)
         acc_st = torch.zeros((B, 10), dtype=torch.int32, device=dev)
+        ends = {
+            i: _last(lane.accepted, keeps[i])
+            for i, lane in enumerate(lanes)
+            if not lane.failed and keeps[i] > 0
+        }
         rounds = []
-        for i, lane in enumerate(lanes):
-            if not lane.failed and keeps[i] > 0:
-                rec = lane.accepted[int(keeps[i]) - 1]
-                if rec.rnd not in rounds:
-                    rounds.append(rec.rnd)
+        for end in ends.values():
+            if end.rnd not in rounds:
+                rounds.append(end.rnd)
         big = 2**31 - 1
         cm_idx = torch.arange(Cm, device=dev)[None, :]
         node_start = self._dt.node_start
@@ -912,13 +970,10 @@ class BandedBatchAligner:
             steps = np.zeros(B, dtype=np.int64)
             lane_pos = np.zeros(B, dtype=np.int64)
             mask = np.zeros(B, dtype=bool)
-            for i, lane in enumerate(lanes):
-                if lane.failed or keeps[i] == 0:
-                    continue
-                rec = lane.accepted[int(keeps[i]) - 1]
-                if rec.rnd is rnd:
-                    steps[i] = rec.step
-                    lane_pos[i] = rec.lane_in_round
+            for i, end in ends.items():
+                if end.rnd is rnd:
+                    steps[i] = end.step
+                    lane_pos[i] = end.lane
                     mask[i] = True
             mask_t = torch.as_tensor(mask, device=dev)
             sends = rnd.out.take("sends", steps, lane_pos, dev)  # [B, Cm]
@@ -979,7 +1034,7 @@ class BandedBatchAligner:
         offs_w = np.cumsum(lens_w, axis=1) - lens_w
         c_used_w = lens_w.sum(axis=1)
         best_w = np.array(
-            [lanes[i].accepted[int(keeps[i]) - 1].min_score for i in walk_idx]
+            [_last(lanes[i].accepted, keeps[i]).min_score for i in walk_idx]
         )
         sends_w = final_sends[widx]
         cells_idx = np.arange(sends_w.shape[1])[None, :]
@@ -1022,11 +1077,12 @@ class BandedBatchAligner:
         bests_b = np.zeros(W, np.int32)
         for k, (w, i) in enumerate(tie_idx):
             keep = int(keeps[i])
-            tie, check, ms = self._tie_chain_inputs(lanes[i].accepted[:keep])
+            tie, check, ms, bw = self._tie_chain_inputs(
+                _prefix(lanes[i].accepted, keep))
             tie_b[k, :keep] = tie
             chk_b[k, :keep] = check
             ms_b[k, :keep] = ms
-            bw_b[k, :keep] = lanes[i].bandwidths[:keep]
+            bw_b[k, :keep] = bw
             Ks[k] = keep
             sn_b[k] = problems[i][1]
             bests_b[k] = ms[keep - 1]
@@ -1064,10 +1120,11 @@ class BandedBatchAligner:
         [K_max+1, Bp, *])."""
         rounds = []
         for li in blk:
-            for rec in lanes[li].accepted:
-                if rec.rnd not in rounds:
-                    rounds.append(rec.rnd)
+            for r in lanes[li].accepted:
+                if r.rnd not in rounds:
+                    rounds.append(r.rnd)
         K1 = K_max + 1
+        ks = np.arange(K1, dtype=np.int64)
         tabs = None
         for rnd in rounds:
             steps = np.zeros((K1, Bp), np.int64)
@@ -1077,14 +1134,16 @@ class BandedBatchAligner:
                 lane = lanes[li]
                 if lane.failed:
                     continue
-                for k, rec in enumerate(lane.accepted[: int(keeps[li])]):
-                    if rec.rnd is rnd:
-                        steps[k + 1, bi] = rec.step
-                        mask[k + 1, bi] = True
+                k = 1  # entry 0 is the below-window pad slice
+                for r, m in _prefix(lane.accepted, keeps[li]):
+                    if r.rnd is rnd:
+                        steps[k : k + m, bi] = r.step + ks[:m]
+                        mask[k : k + m, bi] = True
+                    k += m
             for bi, li in enumerate(blk):
-                for rec in lanes[li].accepted:
-                    if rec.rnd is rnd:
-                        lane_pos[bi] = rec.lane_in_round
+                for r in lanes[li].accepted:
+                    if r.rnd is rnd:
+                        lane_pos[bi] = r.lane
                         break
             m = torch.as_tensor(mask, device=dev)
             gathered = [
@@ -1256,8 +1315,8 @@ class BandedBatchAligner:
                         state[1, i] = 63
                         state[2, i] = s0_[1]
                         state[3, i] = s0_[2]
-                        state[4, i] = lanes[i].accepted[
-                            int(keeps[i]) - 1].min_score
+                        state[4, i] = _last(lanes[i].accepted,
+                                            keeps[i]).min_score
                         state[7, i] = 1
             del out
 
@@ -1367,10 +1426,8 @@ class BandedBatchAligner:
                         lane.failed = True
                         continue
                     arr = np.stack([out_w[j, :m], out_r[j, :m]], axis=1)
-                    score = lane.accepted[int(keeps[i]) - 1].min_score
-                    cells = sum(
-                        r.num_cells for r in lane.accepted[: int(keeps[i])]
-                    ) * WORD_SIZE
+                    score = _last(lane.accepted, keeps[i]).min_score
+                    cells = _cells(lane.accepted, keeps[i]) * WORD_SIZE
                     results[i] = (score, arr, int(keeps[i]), cells)
 
     @staticmethod
@@ -1382,18 +1439,16 @@ class BandedBatchAligner:
         for i in walk_idx:
             segs: list = []
             ok = True
-            for rec in lanes[i].accepted[: int(keeps[i])]:
+            for r, m in _prefix(lanes[i].accepted, keeps[i]):
                 if (
                     segs
-                    and segs[-1][0] is rec.rnd
-                    and rec.step == segs[-1][1] + segs[-1][2]
-                    and rec.slice_i == segs[-1][3] + segs[-1][2]
+                    and segs[-1][0] is r.rnd
+                    and r.step == segs[-1][1] + segs[-1][2]
+                    and r.slice == segs[-1][3] + segs[-1][2]
                 ):
-                    segs[-1][2] += 1
-                elif not segs or segs[-1][0] is not rec.rnd:
-                    segs.append(
-                        [rec.rnd, rec.step, 1, rec.slice_i, rec.lane_in_round]
-                    )
+                    segs[-1][2] += m
+                elif not segs or segs[-1][0] is not r.rnd:
+                    segs.append([r.rnd, r.step, m, r.slice, r.lane])
                 else:
                     ok = False
                     break
@@ -1523,7 +1578,7 @@ class BandedBatchAligner:
             init_nend = np.full((B, self.Nm), INF, dtype=np.int32)
             init_min = np.zeros(B, dtype=np.int32)
 
-            carry_groups: dict = {}  # id(rnd) -> (rnd, [(lane, rec)])
+            carry_groups: dict = {}  # id(rnd) -> (rnd, [(lane, _Slice)])
             req_meta = []
             for pos, (i, st, carry, ramp_until) in enumerate(requests):
                 l, s0, n = lane_of[pos], step0_of[pos], sizes[pos]
@@ -1544,15 +1599,14 @@ class BandedBatchAligner:
                     seg_rnode[s0, l] = node
                     seg_rlen[s0, l] = int(self.tables.node_len[node])
                 else:
-                    rec: _Rec = carry
-                    carry_groups.setdefault(id(rec.rnd), (rec.rnd, []))[
-                        1].append((l, rec))
-                    init_min[l] = rec.min_score
+                    carry_groups.setdefault(id(carry.rnd), (carry.rnd, []))[
+                        1].append((l, carry))
+                    init_min[l] = carry.min_score
         with trace.span("scan.carry"):
             # rewind carries: one device gather + fetch per source round
             for rnd_src, recs in carry_groups.values():
                 steps_a = [r.step for _, r in recs]
-                lanes_a = [r.lane_in_round for _, r in recs]
+                lanes_a = [r.lane for _, r in recs]
                 packed = torch.cat(
                     [rnd_src.out.take(key, steps_a, lanes_a, self.device)
                      for key in ("band_ids", "node_min", "node_end", "sends")],
@@ -1666,9 +1720,11 @@ class BandedBatchAligner:
         """Vectorized fast path of the getSqrtSlices replay for round-1
         'init' lanes: the HMM chain is a per-lane float64 recurrence
         (bit-identical op order to hmm.CorrectnessState.next_state), so
-        all lanes advance in one numpy sweep. Lanes whose chain hits an
-        overflow, a possible ramping rewind, or any irregularity are
-        left untouched for the literal scalar replay below."""
+        all lanes advance in one numpy sweep, its states written to the
+        round's ``hmm_*`` arrays. A lane it finishes accepts one run.
+        Lanes whose chain hits an overflow, a possible ramping rewind, or
+        any irregularity are left untouched for the literal scalar replay
+        below."""
         import math
 
         S, B = rnd.min_score.shape
@@ -1681,9 +1737,7 @@ class BandedBatchAligner:
         log_choose = lut[WORD_SIZE] - lut[delta] - lut[WORD_SIZE - delta]
         c = np.full(B, math.log(0.8))
         f = np.full(B, math.log(0.2))
-        CFC = np.zeros((S, B), bool)
-        FFC = np.zeros((S, B), bool)
-        CUR = np.zeros((S, B), bool)
+        C, F, CFC, FFC = rnd.hmm_c, rnd.hmm_f, rnd.hmm_cfc, rnd.hmm_ffc
         lp8, lp2 = math.log(0.8), math.log(0.2)
         for k in range(S):
             if seg0[k].any():
@@ -1705,8 +1759,11 @@ class BandedBatchAligner:
                 WORD_SIZE - d
             ) * _hmm._FALSE_MATCH
             c, f = nc, nf
-            CUR[k] = c > f
+            C[k] = c
+            F[k] = f
+        CUR = C > F
         ramping = self.ramp_bandwidth > self.initial_bandwidth
+        finished = 0
         for pos, (i, st, carry, ramp_until) in enumerate(requests):
             lane = lanes[i]
             if carry != "init" or st != 0 or ramp_until != 0:
@@ -1720,59 +1777,59 @@ class BandedBatchAligner:
             stop = int(np.argmax(notcfc)) if notcfc.any() else n
             if ramping and (~CUR[s0 : s0 + min(stop + 1, n), l]).any():
                 continue  # a rewind may fire; take the literal path
-            recs = lane.chain[:stop]
-            lane.accepted = recs
-            lane.bandwidths = [r.bandwidth for r in recs]
-            lane.corr_list = [
-                _corr_flags(
-                    bool(CFC[s0 + k, l]),
-                    bool(FFC[s0 + k, l]),
-                    bool(CUR[s0 + k, l]),
-                )
-                for k in range(stop)
-            ]
+            lane.accepted = [_Run(rnd, l, s0, 0, stop, pos)] if stop else []
             lane.cursor = stop
             lane.slice_i = stop
             lane.done = True
+            finished += 1
+        trace.count("scan.bulk_lanes", finished)
 
     # ---------------------------------------------------------------- replay
     def _replay(self, lane: _LaneState):
         """Advance the literal getSqrtSlices control flow against the
-        lane's recorded chain. Returns None when the lane finished, or a
-        (start_slice, carry_ref, ramp_until) request for the next round."""
+        lane's run of computed slices in this round, a slice at a time.
+        Returns None when the lane finished, or a (start_slice, carry_ref,
+        ramp_until) request for the next round."""
+        run = lane.chain
         while lane.slice_i < lane.num_slices:
             bandwidth = (
                 self.ramp_bandwidth
                 if lane.ramp_until >= lane.slice_i
                 else self.initial_bandwidth
             )
-            rec = lane.chain[lane.cursor] if lane.cursor < len(lane.chain) else None
-            pred_ok = rec is not None and (
-                (lane.cursor > 0 and lane.chain[lane.cursor - 1] is lane.last)
-                or (lane.cursor == 0 and self._carry_matches(rec, lane.last))
-            )
+            k = lane.cursor
+            if run is None or k >= run.n:
+                return (lane.slice_i, lane.last, lane.ramp_until)
+            rnd, l = run.rnd, run.lane
+            step = run.step + k
+            # the slice before this one must be the lane's last: a (round,
+            # step, lane) key names one computed slice (see _Slice), so key
+            # equality is identity of that slice
+            if k > 0:
+                pred_ok = lane.last == (rnd, step - 1, l)
+            else:
+                pred_ok = self._carry_matches(run, lane.last)
             if (
-                rec is None
-                or rec.slice_i != lane.slice_i
-                or rec.bandwidth != bandwidth
+                run.slice + k != lane.slice_i
+                or rnd.bw[step, l] != bandwidth
                 or not pred_ok
             ):
                 return (lane.slice_i, lane.last, lane.ramp_until)
-            if rec.overflow:
+            if rnd.overflow[step, l]:
                 lane.failed = True
                 return None
             lane.cursor += 1
+            lane.stepped = True
 
             last_min = 0 if lane.last == "init" else lane.last.min_score
-            delta = rec.min_score - last_min
-            assert 0 <= delta <= WORD_SIZE, (delta, rec.slice_i)
+            delta = int(rnd.min_score[step, l]) - last_min
+            assert 0 <= delta <= WORD_SIZE, (delta, lane.slice_i)
             correctness = lane.correctness.next_state(delta, WORD_SIZE)
-            rec_corr = correctness
 
             last_cells = 0 if lane.last == "init" else lane.last.num_cells
             if (
                 lane.ramp_until == lane.slice_i
-                and rec.num_cells >= BACKTRACE_OVERRIDE_CUTOFF
+                and rnd.num_cells[step, l] >= BACKTRACE_OVERRIDE_CUTOFF
             ):
                 lane.ramp_until += 1
             if (
@@ -1803,81 +1860,67 @@ class BandedBatchAligner:
                     lane.slice_i,
                 )
                 lane.last, lane.ramp = lane.ramp, lane.last
-                del lane.bandwidths[lane.slice_i + 1 :]
-                del lane.corr_list[lane.slice_i + 1 :]
-                while (
-                    len(lane.accepted) > 0
-                    and lane.accepted[-1].slice_i > lane.slice_i
-                ):
-                    lane.accepted.pop()
-                lane.correctness = (
-                    lane.corr_list[lane.slice_i]
-                    if 0 <= lane.slice_i < len(lane.corr_list)
-                    else CorrectnessState()
-                )
+                _truncate(lane.accepted, lane.slice_i)
+                lane.correctness = _state_at(lane.accepted, lane.slice_i)
                 lane.slice_i += 1
                 continue
 
-            assert len(lane.bandwidths) == lane.slice_i
-            lane.bandwidths.append(bandwidth)
-            lane.corr_list.append(rec_corr)
-            lane.accepted.append(rec)
+            acc = lane.accepted
+            top = acc[-1] if acc else None
+            assert (top.slice + top.n if top else 0) == lane.slice_i
+            if (top is not None and top.rnd is rnd and top.lane == l
+                    and top.step + top.n == step):
+                top.n += 1
+            else:
+                acc.append(_Run(rnd, l, step, lane.slice_i, 1, run.req))
+            rnd.hmm_c[step, l] = correctness.correct_log_odds
+            rnd.hmm_f[step, l] = correctness.false_log_odds
+            rnd.hmm_cfc[step, l] = correctness.correct_from_correct_trace
+            rnd.hmm_ffc[step, l] = correctness.false_from_correct_trace
             lane.correctness = correctness
-            lane.last = rec
+            lane.last = _Slice(rnd, step, l)
             lane.slice_i += 1
         lane.done = True
         return None
 
     @staticmethod
-    def _carry_matches(rec: _Rec, last) -> bool:
-        """Is the request that produced `rec` seeded from `last`?"""
-        r = rec.req_i
-        if int(rec.rnd.req_start[r]) != rec.slice_i:
+    def _carry_matches(run: _Run, last) -> bool:
+        """Is the request that computed ``run`` seeded from ``last``?"""
+        r = run.req
+        if int(run.rnd.req_start[r]) != run.slice:
             return False
         if last == "init":
-            return rec.slice_i == 0 and rec.rnd.carry_from[r] == "init"
-        return rec.rnd.carry_from[r] is last
+            return run.slice == 0 and run.rnd.carry_from[r] == "init"
+        return run.rnd.carry_from[r] == last
 
-    def _tie_chain_inputs(self, accepted):
-        """Device tie rows for one lane's accepted chain, as the native
-        chain replay consumes them: tie [K, 3, Nm] int32 (plane 0 =
-        subsampled band-row hash in slot 0, planes 1/2 = decoded
-        node_min/node_end), check [K] uint8, min_scores [K] int32."""
-        K = len(accepted)
+    def _tie_chain_inputs(self, pieces):
+        """Device tie rows for the first slices of one lane's accepted
+        chain (``pieces``: [(run, its slices)]), as the native chain replay
+        consumes them: tie [K, 3, Nm] int32 (plane 0 = subsampled band-row
+        hash in slot 0, planes 1/2 = decoded node_min/node_end), check [K]
+        uint8, min_scores [K] int32, bandwidths [K] int32."""
+        K = sum(m for _, m in pieces)
         Nm = self.Nm
         tie = np.zeros((K, 3, Nm), np.int32)
         check = np.zeros(K, np.uint8)
-        r0 = accepted[0]
-        straight = all(
-            rec.rnd is r0.rnd
-            and rec.lane_in_round == r0.lane_in_round
-            and rec.step == r0.step + k
-            for k, rec in enumerate(accepted)
-        )
-        if straight:
-            lr = r0.lane_in_round
-            s0 = r0.step
-            traw = r0.rnd.tie16_lane(lr)[s0 : s0 + K]
-            ms = r0.rnd.min_score[s0 : s0 + K, lr].astype(np.int64)
-            tie[:, 1], tie[:, 2] = _decode_tie(traw, ms[:, None])
+        ms = np.zeros(K, np.int32)
+        bw = np.zeros(K, np.int32)
+        p = 0
+        for r, m in pieces:
+            rnd, lr, s0 = r.rnd, r.lane, r.step
+            traw = rnd.tie16_lane(lr)[s0 : s0 + m]
+            ms_r = rnd.min_score[s0 : s0 + m, lr].astype(np.int64)
+            tie[p : p + m, 1], tie[p : p + m, 2] = _decode_tie(
+                traw, ms_r[:, None])
             # subsampled band-HASH checks exist at absolute steps = 0 mod 8
             k0 = (-s0) % 8
-            sub = r0.rnd.tie_ids_sub[(s0 + k0) // 8 : (s0 + K + 7) // 8, lr]
-            tie[k0 : k0 + sub.shape[0] * 8 : 8, 0, 0] = sub
-            check[k0::8] = 1
-            ms = ms.astype(np.int32)
-        else:
-            ms = np.zeros(K, np.int32)
-            for k, rec in enumerate(accepted):
-                traw = rec.rnd.tie16_lane(rec.lane_in_round)[rec.step]
-                tie[k, 1], tie[k, 2] = _decode_tie(traw, rec.min_score)
-                ms[k] = rec.min_score
-                if rec.step % 8 == 0:
-                    tie[k, 0, 0] = rec.rnd.tie_ids_sub[
-                        rec.step // 8, rec.lane_in_round
-                    ]
-                    check[k] = 1
-        return tie, check, ms
+            sub = rnd.tie_ids_sub[(s0 + k0) // 8 : (s0 + m + 7) // 8, lr]
+            tie[p + k0 : p + k0 + sub.shape[0] * 8 : 8, 0, 0] = sub
+            check[p + k0 : p + m : 8] = 1
+            ms[p : p + m] = ms_r
+            bw[p : p + m] = rnd.bw[s0 : s0 + m, lr]
+            p += m
+        return tie, check, ms, bw
 
 
 # =========================================================================

@@ -49,7 +49,7 @@ SPANS = {
     "scan.upload": "a round's inputs to the device",
     "scan.issue": "a round's slice loop of launches (no sync)",
     "fetch": "a read of round outputs to the host (waits for the device)",
-    "scan.unpack": "control words, and the lanes' chains of slices",
+    "scan.unpack": "control words, and each request's run of slices",
     "scan.replay": "the host control replay (HMM, ramp rewinds)",
     "walk.tail": "removeWronglyAlignedEnd",
     "walk.gather": "the walk lanes' final slices (long mode: segments)",
@@ -73,6 +73,10 @@ COUNTERS = {
     "scan.lane_slices_launched": "S_max x B, summed over rounds",
     "scan.band_nodes": "band nodes of the active lane-slices (device)",
     "scan.band_nodes_max": "the most band nodes of one lane-slice (device)",
+    "scan.bulk_lanes": "lanes the vectorized replay finished",
+    "scan.literal_lanes": "lanes the literal replay advanced a slice or more",
+    "walk.accepted_runs": "runs of the walked lanes' tables, summed: one a "
+                          "lane where each table is one straight stretch",
     "finalize.reads": "reads encoded to GAM",
     "long.lanes": "long mode: lanes walked",
     "long.lane_windows": "long mode: lane-windows walked",

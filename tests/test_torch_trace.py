@@ -7,6 +7,8 @@
   and the band-node counters equal counts taken from the rounds'
   ``band_ids`` and active masks; the GAM bytes equal those of a run with
   tracing off.
+- The vectorized replay's lanes and those handed to the literal replay
+  account for every lane of the chunks.
 - Long-read mode (a forced window of 4 slices) walks more lane-windows
   than lanes, and its spans nest as the normal mode's.
 - ``seconds`` takes the union of nested spans.
@@ -43,14 +45,15 @@ def corpus():
 
 def _align(corpus, bw, ramp, window=None, rounds=None):
     """{read: GAM bytes} of one aligner's seeded batch and its finalize;
-    with ``rounds`` a list, each scan round's (seg_active, LaneShards) and
-    each chunk's problems are appended to it."""
+    with ``rounds`` a list, each scan round's (seg_active, LaneShards),
+    each chunk's problems and lanes, and each lane the literal replay is
+    handed are appended to it."""
     graph, reads, seeds = corpus
     aligner = ba.BandedBatchAligner(graph, bw, ramp, "cpu")
     if window is not None:
         aligner.LONG_WINDOW = window
     if rounds is not None:
-        scan, run = aligner._scan, aligner._run
+        scan, run, replay = aligner._scan, aligner._run, aligner._replay
 
         def rec_scan(*a):
             out = scan(*a)
@@ -59,9 +62,16 @@ def _align(corpus, bw, ramp, window=None, rounds=None):
 
         def rec_run(problems):
             rounds.append(("chunk", problems))
-            return run(problems)
+            lanes = run(problems)
+            rounds.append(("lanes", lanes))
+            return lanes
+
+        def rec_replay(lane):
+            rounds.append(("replay", lane))
+            return replay(lane)
 
         aligner._scan, aligner._run = rec_scan, rec_run
+        aligner._replay = rec_replay
     res = ba.align_reads_seeded_batch(graph, aligner, reads, seeds)
     return {sid: _finalize_output_alignment(r.alignment).encode()
             for sid, r in res.items() if not r.alignment_failed}
@@ -122,6 +132,9 @@ def test_spans_nest_and_are_documented(traced_b35):
     outside = {spans[i][0] for i in range(len(spans)) if i not in inside}
     assert outside == {"setup.tables", "setup.reverse_pos", "setup.reach",
                        "setup.device_tables", "finalize.gam"}
+    for name in ("scan.bulk_lanes", "scan.literal_lanes",
+                 "walk.accepted_runs"):
+        assert name in trace.COUNTERS and name in snap["counters"], name
     names = {n for n, *_ in spans}
     for name in ("scan.pack", "scan.carry", "scan.upload", "scan.issue",
                  "fetch", "scan.unpack", "scan.replay", "walk.tail",
@@ -149,6 +162,24 @@ def test_scan_counters_equal_the_chunks_problems(traced_b35):
     assert c["scan.lane_slices_launched"] == sum(
         int(seg.shape[0]) * int(seg.shape[1]) for _, seg, _ in scans)
     assert c["finalize.reads"] == N_READS
+
+
+def test_bulk_and_literal_lanes_account_for_every_lane(traced_b35):
+    """Every lane of the chunks is finished by the vectorized replay or
+    handed to the literal one (which fails it, or advances it a slice or
+    more, or finds it has no slice)."""
+    _, snap, rounds = traced_b35
+    c = snap["counters"]
+    lanes = [lane for kind, *rest in rounds if kind == "lanes"
+             for lane in rest[0]]
+    literal = {id(rest[0]) for kind, *rest in rounds if kind == "replay"}
+    stepped = [lane for lane in lanes if lane.stepped]
+    assert lanes and c["scan.bulk_lanes"] > 0
+    assert c["scan.bulk_lanes"] + len(literal) == len(lanes)
+    assert c["scan.literal_lanes"] == len(stepped)
+    assert {id(lane) for lane in stepped} <= literal
+    assert all(lane.failed or lane.num_slices == 0
+               for lane in lanes if id(lane) in literal and not lane.stepped)
 
 
 def test_band_node_counters_equal_the_rounds_bands(traced_b35):
